@@ -1,0 +1,28 @@
+"""Load JAX-package weights and Adam moments into the port.
+
+The JAX package keeps parameters as ``{'w1': [F, H], 'w2': [H, C], ...}``
+(cuda_gcn_tpu/models/gcn.py ``init_params``) and Adam as ``m``/``v`` trees of
+the same shape plus an int32 ``step`` (cuda_gcn_tpu/ops/adam.py). Given those
+as numpy arrays, these functions build the port's state, so that both packages
+compute the same thing from the same weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cuda_gcn_torch.ops.adam import AdamState
+
+
+def params_from_jax(params: dict[str, np.ndarray],
+                    device: str | torch.device) -> dict[str, torch.Tensor]:
+    """A ``GCN`` state_dict from ``TrainState.params`` (same names, same layout)."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in params.items()}
+
+
+def adam_from_jax(m: dict[str, np.ndarray], v: dict[str, np.ndarray], step: int,
+                  device: str | torch.device) -> AdamState:
+    return AdamState(m=params_from_jax(m, device), v=params_from_jax(v, device),
+                     step=torch.tensor(int(step), dtype=torch.int32, device=device))

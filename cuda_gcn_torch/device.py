@@ -1,0 +1,26 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on ``cuda`` unless the caller asks for the CPU
+(``device="cpu"``, as the tests do). With no card and no explicit CPU request
+they raise; they never carry on on the CPU.
+
+Resolving a device also turns TF32 off for float32 matrix products and
+convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``): f32 parity with the JAX package, which
+multiplies in full f32, depends on it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "cuda_gcn_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch versions")
+    return dev

@@ -1,0 +1,192 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+At first use each source in ``cuda_gcn_torch/csrc/*.cu`` is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface under
+``build/kernels/`` at the repository root (one ``nvcc`` per source, started
+together), and loaded with ctypes. A library's file name carries a hash of its
+source and flags, so an edited source is rebuilt. Nothing is built or loaded
+when this module is imported.
+
+Each launcher checks device, dtype, shape and contiguity, allocates its
+output, launches on PyTorch's current stream without synchronising, raises if
+the C entry point returns a CUDA error, and adds one to its entry in
+``launches`` — there and nowhere else. There is no fallback: a failed build or
+launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point and argtypes of each source; every entry returns cudaError_t.
+_ENTRY = {
+    "bsr_tile": ("bsr_tile_contract", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "csr_spmm": ("csr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+}
+
+launches = {name: 0 for name in _ENTRY}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (CUDA toolkit under /usr/local/cuda)")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{name}.{digest[:12]}.so")
+
+
+def build(names=None) -> dict[str, dict]:
+    """Compile the named sources (all by default) that have no up-to-date
+    library, in parallel. Returns {name: {"seconds", "log"}} for the sources
+    compiled; raises with nvcc's output if one fails."""
+    names = list(_ENTRY) if names is None else list(names)
+    todo = {n: _lib_path(n) for n in names if not os.path.exists(_lib_path(n))}
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, path in todo.items():
+        cmd = [nvcc, *NVCC_FLAGS, "-o", path + ".tmp",
+               os.path.join(SRC_DIR, f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    report, failed = {}, []
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+        else:
+            os.replace(todo[name] + ".tmp", todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return report
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_lib_path(name))
+        fn_name, argtypes = _ENTRY[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def _call(name: str, *args) -> None:
+    fn = getattr(_lib(name), _ENTRY[name][0])
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+    launches[name] += 1
+
+
+def _check(t: torch.Tensor, what: str, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# Kernel 1's CTA covers one block row of at most 256 rows (2 per thread),
+# walking the tile in 32-column steps (csrc/bsr_tile.cu).
+BSR_MAX_TB = 256
+BSR_TB_MULTIPLE = 32
+
+
+def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int,
+             transpose: bool) -> torch.Tensor:
+    """Launch kernel 1: returns the dense-tile part [n, d] in f32."""
+    if not h.is_cuda:
+        raise RuntimeError(f"bsr_tile launches on a CUDA tensor, got {h.device}")
+    dev = h.device
+    h = h.contiguous()
+    _check(h, "h", torch.float32, dev)
+    if tiles.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"tiles must be bfloat16 or float32, got {tiles.dtype}")
+    _check(tiles, "tiles", tiles.dtype, dev)
+    for t, what in ((ptr, "ptr"), (order, "order"), (hblk, "hblk")):
+        _check(t, what, torch.int32, dev)
+    k, tb = int(tiles.shape[0]), int(tiles.shape[1])
+    d = int(h.shape[1])
+    if tiles.dim() != 3 or tiles.shape[2] != tb:
+        raise ValueError(f"tiles must be [K, tb, tb], got {tuple(tiles.shape)}")
+    if tb > BSR_MAX_TB or tb % BSR_TB_MULTIPLE:
+        raise ValueError(f"tile size {tb} must be a multiple of "
+                         f"{BSR_TB_MULTIPLE} and at most {BSR_MAX_TB}")
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles must be 16-byte aligned (the kernel loads 16 bytes at a time)")
+    if h.shape[0] != n or ptr.numel() != t_blocks + 1 or order.numel() != k \
+            or hblk.numel() != k or t_blocks * tb < n or t_blocks > 65535:
+        raise ValueError("bsr_tile: inconsistent shapes")
+    out = torch.empty(n, d, dtype=torch.float32, device=dev)
+    if n == 0 or d == 0:
+        return out
+    _call("bsr_tile", ptr.data_ptr(), order.data_ptr(), hblk.data_ptr(),
+          tiles.data_ptr(), int(tiles.dtype == torch.bfloat16), h.data_ptr(),
+          out.data_ptr(), n, d, tb, t_blocks, int(transpose), _stream(dev))
+    return out
+
+
+def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
+    """Launch kernel 2: Σ_e coef·h[col] per CSR row in f32, added in place to
+    ``out`` when given, else written to a new [n, d] tensor."""
+    if not h.is_cuda:
+        raise RuntimeError(f"csr_spmm launches on a CUDA tensor, got {h.device}")
+    dev = h.device
+    h = h.contiguous()
+    _check(h, "h", torch.float32, dev)
+    _check(row_ptr, "row_ptr", torch.int32, dev)
+    _check(cols, "cols", torch.int32, dev)
+    _check(coef, "coef", torch.float32, dev)
+    n, d = int(h.shape[0]), int(h.shape[1])
+    if row_ptr.numel() != n + 1 or cols.numel() != coef.numel():
+        raise ValueError("csr_spmm: inconsistent shapes")
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty(n, d, dtype=torch.float32, device=dev)
+    _check(out, "out", torch.float32, dev)
+    if tuple(out.shape) != (n, d):
+        raise ValueError(f"out must be [{n}, {d}], got {tuple(out.shape)}")
+    if n == 0 or d == 0:
+        return out
+    _call("csr_spmm", row_ptr.data_ptr(), cols.data_ptr(), coef.data_ptr(),
+          h.data_ptr(), out.data_ptr(), n, d, int(accumulate), _stream(dev))
+    return out

@@ -1,0 +1,75 @@
+"""The Kipf & Welling GCN (cuda_gcn_tpu/models/gcn.py:51-129).
+
+Layer ℓ computes H' = Â · (dropout(H) · Wℓ), ReLU on all but the last layer.
+Weights keep the JAX layout and names: ``w1`` [F, H], ``w2`` [H, C], ...
+Glorot init is uniform in (-a, a) with a = sqrt(6/(fan_in+fan_out))
+(src/seq/variable.cpp:11-18), drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from cuda_gcn_torch.data.graph import Graph
+from cuda_gcn_torch.ops.dropout import dropout
+from cuda_gcn_torch.ops.graphsum import graphsum, graphsum_pair
+from cuda_gcn_torch.ops.loss import l2_penalty, masked_cross_entropy, strict_accuracy
+from cuda_gcn_torch.ops.matmul import dense_matmul
+
+
+def glorot(fan_in: int, fan_out: int, generator: torch.Generator) -> torch.Tensor:
+    a = (6.0 / (fan_in + fan_out)) ** 0.5
+    return torch.empty(fan_in, fan_out).uniform_(-a, a, generator=generator)
+
+
+class GCN(nn.Module):
+    def __init__(self, layer_dims: tuple[int, ...], generator: torch.Generator):
+        """Glorot-initialised weights for consecutive ``layer_dims`` pairs,
+        drawn on the CPU from ``generator`` (the same weights on any device)."""
+        super().__init__()
+        self.n_layers = len(layer_dims) - 1
+        for i in range(self.n_layers):
+            setattr(self, f"w{i + 1}",
+                    nn.Parameter(glorot(layer_dims[i], layer_dims[i + 1], generator)))
+
+    def weights(self) -> list[torch.Tensor]:
+        return [getattr(self, f"w{i + 1}") for i in range(self.n_layers)]
+
+    def forward(self, graph: Graph, x: torch.Tensor, *, dropout_rate: float = 0.0,
+                generator: torch.Generator | None = None,
+                training: bool = False) -> torch.Tensor:
+        """Forward pass -> logits [N, C] (``apply`` in the JAX package)."""
+        h = x
+        for i, w in enumerate(self.weights()):
+            h = graphsum(dense_matmul(dropout(h, dropout_rate, generator, training), w),
+                         graph)
+            if i < self.n_layers - 1:
+                h = torch.relu(h)
+        return h
+
+    def apply_pair(self, graph: Graph, x: torch.Tensor, *, dropout_rate: float,
+                   generator: torch.Generator | None):
+        """One fused forward giving the dropout-active training logits and the
+        eval (no-dropout) logits of the same weights: both ride one
+        aggregation per layer at concatenated width, and only the training
+        half is differentiated (ops/graphsum.graphsum_pair)."""
+        ht = he = x
+        for i, w in enumerate(self.weights()):
+            zt = dense_matmul(dropout(ht, dropout_rate, generator, True), w)
+            with torch.no_grad():
+                ze = dense_matmul(he, w)
+            ht, he = graphsum_pair(zt, ze, graph)
+            if i < self.n_layers - 1:
+                ht, he = torch.relu(ht), torch.relu(he)
+        return ht, he
+
+    def loss_fn(self, graph: Graph, x: torch.Tensor, truth: torch.Tensor, *,
+                weight_decay: float, dropout_rate: float = 0.0,
+                generator: torch.Generator | None = None, training: bool = False):
+        """Reported loss = masked CE + wd/2·||W1||² (gcn.cpp:112, :98-105);
+        returns (loss, logits, accuracy)."""
+        logits = self(graph, x, dropout_rate=dropout_rate, generator=generator,
+                      training=training)
+        loss = masked_cross_entropy(logits, truth) + l2_penalty(self.w1, weight_decay)
+        return loss, logits, strict_accuracy(logits, truth)

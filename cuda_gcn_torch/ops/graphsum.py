@@ -1,0 +1,97 @@
+"""GraphSum: out = Â·H, with backward Âᵀ·G (cuda_gcn_tpu/ops/graphsum.py).
+
+Dispatch by backend:
+
+* ``bsr``     — kernel 1 (dense tiles, ops/bsr.py) writes the tile part, then
+  kernel 2 (ops/residual.py) adds the residual edges into it;
+* ``segment`` — kernel 2 over every edge;
+* ``dense``   — ``torch.mm`` on the dense Â, as the JAX package leaves it to XLA
+  (:326-327).
+
+A symmetric graph routes the backward through the forward structures
+(:335-352); an asymmetric one runs over the transposed tile plan and the
+transposed residual CSR.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuda_gcn_torch.data.graph import Graph, ResidualCSR
+from cuda_gcn_torch.ops.bsr import bsr_tile_contract
+from cuda_gcn_torch.ops.residual import residual_spmm
+
+
+def _residual(h, resid: ResidualCSR, out=None):
+    return residual_spmm(resid.row_ptr, resid.cols, resid.coef, h, out)
+
+
+def _bsr_apply(h, graph: Graph, transpose: bool):
+    if transpose:
+        rows, cols, plan = graph.tile_cols, graph.tile_rows, graph.plan_t
+    else:
+        rows, cols, plan = graph.tile_rows, graph.tile_cols, graph.plan
+    if graph.num_tiles == 0:
+        return _residual(h, graph.resid_t if transpose else graph.resid)
+    out = bsr_tile_contract(graph.tiles, rows, cols, h, graph.n_nodes,
+                            graph.t_blocks, transpose=transpose, plan=plan)
+    return _residual(h, graph.resid_t if transpose else graph.resid, out)
+
+
+def _apply(h: torch.Tensor, graph: Graph, transpose: bool) -> torch.Tensor:
+    h = h.contiguous()
+    if graph.backend == "bsr":
+        return _bsr_apply(h, graph, transpose)
+    if graph.backend == "dense":
+        return torch.mm(graph.adj.t() if transpose else graph.adj, h)
+    return _residual(h, graph.resid_t if transpose else graph.resid)
+
+
+def forward(h: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Â·H without autograd."""
+    return _apply(h, graph, transpose=False)
+
+
+def transpose_forward(g: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Âᵀ·G; a symmetric Â is its own transpose."""
+    return _apply(g, graph, transpose=not graph.symmetric)
+
+
+class GraphSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, graph):
+        ctx.graph = graph
+        return forward(h, graph)
+
+    @staticmethod
+    def backward(ctx, g):
+        return transpose_forward(g, ctx.graph), None
+
+
+def graphsum(h: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """out = Â·H for H of shape [N, d]."""
+    return GraphSum.apply(h, graph)
+
+
+class _GraphSumPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, zt, ze, graph):
+        ctx.graph = graph
+        d = zt.shape[1]
+        both = forward(torch.cat([zt, ze], dim=1), graph)
+        out_t, out_e = both[:, :d].contiguous(), both[:, d:].contiguous()
+        ctx.mark_non_differentiable(out_e)
+        return out_t, out_e
+
+    @staticmethod
+    def backward(ctx, g_t, g_e):
+        return transpose_forward(g_t, ctx.graph), None, None
+
+
+def graphsum_pair(zt: torch.Tensor, ze: torch.Tensor, graph: Graph):
+    """(Â·zt, Â·ze) in one adjacency pass at the concatenated width
+    (cuda_gcn_tpu/ops/graphsum.py:474-514). Only the train half is
+    differentiated, so the backward pass runs at train width; the eval half
+    is detached."""
+    out_t, out_e = _GraphSumPair.apply(zt, ze.detach(), graph)
+    return out_t, out_e.detach()

@@ -1,0 +1,164 @@
+"""The port's model and trainer against the JAX package's, on the CPU.
+
+Weights made by the JAX package are carried into the port (convert.py), so
+both compute the same thing: logits and gradients at dropout 0, and three
+fused epochs of the trainer on ``tiny_dataset`` with the bsr backend, within
+1e-4 (the reduction orders differ). The port's fused loop must equal its
+stepwise loop, dropout included (the same generator draws the same masks).
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cuda_gcn_tpu import train as jtrain
+from cuda_gcn_tpu.config import GCNConfig as JConfig
+from cuda_gcn_tpu.data import graph as jgraph
+from cuda_gcn_tpu.models import gcn as jgcn
+
+from cuda_gcn_torch import cli, convert
+from cuda_gcn_torch import train as ttrain
+from cuda_gcn_torch.config import GCNConfig
+from cuda_gcn_torch.data import dataset as tds
+from cuda_gcn_torch.data import graph as tgraph
+
+
+def to_torch_dataset(ds):
+    def csr(c):
+        return tds.CSR(np.asarray(c.indptr), np.asarray(c.indices))
+
+    return tds.GCNDataset(graph=csr(ds.graph), feature_index=csr(ds.feature_index),
+                          feature_value=ds.feature_value, label=ds.label,
+                          split=ds.split, num_nodes=ds.num_nodes,
+                          input_dim=ds.input_dim, output_dim=ds.output_dim)
+
+
+def jax_params(cfg):
+    state = jtrain.create_state(cfg)
+    return state, {k: np.asarray(v) for k, v in state.params.items()}
+
+
+def test_config_fields_match_jax():
+    import dataclasses
+
+    jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(GCNConfig)}
+    assert jf == tf
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_model_logits_and_grads_match_jax(tiny_dataset, pair):
+    """apply / apply_pair at the same weights, dropout 0, bsr tiles of 32."""
+    kw = dict(bsr_tile=32, bsr_min_edges=8, bsr_dtype="float32")
+    jg = jgraph.build_graph(tiny_dataset.graph, backend="bsr", **kw)
+    tds_ = to_torch_dataset(tiny_dataset)
+    tg = tgraph.build_graph(tds_.graph, backend="bsr", device="cpu", **kw)
+    assert tg.num_tiles > 0
+    x = tiny_dataset.dense_features(np.float32)
+    truth = np.where(tiny_dataset.split == 1, tiny_dataset.label, -1).astype(np.int32)
+    cfg = tiny_dataset.apply_config(JConfig(seed=3))
+    _, params = jax_params(cfg)
+    state = ttrain.create_state(tds_.apply_config(GCNConfig(seed=3)), device="cpu")
+    state.model.load_state_dict(convert.params_from_jax(params, "cpu"))
+    tx = torch.from_numpy(x)
+    tt = torch.from_numpy(truth.astype(np.int64))
+
+    if pair:
+        want_t, want_e = jgcn.apply_pair({k: jnp.asarray(v) for k, v in params.items()},
+                                         jg, jnp.asarray(x), key=jax.random.PRNGKey(0),
+                                         dropout_rate=0.0)
+        got_t, got_e = state.model.apply_pair(tg, tx, dropout_rate=0.0, generator=None)
+        np.testing.assert_allclose(got_e.numpy(), np.asarray(want_e), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_t.detach().numpy(), np.asarray(want_t),
+                                   rtol=1e-5, atol=1e-6)
+        return
+    (want_loss, (want_logits, want_acc)), want_g = jax.value_and_grad(
+        jgcn.loss_fn, has_aux=True)({k: jnp.asarray(v) for k, v in params.items()},
+                                    jg, jnp.asarray(x), jnp.asarray(truth),
+                                    weight_decay=5e-4)
+    loss, logits, acc = state.model.loss_fn(tg, tx, tt, weight_decay=5e-4)
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want_logits),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-6)
+    assert float(acc) == float(want_acc)
+    for k, p in state.model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_g[k]),
+                                   rtol=1e-4, atol=1e-7)
+
+
+def test_fused_epochs_match_jax_run_epochs(tiny_dataset):
+    cfg = JConfig(epochs=3, dropout=0.0, graphsum_backend="bsr", reorder="none", seed=0)
+    jcfg, jg, jx, jtruths = jtrain.prepare(cfg, tiny_dataset)
+    jstate, params = jax_params(jcfg)
+    kw = dict(dropout_rate=0.0, weight_decay=jcfg.weight_decay, lr=jcfg.learning_rate)
+    jstate, jm = jtrain.run_epochs(jstate, jg, jx, jtruths[1], jtruths[2], epochs=3, **kw)
+    want = np.stack([np.asarray(m) for m in jm], axis=1)
+
+    tcfg = GCNConfig(epochs=3, dropout=0.0, graphsum_backend="bsr", reorder="none")
+    tcfg, tg, tx, ttruths = ttrain.prepare(tcfg, to_torch_dataset(tiny_dataset), "cpu")
+    assert tg.backend == "bsr" and tg.num_tiles == int(jg.bsr_tiles.shape[0]) > 0
+    state = ttrain.create_state(tcfg, "cpu")
+    state.model.load_state_dict(convert.params_from_jax(params, "cpu"))
+    got = ttrain.run_epochs(state, tg, tx, ttruths[1], ttruths[2], epochs=3, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    for k, p in state.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jstate.params[k]),
+                                   rtol=1e-4, atol=1e-5)
+    assert int(state.opt.step) == int(jstate.opt.step) == 3
+    # the Adam moments carry over too
+    opt = convert.adam_from_jax({k: np.asarray(v) for k, v in jstate.opt.m.items()},
+                                {k: np.asarray(v) for k, v in jstate.opt.v.items()},
+                                int(jstate.opt.step), "cpu")
+    for k in opt.m:
+        np.testing.assert_allclose(state.opt.m[k].numpy(), opt.m[k].numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_fused_epochs_match_stepwise(tiny_dataset):
+    """Pass fusion changes no value: metrics and final weights equal the
+    train_step + eval_step loop, with dropout 0.5 on the same generator."""
+    cfg = GCNConfig(epochs=4, graphsum_backend="bsr", reorder="none")
+    cfg, g, x, truths = ttrain.prepare(cfg, to_torch_dataset(tiny_dataset), "cpu")
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay,
+              lr=cfg.learning_rate)
+    fused = ttrain.create_state(cfg, "cpu")
+    got = ttrain.run_epochs(fused, g, x, truths[1], truths[2], epochs=4, **kw)
+    step = ttrain.create_state(cfg, "cpu")
+    ref = []
+    for _ in range(4):
+        tl, ta = ttrain.train_step(step, g, x, truths[1], **kw)
+        vl, va = ttrain.eval_step(step.model, g, x, truths[2],
+                                  weight_decay=cfg.weight_decay)
+        ref.append([float(tl), float(ta), float(vl), float(va)])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    for (k, a), (_, b) in zip(fused.model.named_parameters(), step.model.named_parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_run_prints_output_contract(tiny_dataset, capsys):
+    cfg = GCNConfig(epochs=3, graphsum_backend="bsr", reorder="none")
+    res = ttrain.run(cfg, to_torch_dataset(tiny_dataset), device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    num = r"-?\d+\.\d{5}"
+    for i, line in enumerate(lines[:3], start=1):
+        assert re.fullmatch(rf"epoch={i} train_loss={num} train_acc={num} "
+                            rf"val_loss={num} val_acc={num} time={num}", line), line
+    assert re.fullmatch(rf"total training time={num}", lines[3])
+    assert re.fullmatch(rf"test_loss={num} test_acc={num} time={num}", lines[4])
+    assert res.epochs_run == 3 and np.isfinite(res.test_loss)
+    with pytest.raises(NotImplementedError, match="LPA"):
+        ttrain.prepare(GCNConfig(graphsum_backend="bsr"), to_torch_dataset(tiny_dataset),
+                       "cpu")
+
+
+def test_cli_runs_on_cpu_and_reports_missing_input(capsys):
+    assert cli.main(["synth-cora", "--epochs", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "RUNNING ON CPU" in out and "epoch=2 " in out and "test_acc=" in out
+    assert cli.main(["no-such-profile", "--device", "cpu"]) == 1
