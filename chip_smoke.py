@@ -18,11 +18,25 @@ Phases, each of which raises (exit code not 0) when it fails:
 (e) train synth-pubmed on the card and on the CPU (plain versions) from the
     same weights at dropout 0: the metrics must agree;
 (f) device time by kernel and the device's busy share, from torch.profiler
-    over a few warm epochs (run before (e)).
+    over a few warm epochs (run before (e));
+(g) the pallas path: synth-pubmed, 500-16-3, backend ``pallas``. Kernel 3
+    (ELL SpMM) against its plain version at d 3, 6, 16, 32, and bitwise equal
+    to itself across two runs; ``train.run`` 100 epochs at dropout 0.5 with
+    finite metrics, a falling train loss, and kernel 3 launched on every
+    adjacency pass (4 per epoch + 2 + 2) and no other kernel; card against
+    CPU for 3 epochs at dropout 0 within 1e-4; an early-stopping run that
+    stops at the same epoch on the card as on the CPU;
+(h) kernel 3 at reddit scale: synth-reddit without reordering, backend
+    ``ell``, against its plain version at d 16, 32, 41, 82, timed beside its
+    plain version, a sparse CSR product and its bound; ``train.run`` 3 epochs
+    with 4 launches per epoch + 4;
+(i) the probe kernels (``python -m cuda_gcn_torch.probes.gather``) at the
+    script's default shapes: each against its plain version, its time, ns per
+    row and bound, and a PyTorch call as the yardstick.
 
-It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1
-and prints no result.
+It prints the card's name and power limit, one ``{"kernels": [...]}`` line
+with all five kernels, and last ``{"ok": true, "device": {...}}``. Without a
+CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -46,18 +60,9 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    import torch
+    from cuda_gcn_torch.device import cuda_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters)
 
 
 def max_errors(got, want):
@@ -75,6 +80,14 @@ def check(name: str, got, want) -> float:
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return abs_err
+
+
+def _metrics(res):
+    """A run's metric rows and, last, its test loss and accuracy."""
+    import numpy as np
+
+    return np.array([[h[k] for k in ("train_loss", "train_acc", "val_loss", "val_acc")]
+                     for h in res.history] + [[res.test_loss, res.test_acc, 0, 0]])
 
 
 def phase_build():
@@ -161,9 +174,10 @@ def phase_main_path(dataset):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train loss did not fall: {losses}")
     expected = 4 * EPOCHS + 2 + 2
-    log(f"  launches {launches}; expected {expected} each "
-        f"(4 per epoch + 2 trailing eval + 2 test eval)")
-    if any(v != expected for v in launches.values()):
+    log(f"  launches {launches}; expected {expected} each for bsr_tile and csr_spmm "
+        f"(4 per epoch + 2 trailing eval + 2 test eval), 0 for the others")
+    if any(v != (expected if k in ("bsr_tile", "csr_spmm") else 0)
+           for k, v in launches.items()):
         raise AssertionError("a kernel did not run on every adjacency pass")
     return launches
 
@@ -185,7 +199,7 @@ def _fused_inputs(dataset):
     return cfg, x, truths, kw
 
 
-def phase_steady(graph, dataset) -> float:
+def phase_steady(graph, dataset, label: str = "") -> float:
     import torch
 
     from cuda_gcn_torch import train
@@ -197,12 +211,12 @@ def phase_steady(graph, dataset) -> float:
     t0 = time.perf_counter()
     train.run_epochs(state, graph, x, *truths, epochs=EPOCHS, **kw).cpu()
     ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
-    log(f"  steady fused loop: {ms:.2f} ms/epoch over {EPOCHS} epochs "
+    log(f"  steady fused loop{label}: {ms:.2f} ms/epoch over {EPOCHS} epochs "
         f"(incl. the trailing eval)")
     return ms
 
 
-def phase_profile(graph, dataset, epochs: int = 3):
+def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)"):
     """torch.profiler over a few warm fused epochs: device time by kernel and
     the device's busy share of the wall time."""
     import torch
@@ -228,9 +242,9 @@ def phase_profile(graph, dataset, epochs: int = 3):
                 and "CUDA" in str(evt.device_type):
             kernels_ms[evt.key] = kernels_ms.get(evt.key, 0.0) + dev_us / 1e3
     busy = sum(kernels_ms.values())
-    log(f"(f) profile of {epochs} warm fused epochs: wall {wall_ms / epochs:.2f} ms/epoch, "
-        f"device busy {busy / epochs:.2f} ms/epoch ({busy / wall_ms:.3f} of wall)")
-    for name, ms in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:15]:
+    log(f"{label} profile of {epochs} warm fused epochs: wall {wall_ms / epochs:.2f} "
+        f"ms/epoch, device busy {busy / epochs:.2f} ms/epoch ({busy / wall_ms:.3f} of wall)")
+    for name, ms in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {ms / epochs:9.3f} ms/epoch  {name[:110]}")
 
 
@@ -334,20 +348,245 @@ def phase_small_reference():
 
     ds = reorder_cached(load_cached("synth-pubmed"), "synth-pubmed")
     cfg = GCNConfig(epochs=3, dropout=0.0, graphsum_backend="bsr", reorder="none")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        out[dev] = train.run(cfg, ds, device=dev, verbose=False)
-    a = np.array([[h[k] for k in ("train_loss", "train_acc", "val_loss", "val_acc")]
-                  for h in out["cuda"].history] + [[out["cuda"].test_loss,
-                                                    out["cuda"].test_acc, 0, 0]])
-    b = np.array([[h[k] for k in ("train_loss", "train_acc", "val_loss", "val_acc")]
-                  for h in out["cpu"].history] + [[out["cpu"].test_loss,
-                                                   out["cpu"].test_acc, 0, 0]])
+    a, b = (_metrics(train.run(cfg, ds, device=dev, verbose=False))
+            for dev in ("cuda", "cpu"))
     diff = float(np.abs(a - b).max())
     log(f"(e) synth-pubmed 3 epochs, card vs CPU plain versions: max metric diff "
         f"{diff:.3e} (tolerance 1e-4)")
     if not diff <= 1e-4:
         raise AssertionError(f"card and CPU disagree on synth-pubmed:\n{a}\n{b}")
+
+
+PUBMED_WIDTHS = (3, 6, 16, 32)  # pass widths of the pubmed path: pair 6/32, backward 3/16
+PUBMED_EPOCHS = 100
+REDDIT_ELL_EPOCHS = 3
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _ell_bound(plan, d: int) -> tuple[float, str]:
+    """Kernel 3's bound: each real slot's index and value, the row ids, h and
+    out once (the pad slots are skipped by the kernel), and an FMA per real
+    slot and feature."""
+    n = plan.n_nodes
+    return _bound(8 * plan.nnz + 4 * n + 4 * n * d + 4 * n * d, 2 * plan.nnz * d)
+
+
+def _check_ell(plan, widths, label, gen, errs, bitwise):
+    import torch
+
+    from cuda_gcn_torch.ops.ell import ell_spmm, ell_spmm_plain
+
+    for d in widths:
+        h = torch.randn(plan.n_nodes, d, generator=gen, device="cuda")
+        got = ell_spmm(plan, h)
+        want = ell_spmm_plain(plan, h)
+        errs["ell_spmm"] = max(errs["ell_spmm"], check(f"ell_spmm {label} d={d}", got, want))
+        if bitwise and not torch.equal(got, ell_spmm(plan, h)):
+            raise AssertionError(f"ell_spmm {label} d={d} differs between two runs")
+
+
+def _time_ell(plan, widths, label, gen, library_csr=None):
+    """{d: (ms, plain ms, library ms or None, bound ms, bound_by)}"""
+    import torch
+
+    from cuda_gcn_torch.ops.ell import ell_spmm, ell_spmm_plain
+
+    rows = {}
+    for d in widths:
+        h = torch.randn(plan.n_nodes, d, generator=gen, device="cuda")
+        ms = cuda_ms(lambda: ell_spmm(plan, h), 20)
+        plain = cuda_ms(lambda: ell_spmm_plain(plan, h), 3)
+        lib, note = (None, "not timed") if library_csr is None else _library_ms(
+            lambda: (lambda: library_csr @ h), 10)
+        bound, by = _ell_bound(plan, d)
+        rows[d] = (ms, plain, lib, bound, by)
+        log(f"  {label} d={d}: ell_spmm {ms:.4f} ms (plain {plain:.3f}; library "
+            f"{'%.4f ms' % lib if lib is not None else note}; bound {bound:.4f} ms, {by})")
+    return rows
+
+
+def phase_pallas_path(errs):
+    import math
+
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.data.graph import build_graph
+
+    ds = load_cached("synth-pubmed")
+    t0 = time.perf_counter()
+    graph = build_graph(ds.graph, backend="pallas", device="cuda")
+    torch.cuda.synchronize()
+    plan = graph.ell
+    log(f"(g) pallas path: synth-pubmed graph built in {time.perf_counter() - t0:.2f} s: "
+        f"n={plan.n_nodes} nnz={plan.nnz} ELL slots={plan.slots} buckets={len(plan.widths)} "
+        f"(widths {plan.widths[0]}..{plan.widths[-1]}) work items={plan.work_beg.numel()} "
+        f"chunked rows={plan.split_rows.numel()} symmetric={graph.symmetric}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    _check_ell(plan, PUBMED_WIDTHS, "synth-pubmed", gen, errs, bitwise=True)
+    timing = _time_ell(plan, PUBMED_WIDTHS, "synth-pubmed", gen)
+
+    cfg = GCNConfig(epochs=PUBMED_EPOCHS, graphsum_backend="pallas", seed=0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = train.run(cfg, ds, device="cuda", verbose=False)
+    launches = dict(kernels.launches)
+    log(f"  train.run {ds.input_dim}-{cfg.hidden_dim}-{ds.output_dim} pallas, dropout "
+        f"{cfg.dropout}, {PUBMED_EPOCHS} epochs: {time.perf_counter() - t0:.2f} s (graph "
+        f"build included), fused loop {res.total_train_time * 1e3 / PUBMED_EPOCHS:.3f} "
+        f"ms/epoch; train loss {res.history[0]['train_loss']:.5f} -> "
+        f"{res.history[-1]['train_loss']:.5f}, test_acc {res.test_acc:.5f}")
+    if not np.isfinite(_metrics(res)).all():
+        raise AssertionError("non-finite metrics on the pallas path")
+    if not res.history[-1]["train_loss"] < res.history[0]["train_loss"]:
+        raise AssertionError("train loss did not fall on the pallas path")
+    expected = 4 * PUBMED_EPOCHS + 2 + 2
+    log(f"  launches {launches}; expected ell_spmm {expected}, every other kernel 0")
+    if launches["ell_spmm"] != expected or any(
+            v for k, v in launches.items() if k != "ell_spmm"):
+        raise AssertionError("the pallas path did not run every pass through kernel 3")
+
+    phase_steady(graph, ds, " (synth-pubmed, pallas)")
+    phase_profile(graph, ds, label="  pallas path,")
+
+    small = GCNConfig(epochs=3, dropout=0.0, graphsum_backend="pallas")
+    a, b = (_metrics(train.run(small, ds, device=dev, verbose=False))
+            for dev in ("cuda", "cpu"))
+    diff = float(np.abs(a - b).max())
+    log(f"  card vs CPU plain versions, 3 epochs at dropout 0: max metric diff "
+        f"{diff:.3e} (tolerance 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"card and CPU disagree on the pallas path:\n{a}\n{b}")
+
+    es = GCNConfig(epochs=60, dropout=0.0, early_stopping=3, graphsum_backend="pallas")
+    stops = {dev: train.run(es, ds, device=dev, verbose=False) for dev in ("cuda", "cpu")}
+    vl = [h["val_loss"] for h in stops["cuda"].history]
+    w = es.early_stopping
+    # val loss minus the mean of the last w (stop when > 0), per epoch from w on
+    margin = [vl[i] - sum(vl[i - w + 1:i + 1]) / w for i in range(w - 1, len(vl))]
+    log(f"  early stopping (window {w}, dropout 0): card stopped after epoch "
+        f"{stops['cuda'].epochs_run}, CPU after {stops['cpu'].epochs_run}; card's stop "
+        f"margin {margin[-1]:.3e} at the stop, {max(margin[:-1], default=float('nan')):.3e} "
+        f"at the closest earlier epoch")
+    if stops["cuda"].epochs_run != stops["cpu"].epochs_run or not \
+            stops["cuda"].epochs_run < es.epochs or not math.isfinite(vl[-1]):
+        raise AssertionError("early stopping differs between the card and the CPU")
+    return launches, timing
+
+
+def phase_ell_reddit(errs):
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.data.graph import build_graph, normalization_coefficients
+
+    ds = load_cached("synth-reddit")
+    t0 = time.perf_counter()
+    graph = build_graph(ds.graph, backend="ell", device="cuda")
+    torch.cuda.synchronize()
+    plan = graph.ell
+    log(f"(h) kernel 3 at reddit scale: synth-reddit (no reordering) ell graph built in "
+        f"{time.perf_counter() - t0:.1f} s: n={plan.n_nodes} nnz={plan.nnz} ELL slots="
+        f"{plan.slots} buckets={len(plan.widths)} (widths {plan.widths[0]}.."
+        f"{plan.widths[-1]}) work items={plan.work_beg.numel()} chunked rows="
+        f"{plan.split_rows.numel()} partials={plan.n_partials}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _check_ell(plan, WIDTHS, "synth-reddit", gen, errs, bitwise=True)
+    indptr = ds.graph.indptr.astype(np.int64)
+    indices = ds.graph.indices.astype(np.int64)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(indptr).cuda(), torch.from_numpy(indices).cuda(),
+        torch.from_numpy(normalization_coefficients(indptr, indices)).cuda(),
+        size=(plan.n_nodes, plan.n_nodes))
+    timing = _time_ell(plan, WIDTHS, "synth-reddit", gen, library_csr=csr)
+    del csr
+    phase_steady(graph, ds, " (synth-reddit, ell)")
+    phase_profile(graph, ds, label="  ell backend,")
+    del graph, plan
+    torch.cuda.empty_cache()
+
+    cfg = GCNConfig(epochs=REDDIT_ELL_EPOCHS, graphsum_backend="ell", seed=0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = train.run(cfg, ds, device="cuda", verbose=False)
+    launches = dict(kernels.launches)
+    expected = 4 * REDDIT_ELL_EPOCHS + 4
+    log(f"  train.run {ds.input_dim}-{cfg.hidden_dim}-{ds.output_dim} ell, "
+        f"{REDDIT_ELL_EPOCHS} epochs: {time.perf_counter() - t0:.1f} s (graph build "
+        f"included), fused loop {res.total_train_time * 1e3 / REDDIT_ELL_EPOCHS:.2f} "
+        f"ms/epoch; launches {launches}, expected ell_spmm {expected}")
+    if not np.isfinite(_metrics(res)).all():
+        raise AssertionError("non-finite metrics on the reddit ell run")
+    if launches["ell_spmm"] != expected:
+        raise AssertionError("the reddit ell run did not go through kernel 3")
+    return timing
+
+
+def phase_probes(errs):
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.probes import gather as probes
+
+    kernels.reset_launches()
+    res = probes.run()
+    launches = dict(kernels.launches)
+    x, mb = res["inputs"], res["mb"]
+    h, idx, idx_sorted, coef = x["h"], x["idx"], x["idx_sorted"], x["coef"]
+    rows, d = h.shape
+    m = idx.numel()
+    log(f"(i) probes at table [{rows}, {d}], m={m}, mb={mb}: launches {launches}")
+    # probe A sums 2^20 terms: the tolerance scales with their magnitudes
+    got = probes.gather_probe(idx, h)
+    want = probes.gather_probe_plain(idx, h)
+    mass = probes.gather_probe_plain(idx, h.abs())
+    err = float((got - want).abs().max())
+    ratio = float(((got - want).abs() / (1e-6 * mass)).max())
+    log(f"  gather_probe: max_abs_err={err:.3e} max_err/tol={ratio:.3f} "
+        f"(tol 1e-6 * sum_i |h[idx[i]]|) {'ok' if ratio <= 1 else 'FAIL'}")
+    if ratio > 1 or not torch.equal(got, probes.gather_probe(idx, h)):
+        raise AssertionError("gather_probe disagrees with its plain version or itself")
+    errs["gather_probe"] = err
+    got = probes.scatter_probe(idx_sorted, coef, h, mb)
+    errs["scatter_probe"] = check("scatter_probe", got,
+                                  probes.scatter_probe_plain(idx_sorted, coef, h, mb))
+    if not torch.equal(got, probes.scatter_probe(idx_sorted, coef, h, mb)):
+        raise AssertionError("scatter_probe differs between two runs")
+    plain_a = cuda_ms(lambda: probes.gather_probe_plain(idx, h), 5)
+    plain_b = cuda_ms(lambda: probes.scatter_probe_plain(idx_sorted, coef, h, mb), 5)
+    lib_a, _ = _library_ms(lambda: (lambda: h.index_select(0, idx).sum(0)), 10)
+    ar = torch.arange(mb, device="cuda") % rows
+
+    def scatter_lib():
+        src = h.index_select(0, ar) * coef[:mb, None]
+        return lambda: torch.zeros(rows, d, device="cuda").index_add_(0, idx_sorted[:mb], src)
+
+    lib_b, _ = _library_ms(scatter_lib, 10)
+    bound_a = _bound(4 * m + 4 * rows * d + 4 * d, m * d)
+    bound_b = _bound(8 * mb + 4 * min(mb, rows) * d + 4 * rows * d, 2 * mb * d)
+    out = {}
+    for name, key, plain, lib, (bound, by), count in (
+            ("gather_probe", "A", plain_a, lib_a, bound_a, m),
+            ("scatter_probe", "B", plain_b, lib_b, bound_b, mb)):
+        ms = res[key]["ms"]
+        log(f"  {name}: {ms:.4f} ms = {res[key]['ns_per_row']:.4f} ns/row over {count} "
+            f"rows (plain {plain:.4f} ms; library "
+            f"{'%.4f ms' % lib if lib is not None else 'did not run'}; bound "
+            f"{bound:.4f} ms, {by})")
+        out[name] = dict(launches=launches[name], ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound, bound_by=by, ns_per_row=res[key]["ns_per_row"])
+    return out
 
 
 def main() -> int:
@@ -378,6 +617,36 @@ def main() -> int:
     del graph
     torch.cuda.empty_cache()
     phase_small_reference()
+    del dataset
+    errs["ell_spmm"] = 0.0
+    pallas_launches, pubmed_timing = phase_pallas_path(errs)
+    reddit_timing = phase_ell_reddit(errs)
+    probe_rows = phase_probes(errs)
+    d = WIDTHS[-1]
+    ms, plain, lib, bound, by = reddit_timing[d]
+    kernels_line.append({
+        "name": "ell_spmm", "route": "cuda", "source": "cuda_gcn_torch/csrc/ell_spmm.cu",
+        "replaces": "cuda_gcn_tpu/ops/pallas_spmm.py:67 (_ell_kernel)",
+        "launches": pallas_launches["ell_spmm"], "max_abs_err": errs["ell_spmm"],
+        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        "d": d, "graph": "synth-reddit",
+        "ms_by_width": {g: {str(w): r[0] for w, r in t.items()}
+                        for g, t in (("synth-pubmed", pubmed_timing),
+                                     ("synth-reddit", reddit_timing))},
+        "plain_ms_by_width": {g: {str(w): r[1] for w, r in t.items()}
+                              for g, t in (("synth-pubmed", pubmed_timing),
+                                           ("synth-reddit", reddit_timing))},
+        "bound_ms_by_width": {g: {str(w): r[3] for w, r in t.items()}
+                              for g, t in (("synth-pubmed", pubmed_timing),
+                                           ("synth-reddit", reddit_timing))},
+        "library_ms_by_width": {"synth-reddit": {str(w): r[2]
+                                                 for w, r in reddit_timing.items()}}})
+    for name, line in probe_rows.items():
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": "cuda_gcn_torch/csrc/gather_probe.cu",
+            "replaces": "scripts/exp_pallas_gather.py:" + (
+                "60 (gather_kernel)" if name == "gather_probe" else "85 (scatter_kernel)"),
+            "max_abs_err": errs[name], **line})
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

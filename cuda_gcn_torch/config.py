@@ -3,10 +3,9 @@
 A copy of ``GCNConfig`` from the JAX package (cuda_gcn_tpu/config.py:19-57) with
 the same fields and defaults, so the same config means the same run in both
 packages. The port keeps its own copy because it imports nothing of the JAX
-package. Fields that select layouts the port does not have yet
-(``graphsum_backend`` 'ell'/'pallas', ``feature_matmul`` 'sparse',
-``halo_dtype``, bf16 ``compute_dtype``) are accepted and rejected where a run
-would use them (train.prepare).
+package. Fields that select what the port does not have yet
+(``feature_matmul`` 'sparse', ``halo_dtype``, bf16 ``compute_dtype``) are
+accepted and rejected where a run would use them (train.prepare).
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ class GCNConfig:
 
     seed: int = 0
     hidden_dims: tuple[int, ...] | None = None
-    graphsum_backend: str = "auto"     # 'auto' | 'segment' | 'dense' | 'bsr'
+    graphsum_backend: str = "auto"     # 'auto' | 'segment' | 'ell' | 'pallas' | 'dense' | 'bsr'
     reorder: str = "auto"              # 'auto' | 'none'
     feature_matmul: str = "dense"
     param_dtype: str = "float32"

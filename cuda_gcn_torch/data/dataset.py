@@ -5,10 +5,11 @@ cannot import (cuda_gcn_tpu/data/__init__.py pulls in jax):
 
 * ``CSR`` and ``GCNDataset`` with ``dense_features``/``apply_config``
   (cuda_gcn_tpu/data/parser.py:36-89);
-* ``reorder_dataset`` (cuda_gcn_tpu/data/reorder.py:318-364);
+* ``reorder_dataset`` (cuda_gcn_tpu/data/reorder.py:318-364; data/reorder.py
+  re-exports it beside the LPA that computes a permutation);
 * ``load_cached`` and ``reorder_cached``: the ``.cache/<synth-name>.npz`` and
-  ``.perm.npy`` loaders that bench.py:39-91 uses. Computing a missing
-  permutation (LPA) is not ported yet, so a missing permutation cache raises.
+  ``.perm.npy`` loaders that bench.py:39-91 uses. A missing permutation cache
+  raises here; ``train.prepare`` computes the permutation instead.
 """
 
 from __future__ import annotations
@@ -113,13 +114,17 @@ def load_cached(name: str, cache_dir: str = CACHE_DIR) -> GCNDataset:
             output_dim=int(z["output_dim"]))
 
 
+def cached_permutation_path(name: str, cache_dir: str = CACHE_DIR) -> str:
+    return os.path.join(cache_dir, f"{name}.perm.npy")
+
+
 def reorder_cached(ds: GCNDataset, name: str, cache_dir: str = CACHE_DIR) -> GCNDataset:
     """Relabel ``ds`` with the cached locality permutation ``<name>.perm.npy``
-    (bench.py:70-91). Computing a missing one (LPA) is not ported yet."""
-    perm_path = os.path.join(cache_dir, f"{name}.perm.npy")
+    (bench.py:75-91). A missing one raises: train.prepare computes the
+    permutation (data/reorder.py) when ``reorder`` is not 'none'."""
+    perm_path = cached_permutation_path(name, cache_dir)
     if not os.path.exists(perm_path):
         raise FileNotFoundError(
-            f"no cached locality permutation {perm_path}: computing one (LPA, "
-            f"cuda_gcn_tpu/data/reorder.py) is not ported yet; run with a "
-            f"dataset that ships one, or without reordering")
+            f"no cached locality permutation {perm_path}; train with "
+            f"reorder='auto' to compute one")
     return reorder_dataset(ds, np.load(perm_path))

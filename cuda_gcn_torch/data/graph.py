@@ -12,11 +12,15 @@ Layouts per backend:
 * ``segment`` — every edge in the residual CSR (kernel 2, ops/residual.py).
 * ``bsr``     — the densest [tb, tb] tiles of Â as dense blocks (kernel 1,
   ops/bsr.py) plus the remaining edges as residual CSR (kernel 2).
+* ``ell``, ``pallas`` — Â in the bucketed ELL packing of
+  cuda_gcn_tpu/data/graph.py:475-539 (same buckets, bucket order and pads),
+  flattened into an ``EllPlan`` for kernel 3 (ops/ell.py); the transpose packing
+  only for an asymmetric Â. No residual CSR is built for them.
 
-Not ported: the ELL packings and the flat bucketed piece layout
-``Blocked2DDev`` (cuda_gcn_tpu/data/graph.py:114-433). The piece layout works
-around TPU gather and segment-sum costs; on the GPU the residual is plain CSR
-with one warp per row, which sums the same edges.
+Not ported: the flat bucketed piece layout ``Blocked2DDev``
+(cuda_gcn_tpu/data/graph.py:114-433). It works around TPU gather and
+segment-sum costs; on the GPU the residual is plain CSR with one warp per row,
+which sums the same edges.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from cuda_gcn_torch.data.dataset import CSR
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops.bsr import TilePlan, tile_plan
+from cuda_gcn_torch.ops.ell import EllBucket, EllPlan, ell_plan
 
 # 'auto' backend: dense below this node count, block-sparse tiles above
 # (cuda_gcn_tpu/data/graph.py:544).
@@ -63,7 +68,7 @@ class Graph:
     """Device-resident normalized adjacency in the layouts of one backend."""
 
     n_nodes: int
-    backend: str             # 'dense' | 'segment' | 'bsr'
+    backend: str             # 'dense' | 'segment' | 'bsr' | 'ell' | 'pallas'
     symmetric: bool          # Â = Âᵀ: the backward runs on the forward structures
     total_nnz: int           # nnz of Â including tile-covered edges
     resid: ResidualCSR | None = None    # forward residual ('segment', 'bsr')
@@ -76,6 +81,8 @@ class Graph:
     t_blocks: int = 0
     plan: TilePlan | None = None    # tiles grouped by block row (forward)
     plan_t: TilePlan | None = None  # tiles grouped by block col (asymmetric)
+    ell: EllPlan | None = None      # ELL packing of Â ('ell', 'pallas')
+    ell_t: EllPlan | None = None    # ELL packing of Âᵀ (asymmetric only)
 
     @property
     def num_tiles(self) -> int:
@@ -176,6 +183,65 @@ def _materialize_tiles(k, tb, flat, values, dtype, unique_edges, device):
     return tiles.view(k, tb, tb)
 
 
+def _ell_widths(deg: np.ndarray) -> np.ndarray:
+    """ELL bucket width per row (cuda_gcn_tpu/data/graph.py:475-483): multiples
+    of 8 up to degree 64, multiples of 64 up to 512, powers of two above."""
+    d = np.maximum(deg, 1)
+    pow2 = (2 ** np.ceil(np.log2(d))).astype(np.int64)
+    return np.where(d <= 64, ((d + 7) // 8) * 8,
+                    np.where(d <= 512, ((d + 63) // 64) * 64, pow2)).astype(np.int64)
+
+
+def _ell_pack(rows_sorted: np.ndarray, deg: np.ndarray, col_of: np.ndarray,
+              coef_of: np.ndarray, indptr: np.ndarray) -> list[EllBucket]:
+    """Bucket rows by width class; pad each bucket's rows to the bucket width
+    with col 0, coef 0 (cuda_gcn_tpu/data/graph.py:486-513)."""
+    buckets: list[EllBucket] = []
+    if len(rows_sorted) == 0:
+        return buckets
+    bucket_id = _ell_widths(deg[rows_sorted])
+    for b in np.unique(bucket_id):
+        sel = rows_sorted[bucket_id == b]
+        width = int(b)
+        r = len(sel)
+        cols = np.zeros((r, width), dtype=np.int32)
+        coef = np.zeros((r, width), dtype=np.float32)
+        # flat slot index = bucket_row * width + within-row slot
+        deg_sel = deg[sel].astype(np.int64)
+        lo = indptr[sel].astype(np.int64)
+        total = int(deg_sel.sum())
+        if total:
+            rep_row = np.repeat(np.arange(r, dtype=np.int64), deg_sel)
+            within = np.arange(total, dtype=np.int64) - np.repeat(
+                np.cumsum(deg_sel) - deg_sel, deg_sel)
+            edge_idx = np.repeat(lo, deg_sel) + within
+            flat = rep_row * width + within
+            cols.reshape(-1)[flat] = col_of[edge_idx]
+            coef.reshape(-1)[flat] = coef_of[edge_idx]
+        buckets.append(EllBucket(rows=sel.astype(np.int32), cols=cols, coef=coef,
+                                 width=width))
+    return buckets
+
+
+def build_ell(indptr: np.ndarray, indices: np.ndarray, coef: np.ndarray) -> list[EllBucket]:
+    """ELL buckets of a CSR, rows ordered by degree (stable)."""
+    deg = np.diff(indptr)
+    return _ell_pack(np.argsort(deg, kind="stable"), deg, indices, coef, indptr)
+
+
+def _coo_to_csr(rows_sorted: np.ndarray, n: int) -> np.ndarray:
+    """indptr from row ids that are already sorted ascending."""
+    counts = np.bincount(rows_sorted, minlength=n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr
+
+
+def _ell_plan_of(indptr, indices, coef, device) -> EllPlan:
+    return ell_plan(build_ell(indptr, indices.astype(np.int32), coef), np.diff(indptr),
+                    device)
+
+
 def _residual_csr(rows, cols, coef, n, device) -> ResidualCSR:
     """CSR over edges whose ``rows`` are sorted ascending."""
     row_ptr = np.zeros(n + 1, dtype=np.int64)
@@ -196,16 +262,17 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
                 device: str | torch.device | None = None) -> Graph:
     """Build the device Graph from an adjacency CSR (self-loops included).
 
-    Arguments as in cuda_gcn_tpu/data/graph.py:561-567 (less ``with_ell`` and
-    ``blocked_*``, whose layouts are not ported), plus ``device``.
+    Arguments as in cuda_gcn_tpu/data/graph.py:561-567 (less ``with_ell``,
+    since only the ``ell``/``pallas`` backends read the ELL packing here, and
+    ``blocked_*``, whose layout is not ported), plus ``device``.
     ``bsr_budget_bytes=None`` sizes the tile budget from the device's free
     memory (resolve_tile_budget)."""
     device = resolve_device(device)
     n = csr.nrows
     if backend == "auto":
         backend = "dense" if n <= DENSE_BACKEND_MAX_NODES else "bsr"
-    if backend not in ("dense", "segment", "bsr"):
-        raise ValueError(f"graphsum backend {backend!r} is not ported")
+    if backend not in ("dense", "segment", "bsr", "ell", "pallas"):
+        raise ValueError(f"unknown graphsum backend {backend!r}")
     indptr = csr.indptr.astype(np.int64)
     dst = csr.indices.astype(np.int64)
     coef = normalization_coefficients(indptr, dst)
@@ -223,6 +290,14 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
         adj = np.zeros((n, n), dtype=np.float32)
         np.add.at(adj, (src, dst), coef)
         graph.adj = torch.from_numpy(adj).to(device)
+        return graph
+
+    if backend in ("ell", "pallas"):
+        graph.ell = _ell_plan_of(indptr, dst, coef, device)
+        if not symmetric:
+            perm = np.argsort(dst, kind="stable")
+            graph.ell_t = _ell_plan_of(_coo_to_csr(dst[perm], n), src[perm], coef[perm],
+                                       device)
         return graph
 
     if backend == "bsr":

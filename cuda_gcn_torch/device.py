@@ -24,3 +24,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "cuda_gcn_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` warm calls, by CUDA events
+    (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

@@ -31,12 +31,19 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point and argtypes of each source; every entry returns cudaError_t.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# Source, C entry point and argtypes of each kernel; every entry returns
+# cudaError_t.
 _ENTRY = {
-    "bsr_tile": ("bsr_tile_contract", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "csr_spmm": ("csr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "bsr_tile": ("bsr_tile", "bsr_tile_contract",
+                 [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "csr_spmm": ("csr_spmm", "csr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ell_spmm": ("ell_spmm", "ell_spmm",
+                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P]),
+    "gather_probe": ("gather_probe", "gather_probe", [_P, _P, _P, _P, _L, _I, _I, _P]),
+    "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
+SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
 launches = {name: 0 for name in _ENTRY}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -62,10 +69,10 @@ def _lib_path(name: str) -> str:
 
 
 def build(names=None) -> dict[str, dict]:
-    """Compile the named sources (all by default) that have no up-to-date
-    library, in parallel. Returns {name: {"seconds", "log"}} for the sources
-    compiled; raises with nvcc's output if one fails."""
-    names = list(_ENTRY) if names is None else list(names)
+    """Compile the named sources (all of ``SOURCES`` by default) that have no
+    up-to-date library, in parallel. Returns {name: {"seconds", "log"}} for the
+    sources compiled; raises with nvcc's output if one fails."""
+    names = SOURCES if names is None else list(names)
     todo = {n: _lib_path(n) for n in names if not os.path.exists(_lib_path(n))}
     if not todo:
         return {}
@@ -91,22 +98,23 @@ def build(names=None) -> dict[str, dict]:
     return report
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
+def _lib(source: str) -> ctypes.CDLL:
+    lib = _libs.get(source)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        fn_name, argtypes = _ENTRY[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        build([source])
+        lib = ctypes.CDLL(_lib_path(source))
+        for src, fn_name, argtypes in _ENTRY.values():
+            if src == source:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[source] = lib
     return lib
 
 
 def _call(name: str, *args) -> None:
-    fn = getattr(_lib(name), _ENTRY[name][0])
-    err = fn(*args)
+    source, fn_name, _ = _ENTRY[name]
+    err = getattr(_lib(source), fn_name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launches[name] += 1
@@ -189,4 +197,77 @@ def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
         return out
     _call("csr_spmm", row_ptr.data_ptr(), cols.data_ptr(), coef.data_ptr(),
           h.data_ptr(), out.data_ptr(), n, d, int(accumulate), _stream(dev))
+    return out
+
+
+def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
+             n: int, n_partials: int) -> torch.Tensor:
+    """Launch kernel 3 over an ELL work list (ops/ell.py ``EllPlan``): returns
+    Â·h as a new [n, d] tensor in f32."""
+    if not h.is_cuda:
+        raise RuntimeError(f"ell_spmm launches on a CUDA tensor, got {h.device}")
+    dev = h.device
+    h = h.contiguous()
+    _check(h, "h", torch.float32, dev)
+    for t, what in ((work_beg, "work_beg"), (work_len, "work_len"), (work_dst, "work_dst"),
+                    (split_rows, "split_rows"), (split_ptr, "split_ptr"), (cols, "cols")):
+        _check(t, what, torch.int32, dev)
+    _check(coef, "coef", torch.float32, dev)
+    d = int(h.shape[1])
+    n_items, n_split = int(work_beg.numel()), int(split_rows.numel())
+    if h.shape[0] != n or work_len.numel() != n_items or work_dst.numel() != n_items \
+            or split_ptr.numel() != n_split + 1 or cols.numel() != coef.numel():
+        raise ValueError("ell_spmm: inconsistent shapes")
+    out = torch.empty(n, d, dtype=torch.float32, device=dev)
+    partial = torch.empty(n_partials, d, dtype=torch.float32, device=dev)
+    if n == 0 or d == 0:
+        return out
+    _call("ell_spmm", work_beg.data_ptr(), work_len.data_ptr(), work_dst.data_ptr(),
+          n_items, split_rows.data_ptr(), split_ptr.data_ptr(), n_split, cols.data_ptr(),
+          coef.data_ptr(), h.data_ptr(), out.data_ptr(), partial.data_ptr(), d,
+          _stream(dev))
+    return out
+
+
+# Probe A's first kernel: CTAs of at most this many row ids each, at most
+# GATHER_MAX_BLOCKS of them (csrc/gather_probe.cu).
+GATHER_IDS_PER_BLOCK = 2048
+GATHER_MAX_BLOCKS = 1024
+
+
+def gather_probe(idx, h) -> torch.Tensor:
+    """Launch probe A: Σ_i h[idx[i]] as a [1, d] tensor in f32."""
+    if not h.is_cuda:
+        raise RuntimeError(f"gather_probe launches on a CUDA tensor, got {h.device}")
+    dev = h.device
+    _check(idx, "idx", torch.int32, dev)
+    _check(h, "h", torch.float32, dev)
+    m, d = int(idx.numel()), int(h.shape[1])
+    out = torch.zeros(1, d, dtype=torch.float32, device=dev)
+    if m == 0 or d == 0:
+        return out
+    blocks = min(GATHER_MAX_BLOCKS, -(-m // GATHER_IDS_PER_BLOCK))
+    partial = torch.empty(blocks, d, dtype=torch.float32, device=dev)
+    _call("gather_probe", idx.data_ptr(), h.data_ptr(), partial.data_ptr(), out.data_ptr(),
+          m, blocks, d, _stream(dev))
+    return out
+
+
+def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
+    """Launch probe B: out[idx[i]] += coef[i] · h[i mod rows] for i < mb, idx
+    sorted ascending, into a new [rows, d] tensor in f32."""
+    if not h.is_cuda:
+        raise RuntimeError(f"scatter_probe launches on a CUDA tensor, got {h.device}")
+    dev = h.device
+    _check(idx, "idx", torch.int32, dev)
+    _check(coef, "coef", torch.float32, dev)
+    _check(h, "h", torch.float32, dev)
+    rows, d = int(h.shape[0]), int(h.shape[1])
+    if not 0 <= mb <= min(idx.numel(), coef.numel()):
+        raise ValueError(f"scatter_probe: mb={mb} exceeds the {idx.numel()} ids")
+    out = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    if rows == 0 or d == 0:
+        return out
+    _call("scatter_probe", idx.data_ptr(), coef.data_ptr(), h.data_ptr(), out.data_ptr(),
+          rows, mb, d, _stream(dev))
     return out

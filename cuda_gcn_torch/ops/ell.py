@@ -1,0 +1,171 @@
+"""Bucketed-ELL SpMM for the ``ell`` and ``pallas`` backends — kernel 3
+(csrc/ell_spmm.cu).
+
+out[rows_b[r]] = Σ_{k<W_b} coef_b[r, k] · h[cols_b[r, k]] for every bucket b of
+the ELL packing (data/graph.py ``build_ell``). This replaces the TPU kernel
+``_ell_kernel`` (cuda_gcn_tpu/ops/pallas_spmm.py:67, launched per bucket by
+``ell_spmm`` :121) and the XLA path ``graphsum._ell_apply``/
+``_ell_bucket_apply`` (cuda_gcn_tpu/ops/graphsum.py:47-72). Every node sits in
+exactly one bucket, so every output row is written once.
+
+The VMEM test ``fits_vmem`` and the ``pallas`` → XLA ``ell`` fallback of the
+JAX package (cuda_gcn_tpu/ops/graphsum.py:312-319) are TPU memory rules and are
+not carried over: the card reads h from device memory and L2, so on a CUDA
+tensor both backends launch kernel 3 at any graph size.
+
+``EllPlan`` is built once with the graph (the counterpart of ops/bsr.py
+``TilePlan``): the buckets' index and value blocks flattened into one slot
+array, and a work list that lets one launch cover every bucket of a pass. A
+work item is one ELL row, or a chunk of at most ``ELL_CHUNK_SLOTS`` slots of a
+wider row; the chunks of a wide row write partial sums that a second kernel of
+the same launch adds in chunk order. Items list only a row's real slots: the
+pad slots (col 0, coef 0) add nothing to a finite result and are skipped.
+
+A tensor on the CPU takes the plain PyTorch version below; a CUDA tensor
+launches the kernel (cuda_gcn_torch.kernels) or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from cuda_gcn_torch import kernels
+
+# Slots per work item: rows wider than this are cut into chunks whose partial
+# sums are reduced in order (synth-reddit has a row of 43,403 edges).
+ELL_CHUNK_SLOTS = 256
+# Plain version: gathered elements per row block, about 256 MB in f32.
+_PLAIN_BLOCK_ELEMS = 1 << 26
+
+
+@dataclasses.dataclass
+class EllBucket:
+    """One degree bucket of the ELL packing (host-side, numpy), as in
+    cuda_gcn_tpu/data/graph.py ``EllBucket``."""
+
+    rows: np.ndarray   # (R,) int32 node ids whose rows live in this bucket
+    cols: np.ndarray   # (R, W) int32 neighbor ids, padded with 0
+    coef: np.ndarray   # (R, W) float32 edge coefficients, padded with 0.0
+    width: int
+
+
+@dataclasses.dataclass
+class EllPlan:
+    """The ELL packing of one direction of Â on the device."""
+
+    n_nodes: int
+    nnz: int                  # real (unpadded) slots
+    cols: torch.Tensor        # (S,) int32: each bucket's [R_b, W_b] block, row-major
+    coef: torch.Tensor        # (S,) float32, same layout
+    rows: torch.Tensor        # (n,) int32: node of each ELL row, buckets in order
+    offsets: tuple[int, ...]     # first slot of each bucket, then S
+    row_starts: tuple[int, ...]  # first ELL row of each bucket, then n
+    widths: tuple[int, ...]      # W_b
+    work_beg: torch.Tensor    # (items,) int32 first slot of the item
+    work_len: torch.Tensor    # (items,) int32 real slots of the item
+    work_dst: torch.Tensor    # (items,) int32 output row, or -(partial + 1)
+    split_rows: torch.Tensor  # (n_split,) int32 output row of each chunked row
+    split_ptr: torch.Tensor   # (n_split+1,) int32 its partials, in chunk order
+    n_partials: int
+
+    @property
+    def slots(self) -> int:
+        return int(self.cols.shape[0])
+
+    def bucket(self, b: int):
+        """Device views (rows [R], cols [R, W], coef [R, W]) of bucket b."""
+        r0, r1 = self.row_starts[b], self.row_starts[b + 1]
+        s0, s1 = self.offsets[b], self.offsets[b + 1]
+        w = self.widths[b]
+        return (self.rows[r0:r1], self.cols[s0:s1].view(r1 - r0, w),
+                self.coef[s0:s1].view(r1 - r0, w))
+
+    def host_buckets(self) -> list[EllBucket]:
+        """The buckets as host numpy arrays, in the layout of the JAX build."""
+        out = []
+        for b, w in enumerate(self.widths):
+            rows, cols, coef = (t.cpu().numpy() for t in self.bucket(b))
+            out.append(EllBucket(rows=rows, cols=cols, coef=coef, width=w))
+        return out
+
+
+def ell_plan(buckets: list[EllBucket], degrees: np.ndarray,
+             device: torch.device) -> EllPlan:
+    """Flatten ``buckets`` onto ``device`` and build the work list.
+    ``degrees[i]`` is the number of real slots of node i's row."""
+    n = len(degrees)
+    widths = tuple(int(b.width) for b in buckets)
+    counts = [len(b.rows) for b in buckets]
+    row_starts = (0, *np.cumsum(counts).tolist())
+    offsets = (0, *np.cumsum([c * w for c, w in zip(counts, widths)]).tolist())
+    if offsets[-1] >= 2**31:
+        raise ValueError(f"{offsets[-1]} ELL slots exceed int32 slot offsets")
+    if row_starts[-1] != n:
+        raise ValueError(f"the buckets hold {row_starts[-1]} rows, expected {n}")
+
+    def cat(parts, dtype):
+        return np.concatenate(parts).astype(dtype) if parts else np.zeros(0, dtype)
+
+    rows = cat([b.rows for b in buckets], np.int64)
+    cols = cat([b.cols.reshape(-1) for b in buckets], np.int32)
+    coef = cat([b.coef.reshape(-1) for b in buckets], np.float32)
+
+    # slot start and real length of every ELL row p (buckets in order)
+    width_p = np.repeat(np.asarray(widths, np.int64), counts)
+    start_p = (np.repeat(np.asarray(offsets[:-1], np.int64), counts)
+               + (np.arange(n, dtype=np.int64)
+                  - np.repeat(np.asarray(row_starts[:-1], np.int64), counts)) * width_p)
+    deg_p = np.asarray(degrees, np.int64)[rows]
+    # work items: one per row, or one per chunk of a row wider than the chunk
+    chunks = np.maximum(1, -(-deg_p // ELL_CHUNK_SLOTS))
+    item_p = np.repeat(np.arange(n, dtype=np.int64), chunks)
+    within = np.arange(len(item_p), dtype=np.int64) - np.repeat(np.cumsum(chunks) - chunks,
+                                                                chunks)
+    beg = start_p[item_p] + within * ELL_CHUNK_SLOTS
+    length = np.minimum(ELL_CHUNK_SLOTS, deg_p[item_p] - within * ELL_CHUNK_SLOTS)
+    split = chunks > 1
+    split_item = split[item_p]
+    partial = np.cumsum(split_item) - 1  # a split row's chunks are contiguous, in order
+    dst = np.where(split_item, -(partial + 1), rows[item_p])
+    # longest items first, so that the widest rows do not form the tail
+    order = np.argsort(-length, kind="stable")
+    split_ptr = np.zeros(int(split.sum()) + 1, np.int64)
+    np.cumsum(chunks[split], out=split_ptr[1:])
+
+    def dev(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return EllPlan(
+        n_nodes=n, nnz=int(deg_p.sum()), cols=dev(cols), coef=dev(coef, torch.float32),
+        rows=dev(rows), offsets=offsets, row_starts=row_starts, widths=widths,
+        work_beg=dev(beg[order]), work_len=dev(length[order]), work_dst=dev(dst[order]),
+        split_rows=dev(rows[split]), split_ptr=dev(split_ptr),
+        n_partials=int(split_ptr[-1]))
+
+
+def ell_spmm_plain(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:
+    """Plain version: per bucket, gather h[cols] [R, W, d], scale by coef and
+    sum over the W slots in f32 (row blocks bound the transient), written to
+    out[rows]."""
+    d = h.shape[1]
+    h = h.float()
+    out = torch.zeros(plan.n_nodes, d, dtype=torch.float32, device=h.device)
+    for b, w in enumerate(plan.widths):
+        rows, cols, coef = plan.bucket(b)
+        step = max(1, _PLAIN_BLOCK_ELEMS // max(w * d, 1))
+        for a in range(0, rows.shape[0], step):
+            g = h[cols[a:a + step].long()]
+            out[rows[a:a + step].long()] = (g * coef[a:a + step, :, None]).sum(1)
+    return out
+
+
+def ell_spmm(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:
+    """Â·h over the ELL plan, [n, d] in f32."""
+    if h.device.type == "cpu":
+        return ell_spmm_plain(plan, h)
+    return kernels.ell_spmm(plan.work_beg, plan.work_len, plan.work_dst,
+                            plan.split_rows, plan.split_ptr, plan.cols, plan.coef, h,
+                            plan.n_nodes, plan.n_partials)

@@ -5,12 +5,15 @@ Dispatch by backend:
 * ``bsr``     — kernel 1 (dense tiles, ops/bsr.py) writes the tile part, then
   kernel 2 (ops/residual.py) adds the residual edges into it;
 * ``segment`` — kernel 2 over every edge;
+* ``ell``, ``pallas`` — kernel 3 (ops/ell.py) over the ELL plan. The JAX
+  package runs ``pallas`` through its Pallas kernel only when h fits VMEM and
+  ``ell`` through XLA (:312-331); on the card both launch kernel 3 at any size;
 * ``dense``   — ``torch.mm`` on the dense Â, as the JAX package leaves it to XLA
   (:326-327).
 
 A symmetric graph routes the backward through the forward structures
 (:335-352); an asymmetric one runs over the transposed tile plan and the
-transposed residual CSR.
+transposed residual CSR, or the transposed ELL plan.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from cuda_gcn_torch.data.graph import Graph, ResidualCSR
 from cuda_gcn_torch.ops.bsr import bsr_tile_contract
+from cuda_gcn_torch.ops.ell import ell_spmm
 from cuda_gcn_torch.ops.residual import residual_spmm
 
 
@@ -42,6 +46,8 @@ def _apply(h: torch.Tensor, graph: Graph, transpose: bool) -> torch.Tensor:
     h = h.contiguous()
     if graph.backend == "bsr":
         return _bsr_apply(h, graph, transpose)
+    if graph.backend in ("ell", "pallas"):
+        return ell_spmm(graph.ell_t if transpose else graph.ell, h)
     if graph.backend == "dense":
         return torch.mm(graph.adj.t() if transpose else graph.adj, h)
     return _residual(h, graph.resid_t if transpose else graph.resid)

@@ -177,5 +177,5 @@ def test_cache_loader_matches_bench_loader():
     np.testing.assert_array_equal(got.graph.indices, want.graph.indices)
     np.testing.assert_array_equal(got.feature_value, want.feature_value)
     np.testing.assert_array_equal(got.label, want.label)
-    with pytest.raises(FileNotFoundError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="no cached locality permutation"):
         tds.reorder_cached(got, "synth-cora")

@@ -15,7 +15,10 @@ from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.data import graph as tgraph
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops import bsr as tbsr
+from cuda_gcn_torch.ops import ell as tell
+from cuda_gcn_torch.ops import graphsum as tgs
 from cuda_gcn_torch.ops import residual as tres
+from cuda_gcn_torch.probes import gather as tprobe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -67,6 +70,35 @@ def _forbid_plain(monkeypatch):
 
     monkeypatch.setattr(tbsr, "bsr_tile_contract_plain", plain)
     monkeypatch.setattr(tres, "residual_spmm_plain", plain)
+    monkeypatch.setattr(tell, "ell_spmm_plain", plain)
+    monkeypatch.setattr(tprobe, "gather_probe_plain", plain)
+    monkeypatch.setattr(tprobe, "scatter_probe_plain", plain)
+
+
+def _meta_ell_plan(n):
+    i32 = dict(dtype=torch.int32)
+    return tell.EllPlan(n_nodes=n, nnz=3 * n, cols=_meta(8 * n, **i32), coef=_meta(8 * n),
+                        rows=_meta(n, **i32), offsets=(0, 8 * n), row_starts=(0, n),
+                        widths=(8,), work_beg=_meta(n, **i32), work_len=_meta(n, **i32),
+                        work_dst=_meta(n, **i32), split_rows=_meta(0, **i32),
+                        split_ptr=_meta(1, **i32), n_partials=0)
+
+
+def _wrapper_calls():
+    """(launcher name, a call of its wrapper on meta tensors), for each kernel."""
+    i32 = dict(dtype=torch.int32)
+    plan = tbsr.TilePlan(_meta(3, **i32), _meta(4, **i32), _meta(4, **i32))
+    return [
+        ("bsr_tile", lambda: tbsr.bsr_tile_contract(
+            _meta(4, 32, 32, dtype=torch.bfloat16), _meta(4, **i32), _meta(4, **i32),
+            _meta(60, 16), 60, 2, plan=plan)),
+        ("csr_spmm", lambda: tres.residual_spmm(_meta(61, **i32), _meta(9, **i32),
+                                                _meta(9), _meta(60, 16))),
+        ("ell_spmm", lambda: tell.ell_spmm(_meta_ell_plan(60), _meta(60, 16))),
+        ("gather_probe", lambda: tprobe.gather_probe(_meta(4096, **i32), _meta(64, 128))),
+        ("scatter_probe", lambda: tprobe.scatter_probe(_meta(4096, **i32), _meta(4096),
+                                                       _meta(64, 128), 1000)),
+    ]
 
 
 def test_device_tensors_go_to_the_launchers(monkeypatch):
@@ -74,16 +106,28 @@ def test_device_tensors_go_to_the_launchers(monkeypatch):
     launcher (monkeypatched here, there being no card) ..."""
     _forbid_plain(monkeypatch)
     seen = []
-    monkeypatch.setattr(kernels, "bsr_tile", lambda *a, **k: seen.append("bsr_tile"))
-    monkeypatch.setattr(kernels, "csr_spmm", lambda *a, **k: seen.append("csr_spmm"))
-    plan = tbsr.TilePlan(_meta(3, dtype=torch.int32), _meta(4, dtype=torch.int32),
-                         _meta(4, dtype=torch.int32))
-    tbsr.bsr_tile_contract(_meta(4, 32, 32, dtype=torch.bfloat16),
-                           _meta(4, dtype=torch.int32), _meta(4, dtype=torch.int32),
-                           _meta(60, 16), 60, 2, plan=plan)
-    tres.residual_spmm(_meta(61, dtype=torch.int32), _meta(9, dtype=torch.int32),
-                       _meta(9), _meta(60, 16))
-    assert seen == ["bsr_tile", "csr_spmm"]
+    calls = _wrapper_calls()
+    for name, _ in calls:
+        monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n))
+    for _, call in calls:
+        call()
+    assert seen == [name for name, _ in calls] == list(kernels.launches)
+
+
+@pytest.mark.parametrize("backend", ["ell", "pallas"])
+def test_ell_backends_launch_kernel_3_at_any_size(monkeypatch, backend):
+    """On a CUDA (here meta) tensor, graphsum on the ell and pallas backends
+    reaches the ell_spmm launcher however large the graph: the JAX package's
+    VMEM fallback is not carried over."""
+    _forbid_plain(monkeypatch)
+    seen = []
+    monkeypatch.setattr(kernels, "ell_spmm", lambda *a, **k: seen.append(a[-2]))
+    n = 10**7
+    graph = tgraph.Graph(n_nodes=n, backend=backend, symmetric=True, total_nnz=3 * n,
+                         ell=_meta_ell_plan(n))
+    tgs.forward(_meta(n, 128), graph)
+    tgs.transpose_forward(_meta(n, 41), graph)
+    assert seen == [n, n]
 
 
 def test_device_tensors_raise_in_the_real_launchers(monkeypatch):
@@ -91,22 +135,19 @@ def test_device_tensors_raise_in_the_real_launchers(monkeypatch):
     building anything or counting a launch."""
     _forbid_plain(monkeypatch)
     kernels.reset_launches()
-    plan = tbsr.TilePlan(_meta(3, dtype=torch.int32), _meta(4, dtype=torch.int32),
-                         _meta(4, dtype=torch.int32))
-    with pytest.raises(RuntimeError, match="CUDA tensor"):
-        tbsr.bsr_tile_contract(_meta(4, 32, 32, dtype=torch.bfloat16),
-                               _meta(4, dtype=torch.int32), _meta(4, dtype=torch.int32),
-                               _meta(60, 16), 60, 2, plan=plan)
-    with pytest.raises(RuntimeError, match="CUDA tensor"):
-        tres.residual_spmm(_meta(61, dtype=torch.int32), _meta(9, dtype=torch.int32),
-                           _meta(9), _meta(60, 16))
-    assert kernels.launches == {"bsr_tile": 0, "csr_spmm": 0}
+    for _, call in _wrapper_calls():
+        with pytest.raises(RuntimeError, match="CUDA tensor"):
+            call()
+    assert all(v == 0 for v in kernels.launches.values())
 
 
 def test_kernel_build_sources_and_flags():
-    """Both kernels build from the package's own sources for sm_90a."""
-    for name in kernels.launches:
-        assert os.path.exists(os.path.join(kernels.SRC_DIR, f"{name}.cu"))
-        path = kernels._lib_path(name)
+    """Every kernel builds from the package's own sources for sm_90a."""
+    for name, (source, fn_name, _) in kernels._ENTRY.items():
+        assert name in kernels.launches and source in kernels.SOURCES
+        with open(os.path.join(kernels.SRC_DIR, f"{source}.cu")) as f:
+            assert f'extern "C" int {fn_name}(' in f.read()
+    for source in kernels.SOURCES:
+        path = kernels._lib_path(source)
         assert path.startswith(os.path.join(ROOT, "build", "kernels"))
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS

@@ -152,9 +152,56 @@ def test_run_prints_output_contract(tiny_dataset, capsys):
     assert re.fullmatch(rf"total training time={num}", lines[3])
     assert re.fullmatch(rf"test_loss={num} test_acc={num} time={num}", lines[4])
     assert res.epochs_run == 3 and np.isfinite(res.test_loss)
-    with pytest.raises(NotImplementedError, match="LPA"):
-        ttrain.prepare(GCNConfig(graphsum_backend="bsr"), to_torch_dataset(tiny_dataset),
-                       "cpu")
+    # the default reorder='auto' computes the locality permutation (LPA)
+    _, graph, _, _ = ttrain.prepare(GCNConfig(graphsum_backend="bsr"),
+                                    to_torch_dataset(tiny_dataset), "cpu")
+    assert graph.backend == "bsr" and graph.num_tiles > 0
+
+
+@pytest.mark.parametrize("backend", ["segment", "pallas"])
+def test_early_stopping_matches_jax(tiny_dataset, backend, capsys):
+    """run with early_stopping=3 stops at the JAX run's epoch (11 of 30 at
+    lr 0.1, dropout 0), with every metric row equal within 1e-4."""
+    cfg = JConfig(epochs=30, dropout=0.0, learning_rate=0.1, early_stopping=3,
+                  graphsum_backend=backend, seed=0)
+    want = jtrain.run(cfg, tiny_dataset, verbose=False)
+    _, params = jax_params(tiny_dataset.apply_config(cfg))
+    tcfg = GCNConfig(epochs=30, dropout=0.0, learning_rate=0.1, early_stopping=3,
+                     graphsum_backend=backend, seed=0)
+    tdata = to_torch_dataset(tiny_dataset)
+    state = ttrain.create_state(tdata.apply_config(tcfg), "cpu")
+    state.model.load_state_dict(convert.params_from_jax(params, "cpu"))
+    got = ttrain.run(tcfg, tdata, device="cpu", initial_state=state)
+    assert got.epochs_run == want.epochs_run == 11
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    np.testing.assert_allclose([[h[k] for k in keys] for h in got.history],
+                               [[h[k] for k in keys] for h in want.history],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.test_loss, want.test_loss, rtol=1e-4, atol=1e-4)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[10].startswith("epoch=11 ") and lines[11] == "Early stopping..."
+
+
+def test_early_stopping_loop_equals_stepwise(tiny_dataset):
+    """run_epochs_es runs train_step + eval_step per epoch (6 adjacency passes)
+    and stops as the reference's host loop does (gcn.cpp:142-150)."""
+    cfg = GCNConfig(epochs=30, learning_rate=0.1, graphsum_backend="segment")
+    cfg, g, x, truths = ttrain.prepare(cfg, to_torch_dataset(tiny_dataset), "cpu")
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay,
+              lr=cfg.learning_rate)
+    got, stopped = ttrain.run_epochs_es(ttrain.create_state(cfg, "cpu"), g, x, truths[1],
+                                        truths[2], epochs=30, es_window=3, **kw)
+    step = ttrain.create_state(cfg, "cpu")
+    ref, losses = [], []
+    for epoch in range(1, 31):
+        tl, ta = ttrain.train_step(step, g, x, truths[1], **kw)
+        vl, va = ttrain.eval_step(step.model, g, x, truths[2], weight_decay=cfg.weight_decay)
+        ref.append([float(tl), float(ta), float(vl), float(va)])
+        losses.append(float(vl))
+        if epoch >= 3 and losses[-1] > sum(losses[-3:]) / 3:
+            break
+    assert stopped == (len(ref) < 30)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
 
 
 def test_cli_runs_on_cpu_and_reports_missing_input(capsys):
@@ -162,3 +209,20 @@ def test_cli_runs_on_cpu_and_reports_missing_input(capsys):
     out = capsys.readouterr().out
     assert "RUNNING ON CPU" in out and "epoch=2 " in out and "test_acc=" in out
     assert cli.main(["no-such-profile", "--device", "cpu"]) == 1
+
+
+@pytest.mark.parametrize("args", [["--backend", "pallas"], ["--backend", "ell"],
+                                  ["--backend", "bsr"],
+                                  ["--backend", "pallas", "--early-stopping", "2"]])
+def test_cli_backends_and_early_stopping(capsys, args):
+    """The ell/pallas backends, bsr with the permutation computed (synth-cora
+    has no cached one), and --early-stopping print the output contract."""
+    epochs = "40" if "--early-stopping" in args else "2"
+    assert cli.main(["synth-cora", "--epochs", epochs, "--device", "cpu", *args]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"test_loss=\S+ test_acc=\S+ time=\S+", lines[-1])
+    assert lines[-2].startswith("total training time=")
+    if "--early-stopping" in args:
+        assert lines[-3] == "Early stopping..."
+    else:
+        assert lines[-3].startswith(f"epoch={epochs} ")
