@@ -4,7 +4,8 @@
 
 Phases, each of which raises (exit code not 0) when it fails:
 
-(a) build both CUDA kernels from cuda_gcn_torch/csrc with nvcc for sm_90a;
+(a) build every CUDA source of cuda_gcn_torch/csrc with nvcc for sm_90a (one
+    nvcc per source, started together);
 (b) load synth-reddit with its cached locality permutation, build its graph on
     the card, and hold each kernel against its plain PyTorch version at the
     main path's widths 16, 32, 41, 82 (kernel 1 in both orientations);
@@ -32,10 +33,26 @@ Phases, each of which raises (exit code not 0) when it fails:
     with 4 launches per epoch + 4;
 (i) the probe kernels (``python -m cuda_gcn_torch.probes.gather``) at the
     script's default shapes: each against its plain version, its time, ns per
-    row and bound, and a PyTorch call as the yardstick.
+    row and bound, and a PyTorch call as the yardstick;
+(j) the take-along-axis probes (``python -m cuda_gcn_torch.probes.taa`` and
+    ``probes.dyngather``) at every shape, type and step count of the TPU
+    scripts: the two gather kernels bitwise equal to their plain versions, the
+    column scan and the piece within √S · epsilon · max|cs| of theirs and
+    bitwise equal across two runs; each case's time beside its plain version,
+    a PyTorch library call where one computes the same function, and its bound;
+(k) sparse layer-0 features at full width (run while (c)'s graph is alive):
+    the CSR product X·W (kernel 2) at d 16 and 32 and its dW = Xᵀ·g (kernel 3's
+    work list) at d 16 against ``csr_matmul_plain`` on synth-reddit's features,
+    timed beside cuBLAS on dense x and beside dW through kernel 2; ``train.run``
+    with ``feature_matmul='sparse'`` for 10 epochs with the launch counts the
+    code should make; sparse against dense features at dropout 0 within 1e-4;
+    synth-pubmed sparse, card against CPU, within 1e-4;
+(l) the text entry point: synth-cora written as cora-text.{graph,split,svmlight},
+    parsed back array for array, and trained from the files by ``cli.main``
+    with ``--feature-matmul sparse`` in the reference's output format.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-with all five kernels, and last ``{"ok": true, "device": {...}}``. Without a
+with all nine kernels, and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 and prints no result.
 """
 
@@ -182,29 +199,40 @@ def phase_main_path(dataset):
     return launches
 
 
-def _fused_inputs(dataset):
-    """Features, truths and step arguments of the main path, for timing
-    ``train.run_epochs`` on an already built graph."""
+def _features(dataset, sparse: bool):
+    """The layer-0 input on the card: dense [N, F], or ``SparseFeatures``."""
     import numpy as np
     import torch
 
+    from cuda_gcn_torch.ops.matmul import SparseFeatures
+
+    if not sparse:
+        return torch.from_numpy(dataset.dense_features(np.float32)).cuda()
+    fi = dataset.feature_index
+    return SparseFeatures.from_csr(fi.indptr, fi.indices, dataset.feature_value,
+                                   dataset.input_dim, "cuda")
+
+
+def _fused_inputs(dataset, sparse: bool = False):
+    """Features, truths and step arguments of the main path, for timing
+    ``train.run_epochs`` on an already built graph."""
     from cuda_gcn_torch import train
     from cuda_gcn_torch.config import GCNConfig
 
     cfg = dataset.apply_config(GCNConfig(seed=0))
-    x = torch.from_numpy(dataset.dense_features(np.float32)).cuda()
+    x = _features(dataset, sparse)
     truths = [train.make_truth(dataset.split, dataset.label, s, "cuda") for s in (1, 2)]
     kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay,
               lr=cfg.learning_rate)
     return cfg, x, truths, kw
 
 
-def phase_steady(graph, dataset, label: str = "") -> float:
+def phase_steady(graph, dataset, label: str = "", sparse: bool = False) -> float:
     import torch
 
     from cuda_gcn_torch import train
 
-    cfg, x, truths, kw = _fused_inputs(dataset)
+    cfg, x, truths, kw = _fused_inputs(dataset, sparse)
     train.run_epochs(train.create_state(cfg, "cuda"), graph, x, *truths, epochs=2, **kw)
     state = train.create_state(cfg, "cuda")
     torch.cuda.synchronize()
@@ -589,6 +617,349 @@ def phase_probes(errs):
     return out
 
 
+TAA_ITERS = 5  # the probe entry points' default
+
+
+def _fmt_ms(v) -> str:
+    return "none" if v is None else f"{v:.4f}"
+
+
+def _gather_library(case):
+    """One PyTorch call that computes a gather case's function, or None: a
+    single step has ``take_along_dim``/``index_select``, a compact f32 row
+    gather ``embedding_bag`` with mode 'sum'; the other multi-step or repeated
+    sums have none."""
+    import torch
+
+    idx, tab = case.idx, case.tab
+    if case.reps == 1 and case.steps == 1:
+        if case.form in ("bcast_rows", "take_rows"):
+            flat = idx.reshape(-1)
+            return lambda: tab.index_select(0, flat)
+        idx64 = idx.long()
+        return lambda: torch.take_along_dim(tab, idx64, case.axis)
+    if case.reps == 1 and case.form == "compact_rows" and tab.dtype == torch.float32:
+        return lambda: torch.nn.functional.embedding_bag(idx, tab, mode="sum")
+    return None
+
+
+def phase_taa_probes(errs):
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.probes import dyngather, taa
+
+    kernels.reset_launches()
+    res = taa.run(iters=TAA_ITERS)
+    timed = dyngather.run("all", iters=TAA_ITERS)
+    launches = dict(kernels.launches)
+    per = TAA_ITERS + 1  # a warm-up and the timed launches of each case
+    n_rows = sum(c.axis == 0 for c, _ in timed)
+    expected = {"taa_rows": per * (n_rows + 1), "taa_lanes": per * (len(timed) - n_rows),
+                "cumsum_cols": per, "piece": per + 1}
+    log(f"(j) TAA probes: launches {launches}; expected {expected} ({per} per case: A2 and "
+        f"{n_rows} axis-0 cases, {len(timed) - n_rows} axis-1 cases, C, D and D's spot "
+        f"check), 0 for the others")
+    if any(v != expected.get(k, 0) for k, v in launches.items()):
+        raise AssertionError("the probe entry points did not launch every case's kernel")
+    if not res["D_check"]["ok"]:
+        raise AssertionError(f"probe D's spot check failed: {res['D_check']}")
+
+    x, s, reps = res["inputs"], res["s"], res["reps"]
+    tab, ids, coef, begin, end = (x[k] for k in ("tab", "ids", "coef", "begin", "end"))
+    rows_sorted = x["rows_sorted"].long()
+    elems = tab.numel()
+    out = {k: {"launches": launches[k], "cases": []}
+           for k in ("taa_rows", "taa_lanes", "cumsum_cols", "piece")}
+
+    def record(kernel, label, ms, plain_ms, lib_ms, lib_name, bound, err, head=False):
+        bound_ms, by = bound
+        log(f"  {kernel} {label}: {ms:.4f} ms (plain {plain_ms:.4f}; library "
+            f"{_fmt_ms(lib_ms)}{' ' + lib_name if lib_name else ''}; bound {bound_ms:.5f} ms, "
+            f"{by}); max_abs_err {err:.3e}")
+        row = dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
+                   bound_ms=bound_ms, bound_by=by, max_abs_err=err)
+        out[kernel]["cases"].append(row)
+        if head:
+            out[kernel].update({k: v for k, v in row.items() if k != "case"}, case=label)
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+
+    # the gathers: bitwise equal to their plain versions (same additions, same order)
+    a2 = taa.taa_probe(ids, tab, reps)
+    if not torch.equal(a2, taa.taa_probe_plain(ids, tab, reps)):
+        raise AssertionError("probe A2 differs from its plain version")
+    record("taa_rows", f"A2 [{s}x{taa.LANES}] f32 x{reps} reps", res["A2"]["ms"],
+           cuda_ms(lambda: taa.taa_probe_plain(ids, tab, reps), 3), None, "",
+           _bound(4 * s + 8 * elems, elems * reps), 0.0)
+    heads = {"single TAA axis0, full idx", "single TAA axis1 [16x8192]"}
+    for case, ms in timed:
+        got, want = case.run(), case.plain()
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise AssertionError(f"{case.label}: the kernel differs from its plain version "
+                                 f"(max abs err {float((got - want).abs().max()):.3e})")
+        lib = _gather_library(case)
+        lib_ms = None if lib is None else cuda_ms(lib, 10)
+        lib_name = "" if lib is None else (
+            "embedding_bag" if case.steps > 1 else
+            "index_select" if case.form in ("bcast_rows", "take_rows") else "take_along_dim")
+        n = case.tab.numel()
+        bound = _bound(4 * case.idx.numel() + case.tab.element_size() * n + 4 * n,
+                       n * case.steps * case.reps)
+        record("taa_rows" if case.axis == 0 else "taa_lanes", case.label, ms,
+               cuda_ms(case.plain, 2), lib_ms, lib_name, bound, 0.0, head=case.label in heads)
+        log("    " + dyngather.rate_line(case, ms).replace("\n", " "))
+
+    # the scans: tolerance √S · epsilon · max|cs| per rep, same bits on two runs
+    ref64 = torch.cumsum(tab.double(), 0)
+    got, want = taa.cumsum_probe(tab, reps), taa.cumsum_probe_plain(tab, reps)
+    tol = taa.scan_tolerance(float(ref64.abs().max()), s, reps)
+    err = float((got - want).abs().max())
+    one = taa.cumsum_probe(tab, 1)
+    log(f"  cumsum_cols: max_abs_err={err:.3e} tol={tol:.3e} (√S·eps·max|cs|·reps, max|cs| "
+        f"{float(ref64.abs().max()):.1f}) {'ok' if err <= tol else 'FAIL'}; against an f64 "
+        f"scan at reps 1: kernel {float((one - ref64).abs().max()):.3e}, torch.cumsum "
+        f"{float((torch.cumsum(tab, 0) - ref64).abs().max()):.3e}")
+    if not err <= tol or not torch.equal(got, taa.cumsum_probe(tab, reps)):
+        raise AssertionError("cumsum_cols disagrees with its plain version or itself")
+    record("cumsum_cols", f"C [{s}x{taa.LANES}] f32 x{reps} reps", res["C"]["ms"],
+           cuda_ms(lambda: taa.cumsum_probe_plain(tab, reps), 5),
+           cuda_ms(lambda: torch.cumsum(tab, 0), 10), "cumsum (one scan, no repeats)",
+           _bound(8 * elems, elems * (1 + reps)), err, head=True)
+
+    got = taa.piece_probe(ids, coef, begin, end, tab, reps)
+    want = taa.piece_probe_plain(ids, coef, begin, end, tab, reps)
+    cs_max = float(taa.piece_scan(ids, coef, tab).abs().max())
+    tol = taa.scan_tolerance(cs_max, s, reps)
+    err = float((got - want).abs().max())
+    seg = taa.gather_segment_library(ids, coef, rows_sorted, tab)
+    log(f"  piece: max_abs_err={err:.3e} tol={tol:.3e} (√S·eps·max|cs|·reps, max|cs| "
+        f"{cs_max:.1f}) {'ok' if err <= tol else 'FAIL'}; against {reps} x the library's "
+        f"gather and index_add_: {float((got - reps * seg).abs().max()):.3e}")
+    if not err <= tol or not torch.equal(got, taa.piece_probe(ids, coef, begin, end, tab, reps)):
+        raise AssertionError("piece disagrees with its plain version or itself")
+    record("piece", f"D [{s}x{taa.LANES}] f32 x{reps} reps", res["D"]["ms"],
+           cuda_ms(lambda: taa.piece_probe_plain(ids, coef, begin, end, tab, reps), 5),
+           res["X"]["ms"], "index_select*coef + index_add_ (one piece)",
+           _bound(16 * s + 8 * elems, elems * (3 + reps)), err, head=True)
+    for name in ("A2", "C", "D", "X"):
+        log(f"    {name}: {res[name]['ms']:.4f} ms = {res[name]['ns_per_row']:.3f} ns/row "
+            f"over {res[name]['rows']} rows")
+    return out
+
+
+def _mass_check(name, got, want, mass):
+    """A sum of many products: the error is held to 1e-6 of the sum of the
+    terms' magnitudes (about 8 f32 epsilons of it), as for the gather probe."""
+    err = float((got - want).abs().max())
+    ratio = float(((got - want).abs() / (1e-6 * mass + 1e-12)).max())
+    log(f"  {name}: max_abs_err={err:.3e} max_err/tol={ratio:.3f} (tol 1e-6 * sum |v*w|) "
+        f"{'ok' if ratio <= 1 else 'FAIL'}")
+    if not ratio <= 1:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def phase_sparse_kernels(dataset):
+    """(k), first half: the layer-0 products on synth-reddit's features."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.ops import matmul as mm
+
+    t0 = time.perf_counter()
+    x = _features(dataset, sparse=True)
+    torch.cuda.synchronize()
+    n, f, nnz = x.n_rows, x.n_cols, x.nnz
+    per_col = torch.diff(x.t_ptr.long()).float()
+    log(f"(k) sparse layer-0: features [{n}, {f}] nnz={nnz} ({nnz / n:.1f} per row; per "
+        f"column mean {per_col.mean():.0f} max {per_col.max():.0f}) on the card in "
+        f"{time.perf_counter() - t0:.2f} s; dW work list {x.t_work.beg.numel()} items, "
+        f"{x.t_work.n_partials} partials")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xd = _features(dataset, sparse=False)
+    a_lib = torch.sparse_csr_tensor(x.row_ptr.long(), x.cols.long(), x.values, size=(n, f))
+    vals_abs = x.values.abs()
+    out = {"forward": {}, "dw": {}}
+    for d in (16, 32):
+        w = torch.randn(f, d, generator=gen, device="cuda")
+        got = mm.csr_matmul(x.values, x, w)
+        want = mm.csr_matmul_plain(x.values, x.rows, x.cols, w, n)
+        mass = mm.csr_matmul_plain(vals_abs, x.rows, x.cols, w.abs(), n)
+        err = _mass_check(f"csr_matmul forward d={d}", got, want, mass)
+        if not torch.equal(got, mm.csr_matmul(x.values, x, w)):
+            raise AssertionError("the sparse forward differs between two runs")
+        ms = cuda_ms(lambda: mm.csr_matmul(x.values, x, w), 20)
+        plain = cuda_ms(lambda: mm.csr_matmul_plain(x.values, x.rows, x.cols, w, n), 5)
+        lib = cuda_ms(lambda: a_lib @ w, 10)
+        blas = cuda_ms(lambda: xd @ w, 10)
+        bound, by = _bound(8 * nnz + 4 * (n + 1) + 4 * f * d + 4 * n * d, 2 * nnz * d)
+        log(f"  forward d={d}: csr_spmm {ms:.4f} ms (plain {plain:.4f}; sparse CSR library "
+            f"{lib:.4f}; cuBLAS x @ W on dense x {blas:.4f}; bound {bound:.4f} ms, {by})")
+        out["forward"][str(d)] = dict(ms=ms, plain_ms=plain, library_ms=lib, cublas_dense_ms=blas,
+                                      bound_ms=bound, bound_by=by, max_abs_err=err)
+    d = 16
+    g = torch.randn(n, d, generator=gen, device="cuda")
+    got = mm.csr_matmul_dw(x, x.values, g)
+    t_vals = x.values[x.t_perm]
+    t_cols = x.cols[x.t_perm]
+    want = mm.csr_matmul_plain(t_vals, t_cols, x.t_rows, g, f)
+    mass = mm.csr_matmul_plain(t_vals.abs(), t_cols, x.t_rows, g.abs(), f)
+    err = _mass_check(f"csr_matmul dW d={d}", got, want, mass)
+    if not torch.equal(got, mm.csr_matmul_dw(x, x.values, g)):
+        raise AssertionError("the sparse dW differs between two runs")
+    # autograd reaches the same kernels, and gives the gradient for the values
+    w = torch.randn(f, d, generator=gen, device="cuda", requires_grad=True)
+    v = x.values.clone().requires_grad_(True)
+    mm.csr_matmul(v, x, w).backward(g)
+    want_v = (w.detach()[x.cols.long()] * g[x.rows.long()]).sum(1)
+    if not torch.equal(w.grad, got) or not torch.allclose(v.grad, want_v, rtol=1e-5, atol=1e-6):
+        raise AssertionError("csr_matmul's backward disagrees with its kernels")
+    t = x.t_work
+    ms = cuda_ms(lambda: mm.csr_matmul_dw(x, x.values, g), 20)
+    k3 = cuda_ms(lambda: kernels.ell_spmm(t.beg, t.len, t.dst, t.split_rows, t.split_ptr,
+                                          x.t_rows, t_vals, g, f, t.n_partials), 20)
+    via2 = kernels.csr_spmm(x.t_ptr, x.t_rows, t_vals, g)
+    _mass_check(f"dW through kernel 2 d={d}", via2, want, mass)
+    k2 = cuda_ms(lambda: kernels.csr_spmm(x.t_ptr, x.t_rows, t_vals, g), 10)
+    plain = cuda_ms(lambda: mm.csr_matmul_plain(t_vals, t_cols, x.t_rows, g, f), 5)
+    a_t = torch.sparse_csr_tensor(x.t_ptr.long(), x.t_rows.long(), t_vals, size=(f, n))
+    lib = cuda_ms(lambda: a_t @ g, 10)
+    blas = cuda_ms(lambda: xd.t() @ g, 10)
+    bound, by = _bound(16 * nnz + 4 * (f + 1) + 4 * n * d + 4 * f * d, 2 * nnz * d)
+    log(f"  dW d={d}: values[t_perm] + kernel 3 {ms:.4f} ms (kernel 3 alone {k3:.4f}; "
+        f"through kernel 2 {k2:.4f}; plain {plain:.4f}; sparse CSR library {lib:.4f}; cuBLAS "
+        f"x.T @ g on dense x {blas:.4f}; bound {bound:.4f} ms, {by})")
+    out["dw"][str(d)] = dict(ms=ms, kernel3_alone_ms=k3, through_kernel2_ms=k2, plain_ms=plain,
+                             library_ms=lib, cublas_dense_ms=blas, bound_ms=bound, bound_by=by,
+                             max_abs_err=err)
+    return out
+
+
+def phase_sparse_path(dataset):
+    """(k), second half: training with feature_matmul='sparse'."""
+    import dataclasses
+
+    import numpy as np
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached, reorder_cached
+
+    cfg = GCNConfig(epochs=EPOCHS, graphsum_backend="bsr", reorder="none", seed=0,
+                    feature_matmul="sparse")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = train.run(cfg, dataset, device="cuda", verbose=False)
+    launches = dict(kernels.launches)
+    losses = [h["train_loss"] for h in res.history]
+    log(f"  train.run synth-reddit sparse features, bsr, dropout {cfg.dropout}, {EPOCHS} "
+        f"epochs: {time.perf_counter() - t0:.1f} s (graph build included); train loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, test_acc {res.test_acc:.5f}")
+    if not np.isfinite(_metrics(res)).all() or not losses[-1] < losses[0]:
+        raise AssertionError("the sparse-feature run did not train")
+    # per epoch: 4 adjacency passes (kernels 1 and 2 each), the layer-0 product of
+    # the train and the eval half (kernel 2 twice), one dW (kernel 3); each of the
+    # trailing and the test eval: 2 adjacency passes and one layer-0 product
+    expected = {"bsr_tile": 4 * EPOCHS + 4, "csr_spmm": 6 * EPOCHS + 6, "ell_spmm": EPOCHS}
+    log(f"  launches {launches}; expected {expected}, 0 for the others")
+    if any(v != expected.get(k, 0) for k, v in launches.items()):
+        raise AssertionError("the sparse path's launch counts are not what the code should make")
+
+    zero = dataclasses.replace(cfg, epochs=3, dropout=0.0)
+    a, b = (_metrics(train.run(dataclasses.replace(zero, feature_matmul=fm), dataset,
+                               device="cuda", verbose=False)) for fm in ("sparse", "dense"))
+    diff = float(np.abs(a - b).max())
+    log(f"  sparse vs dense features, 3 epochs at dropout 0, same weights: max metric diff "
+        f"{diff:.3e} (tolerance 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"sparse and dense features disagree:\n{a}\n{b}")
+
+    ds = reorder_cached(load_cached("synth-pubmed"), "synth-pubmed")
+    a, b = (_metrics(train.run(zero, ds, device=dev, verbose=False)) for dev in ("cuda", "cpu"))
+    diff = float(np.abs(a - b).max())
+    log(f"  synth-pubmed sparse features, 3 epochs, card vs CPU plain versions: max metric "
+        f"diff {diff:.3e} (tolerance 1e-4)")
+    if not diff <= 1e-4:
+        raise AssertionError(f"card and CPU disagree on sparse synth-pubmed:\n{a}\n{b}")
+    return launches
+
+
+TEXT_EPOCHS = 5
+
+
+def phase_text_entry():
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from cuda_gcn_torch import cli, kernels
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.data.parser import load_dataset
+
+    ds = load_cached("synth-cora")
+    g, fi = ds.graph, ds.feature_index
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "cora-text.graph"), "w") as fh:
+            for i in range(ds.num_nodes):  # without the self-loop: the parser puts it first
+                row = g.indices[g.indptr[i]:g.indptr[i + 1]]
+                fh.write(" ".join(str(j) for j in row if j != i) + "\n")
+        with open(os.path.join(tmp, "cora-text.split"), "w") as fh:
+            fh.write("\n".join(str(int(v)) for v in ds.split) + "\n")
+        with open(os.path.join(tmp, "cora-text.svmlight"), "w") as fh:
+            for i in range(ds.num_nodes):
+                lo, hi = fi.indptr[i], fi.indptr[i + 1]
+                kvs = " ".join(f"{int(k)}:{float(v):.9g}" for k, v in
+                               zip(fi.indices[lo:hi], ds.feature_value[lo:hi]))
+                fh.write(f"{int(ds.label[i])} {kvs}".rstrip() + "\n")
+        parsed = load_dataset("cora-text", data_dir=tmp)
+        for a, b, what in ((parsed.graph.indptr, g.indptr, "graph.indptr"),
+                           (parsed.graph.indices, g.indices, "graph.indices"),
+                           (parsed.feature_index.indptr, fi.indptr, "feature indptr"),
+                           (parsed.feature_index.indices, fi.indices, "feature indices"),
+                           (parsed.feature_value, ds.feature_value, "feature values"),
+                           (parsed.label, ds.label, "label"), (parsed.split, ds.split, "split")):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"the parsed {what} differs from the cached dataset")
+        if (parsed.num_nodes, parsed.input_dim, parsed.output_dim) != (
+                ds.num_nodes, ds.input_dim, ds.output_dim):
+            raise AssertionError("the parsed dims differ from the cached dataset")
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["cora-text", "--data-dir", tmp, "--feature-matmul", "sparse",
+                           "--epochs", str(TEXT_EPOCHS)])
+        missing = cli.main(["cora-text-missing", "--data-dir", tmp])
+    launches = dict(kernels.launches)
+    lines = buf.getvalue().strip().splitlines()
+    log(f"(l) text entry point: cora-text parsed equal to synth-cora ({ds.num_nodes} nodes, "
+        f"{g.nnz} edges, {fi.nnz} feature nnz); cli.main rc {rc}, a missing name rc {missing}")
+    for line in lines:
+        log("  | " + line)
+    num = r"-?\d+\.\d{5}"
+    head = ["Parse Graph Succeeded.", "Parse Node Succeeded.", "Parse Split Succeeded.",
+            "RUNNING ON CUDA"]
+    ok = rc == 0 and missing == 1 and lines[:4] == head and len(lines) == 4 + TEXT_EPOCHS + 2
+    for i, line in enumerate(lines[4:4 + TEXT_EPOCHS], start=1):
+        ok = ok and re.fullmatch(rf"epoch={i} train_loss={num} train_acc={num} "
+                                 rf"val_loss={num} val_acc={num} time={num}", line)
+    ok = ok and re.fullmatch(rf"total training time={num}", lines[-2]) \
+        and re.fullmatch(rf"test_loss={num} test_acc={num} time={num}", lines[-1])
+    if not ok:
+        raise AssertionError("the text entry point's output is not the reference's format")
+    # dense backend at 2,708 nodes: only the layer-0 kernels launch. Per epoch the
+    # train and the eval product (kernel 2) and one dW (kernel 3); one product for
+    # each of the trailing and the test eval
+    expected = {"csr_spmm": 2 * TEXT_EPOCHS + 2, "ell_spmm": TEXT_EPOCHS}
+    log(f"  launches {launches}; expected {expected}, 0 for the others")
+    if any(v != expected.get(k, 0) for k, v in launches.items()):
+        raise AssertionError("the text run's layer-0 did not go through the kernels")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -611,17 +982,29 @@ def main() -> int:
     log(f"loaded and reordered synth-reddit in {time.perf_counter() - t0:.1f} s")
     graph, errs = phase_kernels(dataset, device)
     launches = phase_main_path(dataset)
-    phase_steady(graph, dataset)
+    dense_ms = phase_steady(graph, dataset)
     kernels_line = phase_timing(graph, launches, errs)
     phase_profile(graph, dataset)
+    layer0 = phase_sparse_kernels(dataset)
+    sparse_ms = phase_steady(graph, dataset, " with sparse layer-0 features", sparse=True)
+    log(f"  steady fused loop, same graph and call: dense features {dense_ms:.2f} ms/epoch, "
+        f"sparse features {sparse_ms:.2f} ms/epoch")
     del graph
     torch.cuda.empty_cache()
+    sparse_launches = phase_sparse_path(dataset)
     phase_small_reference()
     del dataset
     errs["ell_spmm"] = 0.0
     pallas_launches, pubmed_timing = phase_pallas_path(errs)
     reddit_timing = phase_ell_reddit(errs)
     probe_rows = phase_probes(errs)
+    taa_rows = phase_taa_probes(errs)
+    text_launches = phase_text_entry()
+    for line in kernels_line:  # kernels 1 and 2: the launches of the sparse-feature run too
+        line["launches_sparse_run"] = sparse_launches[line["name"]]
+        if line["name"] == "csr_spmm":
+            line["layer0_forward"] = layer0["forward"]
+            line["launches_text_run"] = text_launches["csr_spmm"]
     d = WIDTHS[-1]
     ms, plain, lib, bound, by = reddit_timing[d]
     kernels_line.append({
@@ -640,13 +1023,27 @@ def main() -> int:
                               for g, t in (("synth-pubmed", pubmed_timing),
                                            ("synth-reddit", reddit_timing))},
         "library_ms_by_width": {"synth-reddit": {str(w): r[2]
-                                                 for w, r in reddit_timing.items()}}})
+                                                 for w, r in reddit_timing.items()}},
+        "layer0_dw": layer0["dw"], "launches_sparse_run": sparse_launches["ell_spmm"],
+        "launches_text_run": text_launches["ell_spmm"]})
     for name, line in probe_rows.items():
         kernels_line.append({
             "name": name, "route": "cuda", "source": "cuda_gcn_torch/csrc/gather_probe.cu",
             "replaces": "scripts/exp_pallas_gather.py:" + (
                 "60 (gather_kernel)" if name == "gather_probe" else "85 (scatter_kernel)"),
             "max_abs_err": errs[name], **line})
+    replaces = {
+        "taa_rows": "scripts/exp_pallas_taa.py:77 (taa_kernel); exp_dyngather.py:38 "
+                    "(sublane_kernel); exp_dyngather2.py:53,60,71,101 (k1, k2, k3, k5); "
+                    "exp_dyngather3.py:27 (try_taa, axis 0)",
+        "taa_lanes": "scripts/exp_dyngather.py:54 (lane_kernel); exp_dyngather2.py:92 (k4); "
+                     "exp_dyngather3.py:27 (try_taa, axis 1)",
+        "cumsum_cols": "scripts/exp_pallas_taa.py:98 (cumsum_kernel)",
+        "piece": "scripts/exp_pallas_taa.py:117 (piece_kernel)"}
+    for name, line in taa_rows.items():
+        kernels_line.append({"name": name, "route": "cuda",
+                             "source": "cuda_gcn_torch/csrc/taa_probe.cu",
+                             "replaces": replaces[name], **line})
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

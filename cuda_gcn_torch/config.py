@@ -3,9 +3,10 @@
 A copy of ``GCNConfig`` from the JAX package (cuda_gcn_tpu/config.py:19-57) with
 the same fields and defaults, so the same config means the same run in both
 packages. The port keeps its own copy because it imports nothing of the JAX
-package. Fields that select what the port does not have yet
-(``feature_matmul`` 'sparse', ``halo_dtype``, bf16 ``compute_dtype``) are
-accepted and rejected where a run would use them (train.prepare).
+package. ``feature_matmul`` selects dense or sparse (CSR) layer-0 features.
+Fields that select what the port does not have yet (``halo_dtype``, bf16
+``compute_dtype``) are accepted and rejected where a run would use them
+(train.prepare).
 """
 
 from __future__ import annotations

@@ -42,6 +42,10 @@ _ENTRY = {
                  [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P]),
     "gather_probe": ("gather_probe", "gather_probe", [_P, _P, _P, _P, _L, _I, _I, _P]),
     "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "taa_rows": ("taa_probe", "taa_rows", [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "taa_lanes": ("taa_probe", "taa_lanes", [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "cumsum_cols": ("taa_probe", "cumsum_cols", [_P, _P, _P, _I, _I, _I, _P]),
+    "piece": ("taa_probe", "piece", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
@@ -175,7 +179,9 @@ def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int,
 
 def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
     """Launch kernel 2: Σ_e coef·h[col] per CSR row in f32, added in place to
-    ``out`` when given, else written to a new [n, d] tensor."""
+    ``out`` when given, else written to a new [n, d] tensor. The row count n
+    comes from ``row_ptr``; ``cols`` index the rows of h, of which there may be
+    any number (n for an adjacency, F for a feature matrix times [F, d])."""
     if not h.is_cuda:
         raise RuntimeError(f"csr_spmm launches on a CUDA tensor, got {h.device}")
     dev = h.device
@@ -184,8 +190,8 @@ def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
     _check(row_ptr, "row_ptr", torch.int32, dev)
     _check(cols, "cols", torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
-    n, d = int(h.shape[0]), int(h.shape[1])
-    if row_ptr.numel() != n + 1 or cols.numel() != coef.numel():
+    n, d = int(row_ptr.numel()) - 1, int(h.shape[1])
+    if n < 0 or h.dim() != 2 or cols.numel() != coef.numel():
         raise ValueError("csr_spmm: inconsistent shapes")
     accumulate = out is not None
     if out is None:
@@ -202,8 +208,9 @@ def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
 
 def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
              n: int, n_partials: int) -> torch.Tensor:
-    """Launch kernel 3 over an ELL work list (ops/ell.py ``EllPlan``): returns
-    Â·h as a new [n, d] tensor in f32."""
+    """Launch kernel 3 over a work list (ops/ell.py ``WorkList``): returns the
+    [n, d] product in f32 as a new tensor. ``n`` is the number of output rows;
+    ``cols`` index the rows of h, of which there may be any number."""
     if not h.is_cuda:
         raise RuntimeError(f"ell_spmm launches on a CUDA tensor, got {h.device}")
     dev = h.device
@@ -215,7 +222,7 @@ def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
     _check(coef, "coef", torch.float32, dev)
     d = int(h.shape[1])
     n_items, n_split = int(work_beg.numel()), int(split_rows.numel())
-    if h.shape[0] != n or work_len.numel() != n_items or work_dst.numel() != n_items \
+    if h.dim() != 2 or work_len.numel() != n_items or work_dst.numel() != n_items \
             or split_ptr.numel() != n_split + 1 or cols.numel() != coef.numel():
         raise ValueError("ell_spmm: inconsistent shapes")
     out = torch.empty(n, d, dtype=torch.float32, device=dev)
@@ -270,4 +277,104 @@ def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
         return out
     _call("scatter_probe", idx.data_ptr(), coef.data_ptr(), h.data_ptr(), out.data_ptr(),
           rows, mb, d, _stream(dev))
+    return out
+
+
+# taa_lanes puts the table's rows on the grid's second dimension, the scans
+# their row chunks (csrc/taa_probe.cu).
+TAA_LANES_MAX_ROWS = 65535
+SCAN_CHUNK_ROWS = 64
+SCAN_MAX_ROWS = 65535 * SCAN_CHUNK_ROWS
+
+
+def _taa(name: str, idx, strides, tab, steps: int, reps: int) -> torch.Tensor:
+    if not tab.is_cuda:
+        raise RuntimeError(f"{name} launches on a CUDA tensor, got {tab.device}")
+    dev = tab.device
+    _check(idx, "idx", torch.int32, dev)
+    if tab.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tab must be float32 or bfloat16, got {tab.dtype}")
+    _check(tab, "tab", tab.dtype, dev)
+    if tab.dim() != 2:
+        raise ValueError(f"tab must be [S, L], got {tuple(tab.shape)}")
+    s, l = int(tab.shape[0]), int(tab.shape[1])
+    si, sj, sk = (int(v) for v in strides)
+    if steps < 1 or reps < 1 or min(si, sj, sk) < 0:
+        raise ValueError(f"{name}: steps and reps must be positive, strides non-negative")
+    if s and l and (s - 1) * si + (l - 1) * sj + (steps - 1) * sk >= idx.numel():
+        raise ValueError(f"{name}: strides {(si, sj, sk)} over [{s}, {l}, {steps}] run past "
+                         f"the {idx.numel()} indices")
+    if name == "taa_lanes" and s > TAA_LANES_MAX_ROWS:
+        raise ValueError(f"taa_lanes takes at most {TAA_LANES_MAX_ROWS} table rows, got {s}")
+    out = torch.empty(s, l, dtype=torch.float32, device=dev)
+    if s == 0 or l == 0:
+        return out
+    _call(name, idx.data_ptr(), si, sj, sk, tab.data_ptr(),
+          int(tab.dtype == torch.bfloat16), out.data_ptr(), s, l, steps, reps, _stream(dev))
+    return out
+
+
+def taa_rows(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
+    """Launch the axis-0 element gather: out[i, j] = Σ_{r<reps} Σ_{k<steps}
+    tab[idx[i·si + j·sj + k·sk], j] in f32, for ``strides`` (si, sj, sk) in
+    elements of the int32 ``idx``. The indices must lie in [0, S): the kernel
+    does not check them."""
+    return _taa("taa_rows", idx, strides, tab, steps, reps)
+
+
+def taa_lanes(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
+    """Launch the axis-1 element gather: out[i, j] = Σ_{r<reps} Σ_{k<steps}
+    tab[i, idx[i·si + j·sj + k·sk]] in f32. The indices must lie in [0, L)."""
+    return _taa("taa_lanes", idx, strides, tab, steps, reps)
+
+
+def _scan_totals(s: int, l: int, dev) -> torch.Tensor:
+    if s > SCAN_MAX_ROWS:
+        raise ValueError(f"the column scan takes at most {SCAN_MAX_ROWS} rows, got {s}")
+    return torch.empty(-(-s // SCAN_CHUNK_ROWS), l, dtype=torch.float32, device=dev)
+
+
+def cumsum_cols(tab, reps: int = 1) -> torch.Tensor:
+    """Launch the column scan: ``reps`` additions of cumsum(tab, axis 0), [S, L] f32."""
+    if not tab.is_cuda:
+        raise RuntimeError(f"cumsum_cols launches on a CUDA tensor, got {tab.device}")
+    dev = tab.device
+    _check(tab, "tab", torch.float32, dev)
+    if tab.dim() != 2 or reps < 1:
+        raise ValueError("cumsum_cols: tab must be [S, L] and reps positive")
+    s, l = int(tab.shape[0]), int(tab.shape[1])
+    out = torch.empty(s, l, dtype=torch.float32, device=dev)
+    if s == 0 or l == 0:
+        return out
+    totals = _scan_totals(s, l, dev)
+    _call("cumsum_cols", tab.data_ptr(), out.data_ptr(), totals.data_ptr(), s, l, reps,
+          _stream(dev))
+    return out
+
+
+def piece(ids, coef, begin, end, tab, reps: int = 1) -> torch.Tensor:
+    """Launch the piece: with cs = [0; cumsum(tab[ids]·coef, axis 0)], ``reps``
+    additions of cs[end] − cs[begin], [S, L] f32. ``ids``, ``begin``, ``end``
+    (int32) and ``coef`` (f32) hold S values each; ids lie in [0, S), begin and
+    end in [0, S] (the kernel does not check them)."""
+    if not tab.is_cuda:
+        raise RuntimeError(f"piece launches on a CUDA tensor, got {tab.device}")
+    dev = tab.device
+    _check(tab, "tab", torch.float32, dev)
+    for t, what in ((ids, "ids"), (begin, "begin"), (end, "end")):
+        _check(t, what, torch.int32, dev)
+    _check(coef, "coef", torch.float32, dev)
+    if tab.dim() != 2 or reps < 1:
+        raise ValueError("piece: tab must be [S, L] and reps positive")
+    s, l = int(tab.shape[0]), int(tab.shape[1])
+    if any(t.numel() != s for t in (ids, coef, begin, end)):
+        raise ValueError(f"piece: ids, coef, begin and end must hold {s} values each")
+    out = torch.empty(s, l, dtype=torch.float32, device=dev)
+    if s == 0 or l == 0:
+        return out
+    totals = _scan_totals(s, l, dev)
+    cs = torch.empty(s + 1, l, dtype=torch.float32, device=dev)
+    _call("piece", ids.data_ptr(), coef.data_ptr(), begin.data_ptr(), end.data_ptr(),
+          tab.data_ptr(), out.data_ptr(), cs.data_ptr(), totals.data_ptr(), s, l, reps,
+          _stream(dev))
     return out

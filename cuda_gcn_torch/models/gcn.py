@@ -15,7 +15,18 @@ from cuda_gcn_torch.data.graph import Graph
 from cuda_gcn_torch.ops.dropout import dropout
 from cuda_gcn_torch.ops.graphsum import graphsum, graphsum_pair
 from cuda_gcn_torch.ops.loss import l2_penalty, masked_cross_entropy, strict_accuracy
-from cuda_gcn_torch.ops.matmul import dense_matmul
+from cuda_gcn_torch.ops.matmul import SparseFeatures, csr_matmul, dense_matmul
+
+
+def _layer0_transform(x, w, rate, generator, training):
+    """dropout(x) @ W for the first layer (cuda_gcn_tpu/models/gcn.py:32-48).
+    Dense x: elementwise dropout and a dense product. ``SparseFeatures`` x:
+    dropout on the nnz values (the reference's layer-0 dropout, gcn.cpp:23; the
+    same in distribution, since a dropped zero stays zero), then the CSR
+    product (reference SparseMatmul, module.cpp:47-77)."""
+    if isinstance(x, SparseFeatures):
+        return csr_matmul(dropout(x.values, rate, generator, training), x, w)
+    return dense_matmul(dropout(x, rate, generator, training), w)
 
 
 def glorot(fan_in: int, fan_out: int, generator: torch.Generator) -> torch.Tensor:
@@ -36,14 +47,17 @@ class GCN(nn.Module):
     def weights(self) -> list[torch.Tensor]:
         return [getattr(self, f"w{i + 1}") for i in range(self.n_layers)]
 
-    def forward(self, graph: Graph, x: torch.Tensor, *, dropout_rate: float = 0.0,
+    def forward(self, graph: Graph, x: torch.Tensor | SparseFeatures, *, dropout_rate: float = 0.0,
                 generator: torch.Generator | None = None,
                 training: bool = False) -> torch.Tensor:
         """Forward pass -> logits [N, C] (``apply`` in the JAX package)."""
         h = x
         for i, w in enumerate(self.weights()):
-            h = graphsum(dense_matmul(dropout(h, dropout_rate, generator, training), w),
-                         graph)
+            if i == 0:
+                z = _layer0_transform(h, w, dropout_rate, generator, training)
+            else:
+                z = dense_matmul(dropout(h, dropout_rate, generator, training), w)
+            h = graphsum(z, graph)
             if i < self.n_layers - 1:
                 h = torch.relu(h)
         return h
@@ -56,9 +70,14 @@ class GCN(nn.Module):
         half is differentiated (ops/graphsum.graphsum_pair)."""
         ht = he = x
         for i, w in enumerate(self.weights()):
-            zt = dense_matmul(dropout(ht, dropout_rate, generator, True), w)
-            with torch.no_grad():
-                ze = dense_matmul(he, w)
+            if i == 0:
+                zt = _layer0_transform(ht, w, dropout_rate, generator, True)
+                with torch.no_grad():
+                    ze = _layer0_transform(he, w, 0.0, None, False)
+            else:
+                zt = dense_matmul(dropout(ht, dropout_rate, generator, True), w)
+                with torch.no_grad():
+                    ze = dense_matmul(he, w)
             ht, he = graphsum_pair(zt, ze, graph)
             if i < self.n_layers - 1:
                 ht, he = torch.relu(ht), torch.relu(he)

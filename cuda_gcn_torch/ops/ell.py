@@ -92,6 +92,51 @@ class EllPlan:
         return out
 
 
+@dataclasses.dataclass
+class WorkList:
+    """Kernel 3's work items over rows of slots, on the device: each item is a
+    row's slots, or a chunk of at most ``ELL_CHUNK_SLOTS`` of a longer row whose
+    partial sums are added in chunk order. Longest items come first."""
+
+    beg: torch.Tensor         # (items,) int32 first slot of the item
+    len: torch.Tensor         # (items,) int32 slots of the item
+    dst: torch.Tensor         # (items,) int32 output row, or -(partial + 1)
+    split_rows: torch.Tensor  # (n_split,) int32 output row of each chunked row
+    split_ptr: torch.Tensor   # (n_split+1,) int32 its partials, in chunk order
+    n_partials: int
+
+
+def _dev(a, device, dtype=torch.int32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+
+def work_list(start: np.ndarray, length: np.ndarray, rows: np.ndarray,
+              device: torch.device) -> WorkList:
+    """The work list of rows p whose slots are [start[p], start[p] + length[p])
+    and whose sums go to output row rows[p]. A row of no slots still gets one
+    item, which writes zeros: every output row listed has exactly one writer."""
+    start, length, rows = (np.asarray(a, np.int64) for a in (start, length, rows))
+    n = len(rows)
+    # work items: one per row, or one per chunk of a row longer than the chunk
+    chunks = np.maximum(1, -(-length // ELL_CHUNK_SLOTS))
+    item_p = np.repeat(np.arange(n, dtype=np.int64), chunks)
+    within = np.arange(len(item_p), dtype=np.int64) - np.repeat(np.cumsum(chunks) - chunks,
+                                                                chunks)
+    beg = start[item_p] + within * ELL_CHUNK_SLOTS
+    item_len = np.minimum(ELL_CHUNK_SLOTS, length[item_p] - within * ELL_CHUNK_SLOTS)
+    split = chunks > 1
+    split_item = split[item_p]
+    partial = np.cumsum(split_item) - 1  # a split row's chunks are contiguous, in order
+    dst = np.where(split_item, -(partial + 1), rows[item_p])
+    # longest items first, so that the widest rows do not form the tail
+    order = np.argsort(-item_len, kind="stable")
+    split_ptr = np.zeros(int(split.sum()) + 1, np.int64)
+    np.cumsum(chunks[split], out=split_ptr[1:])
+    return WorkList(beg=_dev(beg[order], device), len=_dev(item_len[order], device),
+                    dst=_dev(dst[order], device), split_rows=_dev(rows[split], device),
+                    split_ptr=_dev(split_ptr, device), n_partials=int(split_ptr[-1]))
+
+
 def ell_plan(buckets: list[EllBucket], degrees: np.ndarray,
              device: torch.device) -> EllPlan:
     """Flatten ``buckets`` onto ``device`` and build the work list.
@@ -119,31 +164,13 @@ def ell_plan(buckets: list[EllBucket], degrees: np.ndarray,
                + (np.arange(n, dtype=np.int64)
                   - np.repeat(np.asarray(row_starts[:-1], np.int64), counts)) * width_p)
     deg_p = np.asarray(degrees, np.int64)[rows]
-    # work items: one per row, or one per chunk of a row wider than the chunk
-    chunks = np.maximum(1, -(-deg_p // ELL_CHUNK_SLOTS))
-    item_p = np.repeat(np.arange(n, dtype=np.int64), chunks)
-    within = np.arange(len(item_p), dtype=np.int64) - np.repeat(np.cumsum(chunks) - chunks,
-                                                                chunks)
-    beg = start_p[item_p] + within * ELL_CHUNK_SLOTS
-    length = np.minimum(ELL_CHUNK_SLOTS, deg_p[item_p] - within * ELL_CHUNK_SLOTS)
-    split = chunks > 1
-    split_item = split[item_p]
-    partial = np.cumsum(split_item) - 1  # a split row's chunks are contiguous, in order
-    dst = np.where(split_item, -(partial + 1), rows[item_p])
-    # longest items first, so that the widest rows do not form the tail
-    order = np.argsort(-length, kind="stable")
-    split_ptr = np.zeros(int(split.sum()) + 1, np.int64)
-    np.cumsum(chunks[split], out=split_ptr[1:])
-
-    def dev(a, dtype=torch.int32):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
-
+    work = work_list(start_p, deg_p, rows, device)
     return EllPlan(
-        n_nodes=n, nnz=int(deg_p.sum()), cols=dev(cols), coef=dev(coef, torch.float32),
-        rows=dev(rows), offsets=offsets, row_starts=row_starts, widths=widths,
-        work_beg=dev(beg[order]), work_len=dev(length[order]), work_dst=dev(dst[order]),
-        split_rows=dev(rows[split]), split_ptr=dev(split_ptr),
-        n_partials=int(split_ptr[-1]))
+        n_nodes=n, nnz=int(deg_p.sum()), cols=_dev(cols, device),
+        coef=_dev(coef, device, torch.float32), rows=_dev(rows, device), offsets=offsets,
+        row_starts=row_starts, widths=widths, work_beg=work.beg, work_len=work.len,
+        work_dst=work.dst, split_rows=work.split_rows, split_ptr=work.split_ptr,
+        n_partials=work.n_partials)
 
 
 def ell_spmm_plain(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,142 @@
-"""Feature-transform matmul (cuda_gcn_tpu/ops/matmul.py ``dense_matmul``).
+"""Feature-transform matmuls (cuda_gcn_tpu/ops/matmul.py:28-64): dense, and
+sparse over the CSR feature matrix as the reference program does
+(``SparseMatmul``, src/seq/module.cpp:47-77).
 
-A plain f32 product outside any TPU kernel, so it stays a library call;
-device.resolve_device turns TF32 off so it runs in full f32.
+``dense_matmul`` is a plain f32 product outside any TPU kernel, so it stays a
+library call; device.resolve_device turns TF32 off so it runs in full f32.
+
+``csr_matmul`` keeps X as CSR values: out[i] = Σ_{nnz j in row i} values[j] ·
+W[cols[j]]. In the JAX package it is XLA (a gather and a sorted segment sum);
+on the card it is the work the hand-written SpMM kernels already do, so:
+
+* forward, [n_rows, d]: kernel 2 (csrc/csr_spmm.cu) over X's CSR, W as the
+  gathered operand;
+* backward dW = Xᵀ·g, [F, d]: kernel 3 (csrc/ell_spmm.cu) over the CSR of Xᵀ,
+  with ``values[t_perm]`` so that a dropout applied to the forward's values
+  reaches the transpose (as ``banded_matmul``'s ``t_idx`` does in the JAX
+  package). Xᵀ has few, long rows (synth-reddit: 602 rows of about 6,800
+  entries), which kernel 2's 32-rows-per-CTA split would put on a fifth of the
+  card; kernel 3's work list cuts them into 256-entry chunks whose partial
+  sums are added in chunk order. One writer per row of dW and no atomics: this
+  is the scatter the reference's CUDA backward races on
+  (src/cuda/cuda_kernel.cu:112-122), and here it gives the same bits on
+  every run;
+* the gradient for ``values``, ⟨W[cols], g[rows]⟩, only when asked for, in
+  plain tensor operations; training never asks.
+
+A tensor on the CPU takes ``csr_matmul_plain``; a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+
+from cuda_gcn_torch import kernels
+from cuda_gcn_torch.ops.ell import WorkList, work_list
+
+# From this many rows on, the JAX package lays sparse features out in row
+# bands (cuda_gcn_tpu/ops/matmul.py:83 and ``BandedFeatures``); the port has no
+# banded layout yet and train.prepare refuses such a graph.
+BANDED_FEATURES_MIN_ROWS = 1 << 19
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[N, F] @ [F, H] in f32."""
     return torch.matmul(x, w)
+
+
+@dataclasses.dataclass
+class SparseFeatures:
+    """CSR feature matrix kept sparse on the device: the model's layer-0 input
+    when ``GCNConfig.feature_matmul == 'sparse'``. ``values``, ``rows``,
+    ``cols``, ``n_rows`` and ``n_cols`` are the JAX package's fields; the rest is
+    what the kernels read, built once by ``from_csr``. Dropout applies to
+    ``values`` (the reference's layer-0 dropout on nnz values, gcn.cpp:23)."""
+
+    values: torch.Tensor   # (nnz,) float32
+    rows: torch.Tensor     # (nnz,) int32, sorted (CSR expansion)
+    cols: torch.Tensor     # (nnz,) int32
+    n_rows: int
+    n_cols: int
+    row_ptr: torch.Tensor  # (n_rows+1,) int32
+    t_ptr: torch.Tensor    # (n_cols+1,) int32: row pointer of Xᵀ
+    t_rows: torch.Tensor   # (nnz,) int32: Xᵀ's column ids (rows of X), per row ascending
+    t_perm: torch.Tensor   # (nnz,) int64: values[t_perm] are Xᵀ's values in its order
+    t_work: WorkList       # kernel 3's work list over the rows of Xᵀ
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+    @classmethod
+    def from_csr(cls, indptr: np.ndarray, indices: np.ndarray, values: np.ndarray,
+                 n_cols: int, device: str | torch.device) -> "SparseFeatures":
+        device = torch.device(device)
+        indptr = np.asarray(indptr, np.int64)
+        cols = np.asarray(indices, np.int64)
+        n_rows = len(indptr) - 1
+        if len(cols) and not 0 <= cols.min() <= cols.max() < n_cols:
+            raise ValueError(f"feature ids must lie in [0, {n_cols})")
+        rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr))
+        t_perm = np.argsort(cols, kind="stable")  # by column, rows ascending within one
+        t_ptr = np.zeros(n_cols + 1, np.int64)
+        np.cumsum(np.bincount(cols, minlength=n_cols), out=t_ptr[1:])
+
+        def dev(a, dtype=torch.int32):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+        return cls(values=dev(np.asarray(values, np.float32), torch.float32), rows=dev(rows),
+                   cols=dev(cols), n_rows=n_rows, n_cols=n_cols, row_ptr=dev(indptr),
+                   t_ptr=dev(t_ptr), t_rows=dev(rows[t_perm]), t_perm=dev(t_perm, torch.int64),
+                   t_work=work_list(t_ptr[:-1], np.diff(t_ptr), np.arange(n_cols), device))
+
+
+def csr_matmul_plain(values, rows, cols, w, n_rows: int) -> torch.Tensor:
+    """Plain version (the JAX package's signature): index, scale and
+    ``index_add_`` in f32; differentiable in ``values`` and ``w``."""
+    gathered = w[cols.long()] * values[:, None].to(w.dtype)
+    return torch.zeros(n_rows, w.shape[1], dtype=w.dtype, device=w.device).index_add_(
+        0, rows.long(), gathered)
+
+
+def csr_matmul_dw(x: SparseFeatures, values, g) -> torch.Tensor:
+    """dW = Xᵀ·g, [F, d], with ``values`` in X's order: kernel 3 over the work
+    list of Xᵀ on the card."""
+    t_values = values.detach()[x.t_perm]
+    if g.device.type == "cpu":
+        return csr_matmul_plain(t_values, x.cols[x.t_perm], x.t_rows, g, x.n_cols)
+    t = x.t_work
+    return kernels.ell_spmm(t.beg, t.len, t.dst, t.split_rows, t.split_ptr, x.t_rows,
+                            t_values, g, x.n_cols, t.n_partials)
+
+
+class _CsrMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, w, x: SparseFeatures):
+        ctx.x = x
+        ctx.save_for_backward(values, w)
+        return kernels.csr_spmm(x.row_ptr, x.cols, values.detach(), w.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        values, w = ctx.saved_tensors
+        x = ctx.x
+        g = g.contiguous()
+        d_values = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_values = (w[x.cols.long()] * g[x.rows.long()]).sum(1)
+        if ctx.needs_input_grad[1]:
+            d_w = csr_matmul_dw(x, values, g)
+        return d_values, d_w, None
+
+
+def csr_matmul(values: torch.Tensor, x: SparseFeatures, w: torch.Tensor) -> torch.Tensor:
+    """X·W for X = (``values`` at ``x``'s positions), [n_rows, d] in f32.
+    ``values`` may differ from ``x.values`` (dropout); the pattern is ``x``'s."""
+    if w.device.type == "cpu":
+        return csr_matmul_plain(values, x.rows, x.cols, w, x.n_rows)
+    return _CsrMatmul.apply(values, w, x)

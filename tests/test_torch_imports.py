@@ -17,8 +17,11 @@ from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops import bsr as tbsr
 from cuda_gcn_torch.ops import ell as tell
 from cuda_gcn_torch.ops import graphsum as tgs
+from cuda_gcn_torch.ops import matmul as tmm
 from cuda_gcn_torch.ops import residual as tres
+from cuda_gcn_torch.probes import dyngather as tdyn
 from cuda_gcn_torch.probes import gather as tprobe
+from cuda_gcn_torch.probes import taa as ttaa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +43,7 @@ def test_port_and_chip_smoke_import_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 15  # every module was imported
+    assert int(res.stdout.split()[0]) >= 18  # every module was imported
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_graph", "create_state",
@@ -73,6 +76,10 @@ def _forbid_plain(monkeypatch):
     monkeypatch.setattr(tell, "ell_spmm_plain", plain)
     monkeypatch.setattr(tprobe, "gather_probe_plain", plain)
     monkeypatch.setattr(tprobe, "scatter_probe_plain", plain)
+    monkeypatch.setattr(tmm, "csr_matmul_plain", plain)
+    for name in ("taa_rows_plain", "taa_lanes_plain", "cumsum_probe_plain",
+                 "piece_probe_plain"):
+        monkeypatch.setattr(ttaa, name, plain)
 
 
 def _meta_ell_plan(n):
@@ -84,10 +91,24 @@ def _meta_ell_plan(n):
                         split_ptr=_meta(1, **i32), n_partials=0)
 
 
+def _meta_features(n, f, nnz):
+    i32 = dict(dtype=torch.int32)
+    work = tell.WorkList(beg=_meta(f, **i32), len=_meta(f, **i32), dst=_meta(f, **i32),
+                         split_rows=_meta(0, **i32), split_ptr=_meta(1, **i32), n_partials=0)
+    return tmm.SparseFeatures(
+        values=_meta(nnz), rows=_meta(nnz, **i32), cols=_meta(nnz, **i32), n_rows=n, n_cols=f,
+        row_ptr=_meta(n + 1, **i32), t_ptr=_meta(f + 1, **i32), t_rows=_meta(nnz, **i32),
+        t_perm=_meta(nnz, dtype=torch.int64), t_work=work)
+
+
 def _wrapper_calls():
-    """(launcher name, a call of its wrapper on meta tensors), for each kernel."""
+    """(launcher name, a call of its wrapper on meta tensors), for each kernel
+    and, after them, for the sparse layer-0 product's two uses of kernels 2 and 3."""
     i32 = dict(dtype=torch.int32)
     plan = tbsr.TilePlan(_meta(3, **i32), _meta(4, **i32), _meta(4, **i32))
+    feats = _meta_features(60, 12, 90)
+    s, l = 64, 128
+    piece_args = (_meta(s, 1, **i32), _meta(s, 1), _meta(s, 1, **i32), _meta(s, 1, **i32))
     return [
         ("bsr_tile", lambda: tbsr.bsr_tile_contract(
             _meta(4, 32, 32, dtype=torch.bfloat16), _meta(4, **i32), _meta(4, **i32),
@@ -98,6 +119,14 @@ def _wrapper_calls():
         ("gather_probe", lambda: tprobe.gather_probe(_meta(4096, **i32), _meta(64, 128))),
         ("scatter_probe", lambda: tprobe.scatter_probe(_meta(4096, **i32), _meta(4096),
                                                        _meta(64, 128), 1000)),
+        ("taa_rows", lambda: ttaa.taa_probe(_meta(s, 1, **i32), _meta(s, l), 2)),
+        ("taa_lanes", lambda: tdyn.lane_gather(_meta(3, l, **i32),
+                                               _meta(s, l, dtype=torch.bfloat16))),
+        ("cumsum_cols", lambda: ttaa.cumsum_probe(_meta(s, l), 2)),
+        ("piece", lambda: ttaa.piece_probe(*piece_args, _meta(s, l), 2)),
+        ("taa_rows", lambda: tdyn.sublane_gather(_meta(s, 4, **i32), _meta(s, l))),
+        ("csr_spmm", lambda: tmm.csr_matmul(feats.values, feats, _meta(12, 16))),
+        ("ell_spmm", lambda: tmm.csr_matmul_dw(feats, feats.values, _meta(60, 16))),
     ]
 
 
@@ -111,7 +140,8 @@ def test_device_tensors_go_to_the_launchers(monkeypatch):
         monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n))
     for _, call in calls:
         call()
-    assert seen == [name for name, _ in calls] == list(kernels.launches)
+    assert seen == [name for name, _ in calls]
+    assert seen[:len(kernels.launches)] == list(kernels.launches)
 
 
 @pytest.mark.parametrize("backend", ["ell", "pallas"])
@@ -147,6 +177,9 @@ def test_kernel_build_sources_and_flags():
         assert name in kernels.launches and source in kernels.SOURCES
         with open(os.path.join(kernels.SRC_DIR, f"{source}.cu")) as f:
             assert f'extern "C" int {fn_name}(' in f.read()
+    assert "taa_probe" in kernels.SOURCES
+    assert {n for n, e in kernels._ENTRY.items() if e[0] == "taa_probe"} == {
+        "taa_rows", "taa_lanes", "cumsum_cols", "piece"}
     for source in kernels.SOURCES:
         path = kernels._lib_path(source)
         assert path.startswith(os.path.join(ROOT, "build", "kernels"))

@@ -5,6 +5,9 @@ both compute the same thing: logits and gradients at dropout 0, and three
 fused epochs of the trainer on ``tiny_dataset`` with the bsr backend, within
 1e-4 (the reduction orders differ). The port's fused loop must equal its
 stepwise loop, dropout included (the same generator draws the same masks).
+With ``feature_matmul='sparse'`` the port gives its dense-feature metrics
+(rtol 1e-4, atol 1e-5, as tests/test_model.py holds the JAX package) and the
+JAX sparse run's metrics at carried-over weights (1e-4), fused and stepwise.
 """
 
 import re
@@ -226,3 +229,89 @@ def test_cli_backends_and_early_stopping(capsys, args):
         assert lines[-3] == "Early stopping..."
     else:
         assert lines[-3].startswith(f"epoch={epochs} ")
+
+
+def _sparse_prepared(tiny_dataset, feature_matmul):
+    cfg = GCNConfig(epochs=3, dropout=0.0, feature_matmul=feature_matmul)
+    return ttrain.prepare(cfg, to_torch_dataset(tiny_dataset), "cpu")
+
+
+def test_sparse_feature_path_matches_dense(tiny_dataset):
+    """Eval logits and fused-epoch metrics at dropout 0 equal the dense-feature
+    path's (tests/test_model.py:97-123 for the JAX package)."""
+    from cuda_gcn_torch.ops.matmul import SparseFeatures
+
+    cfg, graph, x_d, truths = _sparse_prepared(tiny_dataset, "dense")
+    _, _, x_s, _ = _sparse_prepared(tiny_dataset, "sparse")
+    assert isinstance(x_s, SparseFeatures) and x_s.n_rows == tiny_dataset.num_nodes
+    assert x_s.n_cols == tiny_dataset.input_dim and x_s.nnz == len(tiny_dataset.feature_value)
+    state = ttrain.create_state(cfg, "cpu")
+    with torch.no_grad():
+        np.testing.assert_allclose(state.model(graph, x_s).numpy(),
+                                   state.model(graph, x_d).numpy(), rtol=1e-5, atol=1e-6)
+    kw = dict(dropout_rate=0.0, weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    got = [ttrain.run_epochs(ttrain.create_state(cfg, "cpu"), graph, x, truths[1], truths[2],
+                             epochs=3, **kw).numpy() for x in (x_s, x_d)]
+    np.testing.assert_allclose(got[0], got[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sparse_feature_path_matches_jax_sparse(tiny_dataset, fused):
+    """Three epochs at dropout 0 from the JAX run's weights: the fused loop
+    against ``run_epochs``, ``train_step`` + ``eval_step`` against the same."""
+    cfg = JConfig(epochs=3, dropout=0.0, seed=0, feature_matmul="sparse")
+    jcfg, jg, jx, jtruths = jtrain.prepare(cfg, tiny_dataset)
+    jstate, params = jax_params(jcfg)
+    kw = dict(dropout_rate=0.0, weight_decay=jcfg.weight_decay, lr=jcfg.learning_rate)
+    jstate, jm = jtrain.run_epochs(jstate, jg, jx, jtruths[1], jtruths[2], epochs=3, **kw)
+    want = np.stack([np.asarray(m) for m in jm], axis=1)
+
+    tcfg, tg, tx, ttruths = _sparse_prepared(tiny_dataset, "sparse")
+    state = ttrain.create_state(tcfg, "cpu")
+    state.model.load_state_dict(convert.params_from_jax(params, "cpu"))
+    if fused:
+        got = ttrain.run_epochs(state, tg, tx, ttruths[1], ttruths[2], epochs=3, **kw).numpy()
+    else:
+        got = []
+        for _ in range(3):
+            tl, ta = ttrain.train_step(state, tg, tx, ttruths[1], **kw)
+            vl, va = ttrain.eval_step(state.model, tg, tx, ttruths[2],
+                                      weight_decay=tcfg.weight_decay)
+            got.append([float(tl), float(ta), float(vl), float(va)])
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-4)
+    for k, p in state.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jstate.params[k]),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_sparse_dropout_acts_on_the_values(tiny_dataset):
+    """Layer-0 dropout keeps or drops each nnz value (scaled by 1/(1-p)) with
+    the trainer's generator: held by distribution, as for dense x."""
+    from cuda_gcn_torch.models.gcn import _layer0_transform
+
+    _, _, x, _ = _sparse_prepared(tiny_dataset, "sparse")
+    w = torch.eye(x.n_cols)
+    gen = torch.Generator().manual_seed(0)
+    out = _layer0_transform(x, w, 0.5, gen, True)
+    dense = torch.from_numpy(tiny_dataset.dense_features(np.float32))
+    kept = out != 0
+    np.testing.assert_allclose(out[kept].numpy(), 2 * dense[kept].numpy(), rtol=1e-6)
+    assert not out[dense == 0].any()
+    assert 0.4 < float(kept.sum()) / float((dense != 0).sum()) < 0.6
+    np.testing.assert_array_equal(_layer0_transform(x, w, 0.5, gen, False).numpy(),
+                                  dense.numpy())
+
+
+def test_sparse_features_on_a_huge_graph_name_the_banded_layout(tiny_dataset, monkeypatch):
+    from cuda_gcn_torch.ops import matmul as tmm
+
+    monkeypatch.setattr(tmm, "BANDED_FEATURES_MIN_ROWS", tiny_dataset.num_nodes)
+    with pytest.raises(NotImplementedError, match="banded layout"):
+        _sparse_prepared(tiny_dataset, "sparse")
+    _sparse_prepared(tiny_dataset, "dense")  # dense features are not limited
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ttrain.prepare(GCNConfig(compute_dtype="bfloat16"), to_torch_dataset(tiny_dataset),
+                       "cpu")
+    with pytest.raises(ValueError, match="feature_matmul"):
+        ttrain.prepare(GCNConfig(feature_matmul="banded"), to_torch_dataset(tiny_dataset),
+                       "cpu")
