@@ -8,18 +8,24 @@ Phases, each of which raises (exit code not 0) when it fails:
     nvcc per source, started together);
 (b) load synth-reddit with its cached locality permutation, build its graph on
     the card, and hold each kernel against its plain PyTorch version at the
-    main path's widths 16, 32, 41, 82 (kernel 1 in both orientations);
+    main path's widths 16, 32, 41, 82 (kernel 1, bf16x3 on the tensor cores, in
+    both orientations; kernel 2 with and without accumulate), each also run
+    twice and compared bitwise; then kernel 1's other cases on synth-pubmed:
+    f32 tiles (the FMA kernel), tile sizes 64 and 128, the widths 60 and 100
+    that the main path does not reach (100 falls to the FMA kernel), and a
+    case built so that every output needs the third bf16 part of h;
 (c) the main path: ``train.run`` trains the 602-16-41 GCN on the bsr backend
     with dropout 0.5; losses must be finite, the train loss must fall, and
     each kernel must have launched on every adjacency pass (4 per epoch, 2
     for the trailing eval, 2 for the test eval);
-(d) time each kernel, its plain version and one PyTorch library call for the
-    same function at the main path's shapes, beside the least time the card
-    could take (its bound);
+(d) time each kernel and its plain version at the main path's four widths,
+    beside the least time the card could take (its bound, both parts printed
+    at every width) and one PyTorch library call for the same function;
 (e) train synth-pubmed on the card and on the CPU (plain versions) from the
     same weights at dropout 0: the metrics must agree;
 (f) device time by kernel and the device's busy share, from torch.profiler
-    over a few warm epochs (run before (e));
+    over a few warm epochs (run before (e)), every kernel of the port by name;
+    then CUDA events around each launch of kernels 1 and 2 in warm epochs;
 (g) the pallas path: synth-pubmed, 500-16-3, backend ``pallas``. Kernel 3
     (ELL SpMM) against its plain version at d 3, 6, 16, 32, and bitwise equal
     to itself across two runs; ``train.run`` 100 epochs at dropout 0.5 with
@@ -63,10 +69,13 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
-# f32 FLOP/s outside the tensor cores, the rate both kernels' f32 FMAs run at.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s; f32
+# FLOP/s outside the tensor cores, the rate of the gather kernels' and the
+# probes' FMAs; dense bf16 FLOP/s of the tensor cores, the rate of kernel 1's
+# three bf16 passes.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 EPOCHS = 10               # main-path epochs
 WIDTHS = (16, 32, 41, 82)  # pass widths of the main path: pair 32/82, backward 16/41
 ATOL, RTOL = 1e-5, 1e-4    # f32; only the summation order differs from the plain version
@@ -138,8 +147,11 @@ def phase_kernels(dataset, device):
         f"tile coverage={covered / graph.total_nnz:.4f} symmetric={graph.symmetric}")
     deg = torch.diff(graph.resid.row_ptr.long()).float()
     per_row = torch.diff(graph.plan.ptr.long()).float()
+    work = graph.resid.work
     log(f"  residual edges per row: mean {deg.mean():.2f} p99 "
-        f"{deg.quantile(0.99):.0f} max {deg.max():.0f}; tiles per block row: mean "
+        f"{deg.quantile(0.99):.0f} max {deg.max():.0f}, {int((deg == 0).sum())} rows empty; "
+        f"work items {work.beg.numel()} ({work.n_nonempty} with edges, {work.n_partials} "
+        f"chunks of {work.split_rows.numel()} long rows); tiles per block row: mean "
         f"{per_row.mean():.2f} p99 {per_row.quantile(0.99):.0f} max {per_row.max():.0f}")
     plan_t = tile_plan(graph.tile_cols, graph.tile_rows, graph.t_blocks)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -150,22 +162,116 @@ def phase_kernels(dataset, device):
         for transpose in (False, True):
             rows, cols, plan = ((graph.tile_cols, graph.tile_rows, plan_t) if transpose
                                 else (graph.tile_rows, graph.tile_cols, graph.plan))
-            got = bsr_tile_contract(graph.tiles, rows, cols, h, graph.n_nodes,
-                                    graph.t_blocks, transpose=transpose, plan=plan)
+
+            def tile_part():
+                return bsr_tile_contract(graph.tiles, rows, cols, h, graph.n_nodes,
+                                         graph.t_blocks, transpose=transpose, plan=plan)
+
+            got = tile_part()
             want = bsr_tile_contract_plain(graph.tiles, rows, cols, h, graph.n_nodes,
                                            graph.t_blocks, transpose=transpose)
             errs["bsr_tile"] = max(errs["bsr_tile"], check(
                 f"bsr_tile d={d} transpose={transpose}", got, want))
-        got = residual_spmm(r.row_ptr, r.cols, r.coef, h)
+            if not torch.equal(got, tile_part()):
+                raise AssertionError(f"bsr_tile d={d} differs between two runs")
+        got = residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work)
         want = residual_spmm_plain(r.row_ptr, r.cols, r.coef, h)
         errs["csr_spmm"] = max(errs["csr_spmm"], check(f"csr_spmm d={d}", got, want))
         base = torch.randn(graph.n_nodes, d, generator=gen, device=device)
-        got = residual_spmm(r.row_ptr, r.cols, r.coef, h, out=base.clone())
+        got2 = residual_spmm(r.row_ptr, r.cols, r.coef, h, out=base.clone(), work=r.work)
         want = residual_spmm_plain(r.row_ptr, r.cols, r.coef, h, out=base.clone())
         errs["csr_spmm"] = max(errs["csr_spmm"], check(
-            f"csr_spmm d={d} accumulate", got, want))
+            f"csr_spmm d={d} accumulate", got2, want))
+        if not torch.equal(got, residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work)) \
+                or not torch.equal(got2, residual_spmm(r.row_ptr, r.cols, r.coef, h,
+                                                       out=base.clone(), work=r.work)):
+            raise AssertionError(f"csr_spmm d={d} differs between two runs")
     torch.cuda.synchronize()
+    log("  kernels 1 and 2: bitwise equal across two runs at every width")
     return graph, errs
+
+
+def phase_tile_cases(errs):
+    """(b), second half: the cases of kernel 1 that the main path does not
+    reach, on synth-pubmed: f32 tiles (the FMA kernel), bf16 tiles of size 64
+    and 128 (fewer consumer warpgroups), a width between two accumulator
+    widths and one above the widest."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.data.dataset import load_cached, reorder_cached
+    from cuda_gcn_torch.data.graph import build_graph
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, bsr_tile_contract_plain
+
+    ds = reorder_cached(load_cached("synth-pubmed"), "synth-pubmed")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, tb, widths in (("float32", 256, (16,)), ("bfloat16", 64, (16, 82)),
+                              ("bfloat16", 128, (41,)), ("bfloat16", 256, (60, 100))):
+        graph = build_graph(ds.graph, backend="bsr", bsr_tile=tb, bsr_dtype=dtype,
+                            device="cuda")
+        for d in widths:
+            width = kernels.bsr_mma_width(graph.tiles.dtype, tb, graph.num_tiles, d)
+            which = "FMA kernel" if width is None else f"tensor cores, N={width}"
+            h = torch.randn(graph.n_nodes, d, generator=gen, device="cuda")
+            for transpose in (False, True):
+                rows, cols = ((graph.tile_cols, graph.tile_rows) if transpose
+                              else (graph.tile_rows, graph.tile_cols))
+                got = bsr_tile_contract(graph.tiles, rows, cols, h, graph.n_nodes,
+                                        graph.t_blocks, transpose=transpose)
+                want = bsr_tile_contract_plain(graph.tiles, rows, cols, h, graph.n_nodes,
+                                               graph.t_blocks, transpose=transpose)
+                errs["bsr_tile"] = max(errs["bsr_tile"], check(
+                    f"bsr_tile synth-pubmed {dtype} tb={tb} K={graph.num_tiles} d={d} "
+                    f"transpose={transpose} ({which})", got, want))
+    torch.cuda.synchronize()
+
+
+def phase_third_part():
+    """(b), last: kernel 1 where the third bf16 part of h decides the answer.
+    ATOL and RTOL would pass a kernel that dropped it (it carries about 2^-17 of
+    a value), so here every h[j, f] is (1 + 2^-9 + 2^-17) · 2^(f mod 5): its
+    parts are 1, 2^-9 and 2^-17 times that power of two, none zero. The tiles
+    hold 0 and 1, 8 ones a row, 3 tiles a block row at most, so every sum of the
+    kernel is exact in f32 and the answer is held against an f64 reference:
+    each output within a quarter of what the third part alone contributes."""
+    import torch
+
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, split_bf16x3
+
+    tb, t_blocks = 256, 3
+    n = t_blocks * tb - 6
+    tile_rows = torch.tensor([0, 0, 1, 2, 2, 2], device="cuda")
+    tile_cols = torch.tensor([0, 2, 1, 0, 1, 2], device="cuda")
+    i = torch.arange(tb, device="cuda")
+    tiles = torch.stack([((i[None, :] % 32) == ((i[:, None] + p) % 32)) for p in range(6)])
+    tiles = tiles.to(torch.bfloat16).contiguous()
+
+    def exact(hh, rows, cols, transpose):
+        hp = torch.zeros(t_blocks * tb, hh.shape[1], dtype=torch.float64, device="cuda")
+        hp[:n] = hh
+        a = tiles.double().transpose(1, 2) if transpose else tiles.double()
+        out = torch.zeros(t_blocks, tb, hh.shape[1], dtype=torch.float64, device="cuda")
+        out.index_add_(0, rows, torch.bmm(a, hp.view(t_blocks, tb, -1)[cols]))
+        return out.view(t_blocks * tb, -1)[:n]
+
+    for d in (41, 82):
+        scale = torch.exp2((torch.arange(d, device="cuda") % 5).float())
+        h = ((1 + 2.0 ** -9 + 2.0 ** -17) * scale).expand(n, d).contiguous()
+        hi, mid, lo = (part.double() for part in split_bf16x3(h))
+        if not torch.equal(hi + mid + lo, h.double()) or not bool((lo != 0).all()):
+            raise AssertionError("the three parts do not sum to h with a third part in use")
+        for transpose in (False, True):
+            rows, cols = (tile_cols, tile_rows) if transpose else (tile_rows, tile_cols)
+            got = bsr_tile_contract(tiles, rows, cols, h, n, t_blocks, transpose=transpose)
+            want = exact(h.double(), rows, cols, transpose)
+            third = (want - exact(hi + mid, rows, cols, transpose)).abs()
+            ratio = float(((got.double() - want).abs() / third).max())
+            ok = bool((third > 0).all()) and ratio <= 0.25
+            log(f"  bsr_tile third bf16 part, d={d} transpose={transpose}: max error "
+                f"{ratio:.3f} of the third part's share (limit 0.25) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("kernel 1 does not carry the third bf16 part of h")
+    torch.cuda.synchronize()
 
 
 def phase_main_path(dataset):
@@ -272,8 +378,57 @@ def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)"):
     busy = sum(kernels_ms.values())
     log(f"{label} profile of {epochs} warm fused epochs: wall {wall_ms / epochs:.2f} "
         f"ms/epoch, device busy {busy / epochs:.2f} ms/epoch ({busy / wall_ms:.3f} of wall)")
-    for name, ms in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {ms / epochs:9.3f} ms/epoch  {name[:110]}")
+    ranked = sorted(kernels_ms.items(), key=lambda kv: -kv[1])
+    own = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials")
+    for i, (name, ms) in enumerate(ranked):  # the top 8, and every kernel of the port
+        if i < 8 or any(key in name for key in own):
+            log(f"  {ms / epochs:9.3f} ms/epoch  {name[:110]}")
+    rest = sum(ms for name, ms in ranked if not any(key in name for key in own))
+    log(f"  {rest / epochs:9.3f} ms/epoch  everything that is no kernel of the port")
+
+
+def phase_epoch_events(graph, dataset, epochs: int = 3):
+    """(f), second half: CUDA events around every launch of kernels 1 and 2
+    inside warm fused epochs, without the profiler: a pass's time in the loop
+    (kernel 1's pre-pass and kernel 2's reduce kernel included), by width."""
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+
+    cfg, x, truths, kw = _fused_inputs(dataset)
+    state = train.create_state(cfg, "cuda")
+    train.run_epochs(state, graph, x, *truths, epochs=2, **kw)
+    events = []
+    real = {"bsr_tile": kernels.bsr_tile, "csr_spmm": kernels.csr_spmm}
+
+    def timed(name, h_at):
+        def launch(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = real[name](*args, **kwargs)
+            end.record()
+            events.append((name, int(args[h_at].shape[1]), start, end))
+            return out
+        return launch
+
+    kernels.bsr_tile, kernels.csr_spmm = timed("bsr_tile", 4), timed("csr_spmm", 3)
+    try:
+        train.run_epochs(state, graph, x, *truths, epochs=epochs, **kw)
+        torch.cuda.synchronize()
+    finally:
+        kernels.bsr_tile, kernels.csr_spmm = real["bsr_tile"], real["csr_spmm"]
+    per_epoch = {"bsr_tile": 0.0, "csr_spmm": 0.0}
+    by_width = {}
+    # the trailing eval's two passes are left out: whole epochs only
+    for name, d, start, end in events[:8 * epochs]:
+        ms = start.elapsed_time(end)
+        per_epoch[name] += ms / epochs
+        by_width.setdefault((name, d), []).append(ms)
+    log(f"  CUDA events around each launch in {epochs} warm fused epochs: kernel 1 "
+        f"{per_epoch['bsr_tile']:.3f} ms/epoch, kernel 2 {per_epoch['csr_spmm']:.3f} ms/epoch; "
+        "per pass " + ", ".join(f"{name} d={d} {sum(v) / len(v):.3f}"
+                                for (name, d), v in by_width.items()))
+    return per_epoch
 
 
 def _library_ms(make, iters):
@@ -290,8 +445,11 @@ def _library_ms(make, iters):
 
 
 def phase_timing(graph, launches, errs):
+    import dataclasses
+
     import torch
 
+    from cuda_gcn_torch import kernels
     from cuda_gcn_torch.ops.bsr import bsr_tile_contract, bsr_tile_contract_plain
     from cuda_gcn_torch.ops.residual import residual_spmm, residual_spmm_plain
 
@@ -299,22 +457,52 @@ def phase_timing(graph, launches, errs):
     r = graph.resid
     m = r.nnz
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows_out = []
-    log("(d) timing at the main path's shapes (CUDA events, warm, mean of iters)")
+    csr = torch.sparse_csr_tensor(r.row_ptr.long(), r.cols.long(), r.coef, size=(n, n))
+    tile_bytes = graph.tiles.numel() * graph.tiles.element_size()
+    by_width = {"bsr_tile": {}, "csr_spmm": {}}
+    log("(d) timing at the main path's shapes (CUDA events, warm, mean of iters); bounds: "
+        "each input read once and each output written once over 3.35 TB/s, against kernel "
+        "1's three bf16 passes at its accumulator width N over 989 TFLOP/s and kernel 2's "
+        "f32 FMAs over 67 TFLOP/s")
     for d in WIDTHS:
         h = torch.randn(n, d, generator=gen, device="cuda")
         t1 = cuda_ms(lambda: bsr_tile_contract(graph.tiles, graph.tile_rows, graph.tile_cols,
-                                               h, n, t_blocks, plan=graph.plan), 10)
+                                               h, n, t_blocks, plan=graph.plan), 20)
         p1 = cuda_ms(lambda: bsr_tile_contract_plain(graph.tiles, graph.tile_rows,
                                                      graph.tile_cols, h, n, t_blocks), 3)
         out = torch.zeros(n, d, device="cuda")
-        t2 = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, out=out), 10)
+        t2 = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, out=out,
+                                           work=r.work), 20)
+        t2_new = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work), 20)
         p2 = cuda_ms(lambda: residual_spmm_plain(r.row_ptr, r.cols, r.coef, h, out=out), 5)
-        log(f"  d={d}: bsr_tile {t1:.3f} ms (plain {p1:.3f}); "
-            f"csr_spmm {t2:.3f} ms (plain {p2:.3f})")
-        rows_out.append((d, t1, p1, t2, p2))
+        l2, _ = _library_ms(lambda: (lambda: csr @ h), 20)
+        l2_add, _ = _library_ms(lambda: (lambda: out.addmm_(csr, h)), 20)
+        # bounds: each input read once, each output written once
+        width = kernels.bsr_mma_width(graph.tiles.dtype, tb, k, d)
+        b1_bytes = tile_bytes + 4 * (2 * k + 2 * t_blocks + 1) + 4 * n * d + 4 * n * d
+        b1_ops = (3 * 2 * k * tb * tb * width / PEAK_BF16_FLOPS if width is not None
+                  else 2 * k * tb * tb * d / PEAK_F32_FLOPS) * 1e3
+        # kernel 2 adding into out: the items, the edges, h, out read and written
+        b2_bytes = 12 * r.work.beg.numel() + 8 * m + 4 * n * d + 2 * 4 * n * d
+        b2_ops = 2 * m * d / PEAK_F32_FLOPS * 1e3
+        for name, ms, plain, nbytes, t_ops in (("bsr_tile", t1, p1, b1_bytes, b1_ops),
+                                               ("csr_spmm", t2, p2, b2_bytes, b2_ops)):
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            by_width[name][d] = dict(ms=ms, plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+                                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                     bound_bytes_ms=t_bytes, bound_operations_ms=t_ops)
+        by_width["bsr_tile"][d]["accumulator_width"] = width
+        by_width["csr_spmm"][d].update(new_out_ms=t2_new, library_ms=l2,
+                                       library_addmm_ms=l2_add)
+        b1, b2 = by_width["bsr_tile"][d], by_width["csr_spmm"][d]
+        log(f"  d={d}: bsr_tile {t1:.3f} ms (N={width}; plain {p1:.3f}; bound "
+            f"{b1['bound_ms']:.3f} ms by {b1['bound_by']}: bytes {b1['bound_bytes_ms']:.3f}, "
+            f"operations {b1['bound_operations_ms']:.3f})")
+        log(f"  d={d}: csr_spmm adding into out {t2:.3f} ms, into a new tensor {t2_new:.3f} ms "
+            f"(plain {p2:.3f}; library sparse CSR @ dense {_fmt_ms(l2)}, out.addmm_ "
+            f"{_fmt_ms(l2_add)}; bound {b2['bound_ms']:.3f} ms by {b2['bound_by']}: bytes "
+            f"{b2['bound_bytes_ms']:.3f}, operations {b2['bound_operations_ms']:.3f})")
     d = WIDTHS[-1]
-    _, t1, p1, t2, p2 = rows_out[-1]
     h = torch.randn(n, d, generator=gen, device="cuda")
 
     def bsr_lib():
@@ -324,44 +512,28 @@ def phase_timing(graph, launches, errs):
         hp[:n] = h
         return lambda: a @ hp
 
-    def csr_lib():
-        a = torch.sparse_csr_tensor(r.row_ptr.long(), r.cols.long(), r.coef, size=(n, n))
-        return lambda: a @ h
-
     l1, note1 = _library_ms(bsr_lib, 3)
-    l2, note2 = _library_ms(csr_lib, 10)
-    log(f"  library at d={d}: sparse BSR @ dense "
-        f"{'%.3f ms' % l1 if l1 is not None else 'did not run (' + note1 + ')'}; "
-        f"sparse CSR @ dense "
-        f"{'%.3f ms' % l2 if l2 is not None else 'did not run (' + note2 + ')'}")
-    # bounds: each input read once, each output written once; f32 FMAs = 2 flops
-    tile_bytes = graph.tiles.numel() * graph.tiles.element_size()
-    b1_bytes = tile_bytes + 4 * (2 * k + t_blocks + 1) + 4 * n * d + 4 * n * d
-    b1_ops = 2 * k * tb * tb * d
-    b2_bytes = 8 * m + 4 * (n + 1) + 4 * n * d + 2 * 4 * n * d  # h, out read + written
-    b2_ops = 2 * m * d
+    log(f"  library at d={d}: sparse BSR @ dense (f32 values) "
+        f"{'%.3f ms' % l1 if l1 is not None else 'did not run (' + note1 + ')'}")
+    in_row_order = dataclasses.replace(graph.plan, by_load=None)
+    t1_rows = cuda_ms(lambda: bsr_tile_contract(graph.tiles, graph.tile_rows, graph.tile_cols,
+                                                h, n, t_blocks, plan=in_row_order), 20)
+    log(f"  bsr_tile at d={d} with the block rows taken in row order instead of most tiles "
+        f"first: {t1_rows:.3f} ms")
     kernels_line = []
-    for name, src, replaces, ms, plain, lib, bbytes, ops in (
+    for name, src, replaces, lib in (
             ("bsr_tile", "cuda_gcn_torch/csrc/bsr_tile.cu",
-             "cuda_gcn_tpu/ops/pallas_bsr.py:65 (+ :120 _bsr_kernel_resident)",
-             t1, p1, l1, b1_bytes, b1_ops),
+             "cuda_gcn_tpu/ops/pallas_bsr.py:65 (+ :120 _bsr_kernel_resident)", l1),
             ("csr_spmm", "cuda_gcn_torch/csrc/csr_spmm.cu",
              "cuda_gcn_tpu/ops/graphsum.py:136 (XLA _blocked2d_apply, not Pallas)",
-             t2, p2, l2, b2_bytes, b2_ops)):
-        t_bytes = bbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_FLOPS * 1e3
+             by_width["csr_spmm"][d]["library_ms"])):
+        row = by_width[name][d]
         kernels_line.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
-            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib, "d": d,
-            "ms_by_width": {str(row[0]): row[1] if name == "bsr_tile" else row[3]
-                            for row in rows_out},
-            "plain_ms_by_width": {str(row[0]): row[2] if name == "bsr_tile" else row[4]
-                                  for row in rows_out}})
-        log(f"  {name} d={d}: {ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms "
-            f"(bytes {t_bytes:.3f}, operations {t_ops:.3f})")
+            "launches": launches[name], "max_abs_err": errs[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": lib, "d": d,
+            "by_width": {str(w): v for w, v in by_width[name].items()}})
     return kernels_line
 
 
@@ -818,9 +990,9 @@ def phase_sparse_kernels(dataset):
     ms = cuda_ms(lambda: mm.csr_matmul_dw(x, x.values, g), 20)
     k3 = cuda_ms(lambda: kernels.ell_spmm(t.beg, t.len, t.dst, t.split_rows, t.split_ptr,
                                           x.t_rows, t_vals, g, f, t.n_partials), 20)
-    via2 = kernels.csr_spmm(x.t_ptr, x.t_rows, t_vals, g)
+    via2 = kernels.csr_spmm(t, x.t_rows, t_vals, g, f)
     _mass_check(f"dW through kernel 2 d={d}", via2, want, mass)
-    k2 = cuda_ms(lambda: kernels.csr_spmm(x.t_ptr, x.t_rows, t_vals, g), 10)
+    k2 = cuda_ms(lambda: kernels.csr_spmm(t, x.t_rows, t_vals, g, f), 10)
     plain = cuda_ms(lambda: mm.csr_matmul_plain(t_vals, t_cols, x.t_rows, g, f), 5)
     a_t = torch.sparse_csr_tensor(x.t_ptr.long(), x.t_rows.long(), t_vals, size=(f, n))
     lib = cuda_ms(lambda: a_t @ g, 10)
@@ -981,10 +1153,13 @@ def main() -> int:
     dataset = reorder_cached(load_cached("synth-reddit"), "synth-reddit")
     log(f"loaded and reordered synth-reddit in {time.perf_counter() - t0:.1f} s")
     graph, errs = phase_kernels(dataset, device)
+    phase_tile_cases(errs)
+    phase_third_part()
     launches = phase_main_path(dataset)
     dense_ms = phase_steady(graph, dataset)
     kernels_line = phase_timing(graph, launches, errs)
     phase_profile(graph, dataset)
+    phase_epoch_events(graph, dataset)
     layer0 = phase_sparse_kernels(dataset)
     sparse_ms = phase_steady(graph, dataset, " with sparse layer-0 features", sparse=True)
     log(f"  steady fused loop, same graph and call: dense features {dense_ms:.2f} ms/epoch, "

@@ -15,9 +15,49 @@
 // orientation, which the JAX package leaves on XLA
 // (cuda_gcn_tpu/ops/graphsum.py:229).
 //
-// Design (simple and correct first). The TPU grid runs in order and carries a
-// [dp, tb] accumulator from tile to tile; a Hopper grid does not. So one CTA
-// owns one (block row, 32-wide feature chunk) and loops over that row's tiles,
+// Two kernels; the launcher (kernels.bsr_tile) chooses by tile type, tile size
+// and width, never by a failed build or launch.
+//
+// A. bsr_mma_kernel: bf16 tiles, tb a multiple of 64 up to 256, d <= 88 (twice
+// the 41 classes of reddit, the widest pass of any dataset of the repo). The
+// production path.
+//
+// Bound on the H100: bytes. At the reddit shapes the 2.88 GB of bf16 tiles
+// take 0.87-0.90 ms to stream once at any width. The arithmetic fits under
+// that only on the tensor cores, which take bf16: an f32 number is exactly the
+// sum of three bf16 numbers (24 = 8 + 8 + 8 mantissa bits), a bf16 x bf16
+// product is exact in f32, so A*h = A*hi + A*mid + A*lo with f32 accumulators is
+// the f32 result up to the order of the additions, in three tensor-core passes
+// (0.77 ms at N = 88 at the card's bf16 peak). What the design does about it:
+//
+// * One CTA owns one whole block row at the whole width N (d rounded up to 16,
+//   32, 48 or 88), so every tile crosses device memory once per pass.
+//   CTAs start in the order of TilePlan.by_load, most tiles first, so the long
+//   rows (93 tiles against a mean of 24 on synth-reddit) do not form the tail.
+// * A pre-pass kernel (split_planes_kernel) writes the three bf16 parts of h
+//   once per launch as planes [3][N][T*tb], rows past n and columns past d
+//   zero: no padding or masking is left in the hot loop. The planes are stored
+//   K-major (the tile's column index j contiguous), so that both wgmma operands
+//   are read in the layout every Hopper GEMM uses.
+// * A ring of stages in dynamic shared memory. A stage is a [tb, 64] slab of
+//   the tile (32 KB at tb = 256) and the matching [N, 64] slabs of the three
+//   planes; three stages fit at N = 88. One producer thread fills them with TMA
+//   tensor loads (128-byte swizzle) that complete on mbarriers: no tile byte
+//   passes through registers.
+// * tb / 64 consumer warpgroups, each holding 64 rows x N f32 accumulators in
+//   registers (N / 2 per thread), run wgmma.mma_async m64nNk16 with both
+//   operands from shared memory: 4 k-steps x 3 planes per stage. One group of
+//   wgmma stays in flight while the next stage is waited for; a stage is handed
+//   back to the producer when the group that read it has retired.
+// * The transpose orientation is the same kernel with the tile slab taken as
+//   [64, tb] (64 tile rows = k, tb columns = m) and read MN-major by wgmma.
+// * Each accumulator is written once; rows past n and columns past d are
+//   masked in the epilogue. No atomics: the same bits on every run.
+//
+// B. bsr_tile_kernel (below it): f32 tiles (bsr_dtype='float32'), tile sizes
+// that are no multiple of 64, and d > 88. CUDA-core f32 FMAs, bound by
+// operations (2*K*tb*tb*d at 67 TFLOP/s). One CTA owns one (block row, 32-wide
+// feature chunk) and loops over that row's tiles,
 // keeping the [tb, 32] output block in f32 registers (128 threads, 2 rows
 // each). It walks each tile 32 columns at a time. A step stages the [tb, 32]
 // slice of A (upcast to f32) and the [32, 32] slice of h in shared memory,
@@ -31,16 +71,291 @@
 // tiles writes zeros. Rows and features past n and d are masked (the JAX
 // version pads h instead); the tile offset is computed in 64 bits (K*tb*tb
 // passes 2^31 at 4x reddit).
-//
-// Bound on the H100: at the reddit shapes it does 2*K*tb*tb*d f32 operations
-// (236 GFLOP at d=82) on CUDA cores, which take longer than streaming the
-// 2.88 GB of bf16 tiles, so it is bound by operations. Tensor cores would need
-// bf16 or TF32 activations, which breaks f32 parity; that trade is left to a
-// later change.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_ptx.cuh"
+
+// ---- A. bf16 tiles on the tensor cores --------------------------------------
+
+namespace mma {
+
+using namespace hopper;
+
+constexpr int kSlabK = 64;             // tile columns (k) per stage
+constexpr int kRowBytes = kSlabK * 2;  // a shared-memory row: 64 bf16, one swizzle span
+constexpr int kWgBytes = 64 * kRowBytes;  // a warpgroup's 64 rows (or 64 k) of the slab
+constexpr int kMaxWgs = 4;             // consumer warpgroups at tb = 256
+constexpr int kMaxThreads = kMaxWgs * 128 + 32;  // and the producer warp
+constexpr int kMaxStages = 4;
+constexpr int kSmemLimit = 232448;     // dynamic shared memory a CTA can opt in to
+constexpr int kSplitRows = 64;         // rows of h per CTA of the pre-pass
+constexpr int kSplitThreads = 256;
+constexpr int kMaxN = 88;
+
+// x = hi + mid + lo, each part x's remainder rounded to bf16 (nearest even).
+__device__ __forceinline__ void split3(float x, uint32_t part[3]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat16 b = __float2bfloat16_rn(x);
+    part[p] = __bfloat16_as_ushort(b);
+    x -= __bfloat162float(b);  // exact in f32
+  }
+}
+
+// planes[p][f][row], p = hi, mid, lo: the bf16 parts of h[row, f]; zero for
+// row >= n and for d <= f < n_pad. One CTA reads 64 rows of h with coalesced
+// loads and writes them transposed, 8 rows (16 bytes) per thread and plane.
+__global__ void __launch_bounds__(kSplitThreads)
+split_planes_kernel(const float* __restrict__ h, __nv_bfloat16* __restrict__ planes, int n,
+                    int d, int n_pad, int64_t rows_pad) {
+  __shared__ float hs[kSplitRows][kMaxN + 1];
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * kSplitRows;
+  const int64_t base = (int64_t)row0 * d, limit = (int64_t)n * d;
+  for (int e = t; e < kSplitRows * d; e += kSplitThreads)
+    hs[e / d][e % d] = base + e < limit ? h[base + e] : 0.f;
+  __syncthreads();
+  const int i0 = (t % 8) * 8;
+  for (int f = t / 8; f < n_pad; f += kSplitThreads / 8) {
+    uint32_t w[3][4];  // per plane, 8 rows as 4 bf16 pairs (lower row in the low half)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t lo_row[3], hi_row[3];
+      split3(f < d ? hs[i0 + 2 * q][f] : 0.f, lo_row);
+      split3(f < d ? hs[i0 + 2 * q + 1][f] : 0.f, hi_row);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) w[p][q] = lo_row[p] | (hi_row[p] << 16);
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint4*>(planes + ((int64_t)p * n_pad + f) * rows_pad + row0 + i0) =
+          make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+  }
+}
+
+// Shared memory, from a 1024-byte boundary: `stages` stages of
+// [tile slab tb x 128 B | plane slabs 3 x N x 128 B], then the barriers.
+template <int N, int TA>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, const int* __restrict__ ptr,
+               const int* __restrict__ order, const int* __restrict__ hblk,
+               const int* __restrict__ row_order, float* __restrict__ out, int n, int d,
+               int tb, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int a_bytes = tb * kRowBytes;
+  constexpr int kBBytes = 3 * N * kRowBytes;
+  const int stage_bytes = a_bytes + kBBytes;
+  const uint32_t bars = base + stages * stage_bytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kMaxStages + s); };
+
+  const int nwg = tb / 64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = row_order ? row_order[blockIdx.x] : blockIdx.x;
+  const int beg = ptr[r], end = ptr[r + 1];
+  const int nk = tb / kSlabK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);         // the producer's arrive; the bytes ride on it
+      mbar_init(empty(s), nwg * 4);  // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == nwg * 4) {
+    // ---- producer: one thread keeps the ring full
+    if (lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      int next_tile = beg < end ? order[beg] : 0, next_hb = beg < end ? hblk[beg] : 0;
+      for (int p = beg; p < end; ++p) {
+        const int tile = next_tile, hb = next_hb;
+        if (p + 1 < end) {  // the next tile's ids arrive while this tile's slabs are requested
+          next_tile = order[p + 1];
+          next_hb = hblk[p + 1];
+        }
+        for (int kk = 0; kk < nk; ++kk) {
+          mbar_wait(empty(s), phase ^ 1);  // passes at once on the first round
+          const uint32_t dst = base + s * stage_bytes;
+          mbar_arrive_expect_tx(full(s), stage_bytes);
+          if (TA == 0) {  // [tb rows, 64 columns = k] of the tile
+            tma_load_2d(dst, &map_a, full(s), kk * kSlabK, tile * tb);
+          } else {        // [64 rows = k, 64 columns = m] per warpgroup
+            for (int w = 0; w < nwg; ++w)
+              tma_load_2d(dst + w * kWgBytes, &map_a, full(s), w * 64,
+                          tile * tb + kk * kSlabK);
+          }
+          tma_load_3d(dst + a_bytes, &map_b, full(s), hb * tb + kk * kSlabK, 0, 0);
+          if (++s == stages) s = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the block row
+    const int wg = warp / 4;
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    const int steps = (end - beg) * nk;
+    int s = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < steps; ++it) {
+      mbar_wait(full(s), phase);
+      const uint32_t a0 = base + s * stage_bytes + wg * kWgBytes;
+      const uint32_t b0 = base + s * stage_bytes + a_bytes;
+      wgmma_fence();
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+        for (int k = 0; k < kSlabK / 16; ++k)
+          // 16 k further on: 32 bytes along a K-major row, 16 rows of an MN-major slab
+          Wgmma<N, TA>::run(acc, wgmma_desc(a0 + (TA ? k * 16 * kRowBytes : k * 32)),
+                            wgmma_desc(b0 + pl * N * kRowBytes + k * 32));
+      wgmma_commit();
+      if (it > 0) {  // the group before this one has read its stage: hand it back
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty(prev));
+      }
+      prev = s;
+      if (++s == stages) s = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+
+    // accumulator fragment: warp w4 of the warpgroup holds rows 16 w4 + lane / 4
+    // and + 8; acc[4 j + 2 half + {0, 1}] are columns 8 j + 2 (lane % 4) + {0, 1}
+    const int row_in = wg * 64 + (warp % 4) * 16 + lane / 4;
+    const int col0 = (lane % 4) * 2;
+    const bool pairs = d % 2 == 0;  // then every 8-byte store is aligned and whole
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = (int64_t)r * tb + row_in + half * 8;
+      if (row < n) {
+        float* o = out + row * d;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int col = j * 8 + col0;
+          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (pairs) {
+            if (col < d) *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+          } else {
+            if (col < d) o[col] = v0;
+            if (col + 1 < d) o[col + 1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime so that the library
+// links nothing beyond cudart.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dimensions (innermost first) as a tensor map with
+// 128-byte swizzle; box[0] is 64 elements, the swizzle span.
+bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+              const cuuint64_t* strides_bytes, const cuuint32_t* box) {
+  const cuuint32_t ones[3] = {1, 1, 1};
+  EncodeTiled encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                strides_bytes, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  CUtensorMap map_a, map_b;
+  const int *ptr, *order, *hblk, *row_order;
+  float* out;
+  int n, d, tb, t_blocks, stages, smem;
+  cudaStream_t stream;
+};
+
+template <int N, int TA>
+cudaError_t launch(const Args& a) {
+  auto kernel = bsr_mma_kernel<N, TA>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.t_blocks, a.tb / 64 * 128 + 32, a.smem, a.stream>>>(
+      a.map_a, a.map_b, a.ptr, a.order, a.hblk, a.row_order, a.out, a.n, a.d, a.tb, a.stages);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch(const Args& a, int transpose) {
+  return transpose ? launch<N, 1>(a) : launch<N, 0>(a);
+}
+
+// The accumulator width for d features: a wgmma N that the kernel is built for.
+int padded_width(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : kMaxN;
+}
+
+cudaError_t contract(const int* ptr, const int* order, const int* hblk, const int* row_order,
+                     const __nv_bfloat16* tiles, const float* h, __nv_bfloat16* planes,
+                     float* out, int n, int d, int tb, int t_blocks, int k_tiles,
+                     int transpose, cudaStream_t stream) {
+  if (tb % 64 || tb > 64 * kMaxWgs || d > kMaxN || k_tiles < 1) return cudaErrorInvalidValue;
+  const int n_pad = padded_width(d);
+  const int64_t rows_pad = (int64_t)t_blocks * tb;
+  split_planes_kernel<<<rows_pad / kSplitRows, kSplitThreads, 0, stream>>>(h, planes, n, d,
+                                                                           n_pad, rows_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  Args a;
+  // the tiles as one [K tb, tb] matrix; a box is tb x 64, or 64 x 64 transposed
+  const cuuint64_t a_dims[2] = {(cuuint64_t)tb, (cuuint64_t)k_tiles * tb};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)tb * 2};
+  const cuuint32_t a_box[2] = {kSlabK, (cuuint32_t)(transpose ? 64 : tb)};
+  // the planes [3][n_pad][rows_pad]; a box is all three planes' [n_pad, 64]
+  const cuuint64_t b_dims[3] = {(cuuint64_t)rows_pad, (cuuint64_t)n_pad, 3};
+  const cuuint64_t b_strides[2] = {(cuuint64_t)rows_pad * 2, (cuuint64_t)rows_pad * 2 * n_pad};
+  const cuuint32_t b_box[3] = {kSlabK, (cuuint32_t)n_pad, 3};
+  if (!bf16_map(&a.map_a, tiles, 2, a_dims, a_strides, a_box) ||
+      !bf16_map(&a.map_b, planes, 3, b_dims, b_strides, b_box))
+    return cudaErrorInvalidValue;
+  const int stage_bytes = (tb + 3 * n_pad) * kRowBytes;
+  const int barrier_bytes = 2 * kMaxStages * 8;
+  a.stages = (kSmemLimit - 1024 - barrier_bytes) / stage_bytes;
+  if (a.stages > kMaxStages) a.stages = kMaxStages;
+  a.smem = 1024 + a.stages * stage_bytes + barrier_bytes;
+  a.ptr = ptr, a.order = order, a.hblk = hblk, a.row_order = row_order, a.out = out;
+  a.n = n, a.d = d, a.tb = tb, a.t_blocks = t_blocks, a.stream = stream;
+  switch (n_pad) {
+    case 16: return launch<16>(a, transpose);
+    case 32: return launch<32>(a, transpose);
+    case 48: return launch<48>(a, transpose);
+    default: return launch<kMaxN>(a, transpose);
+  }
+}
+
+}  // namespace mma
+
+// ---- B. f32 FMAs on the CUDA cores ------------------------------------------
 
 namespace {
 
@@ -213,18 +528,28 @@ bsr_tile_kernel(const int* __restrict__ ptr, const int* __restrict__ order,
 
 }  // namespace
 
-extern "C" int bsr_tile_contract(const void* ptr, const void* order,
-                                 const void* hblk, const void* tiles,
-                                 int tiles_bf16, const void* h, void* out, int n,
-                                 int d, int tb, int t_blocks, int transpose,
+// `planes` is the scratch of the tensor-core kernel, 3 * N * t_blocks * tb bf16
+// for N = d rounded up as padded_width does; null takes the FMA kernel.
+// `row_order` (may be null) is the order in which the CTAs take the block rows.
+extern "C" int bsr_tile_contract(const void* ptr, const void* order, const void* hblk,
+                                 const void* row_order, const void* tiles, int tiles_bf16,
+                                 const void* h, void* planes, void* out, int n, int d,
+                                 int tb, int t_blocks, int k_tiles, int transpose,
                                  void* stream) {
-  const dim3 grid((d + kFeat - 1) / kFeat, t_blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(ptr);
   const int* o = static_cast<const int*>(order);
   const int* hb = static_cast<const int*>(hblk);
   const float* hf = static_cast<const float*>(h);
   float* of = static_cast<float*>(out);
+  if (planes != nullptr) {
+    if (!tiles_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(mma::contract(
+        p, o, hb, static_cast<const int*>(row_order),
+        static_cast<const __nv_bfloat16*>(tiles), hf, static_cast<__nv_bfloat16*>(planes), of,
+        n, d, tb, t_blocks, k_tiles, transpose, s));
+  }
+  const dim3 grid((d + kFeat - 1) / kFeat, t_blocks);
   if (tiles_bf16) {
     bsr_tile_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         p, o, hb, static_cast<const __nv_bfloat16*>(tiles), hf, of, n, d, tb, transpose);

@@ -9,7 +9,8 @@
 // one slot array and lists work items, each a row's real slots, or a chunk of
 // at most 256 slots of a wider row.
 //
-// Design: one warp per work item. The feature width d sets how the 32 lanes
+// Design: one warp per work item; the warp's sum (slot_sum) and the reduce
+// kernel are shared with kernel 2 (spmm_common.cuh). The feature width d sets how the 32 lanes
 // split: G lanes per slot (G = 4, 8, 16 for d <= 4, 8, 16; else 32) and 32/G
 // slots side by side, so that d = 3 does not idle 29 lanes. A warp loads 32
 // slots' (col, coef) at once and broadcasts them with shuffles, with 4 row
@@ -25,59 +26,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spmm_common.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;  // warps (work items) per CTA
-constexpr int kIlp = 4;    // row gathers in flight per slot group
-
-// acc[s] = sum over slots [beg, beg+len) of coef * h[col, f0 + s*G + lane % G],
-// identical in every slot group after the butterfly.
-template <int G, int STEPS>
-__device__ __forceinline__ void slot_sum(const int* __restrict__ cols,
-                                         const float* __restrict__ coef,
-                                         const float* __restrict__ h, int d, int f0,
-                                         int beg, int len, int lane, float acc[STEPS]) {
-  constexpr int P = 32 / G;  // slots side by side
-  const int grp = lane / G, sub = lane % G;
-#pragma unroll
-  for (int s = 0; s < STEPS; ++s) acc[s] = 0.f;
-  for (int e0 = 0; e0 < len; e0 += 32) {
-    int c = 0;
-    float w = 0.f;
-    if (e0 + lane < len) {
-      c = cols[beg + e0 + lane];
-      w = coef[beg + e0 + lane];
-    }
-    const int m = min(32, len - e0);
-    // 32 is a multiple of P * kIlp, so j stays below 32
-    for (int k = 0; k < m; k += P * kIlp) {
-      float wk[kIlp];
-      float hv[kIlp][STEPS];
-#pragma unroll
-      for (int u = 0; u < kIlp; ++u) {
-        const int j = k + u * P + grp;
-        const int cj = __shfl_sync(kFull, c, j);
-        wk[u] = __shfl_sync(kFull, w, j);
-        const float* hrow = h + (int64_t)cj * d;
-#pragma unroll
-        for (int s = 0; s < STEPS; ++s) {
-          const int f = f0 + s * G + sub;
-          hv[u][s] = (j < m && f < d) ? hrow[f] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kIlp; ++u)
-#pragma unroll
-        for (int s = 0; s < STEPS; ++s)
-          if (k + u * P + grp < m) acc[s] = fmaf(wk[u], hv[u][s], acc[s]);
-    }
-  }
-#pragma unroll
-  for (int off = G; off < 32; off <<= 1)
-#pragma unroll
-    for (int s = 0; s < STEPS; ++s) acc[s] += __shfl_xor_sync(kFull, acc[s], off);
-}
+using spmm::kWarps;
+constexpr int kIlp = 4;  // row gathers in flight per slot group
 
 template <int G, int STEPS>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -93,7 +47,7 @@ ell_spmm_kernel(const int* __restrict__ work_beg, const int* __restrict__ work_l
   float* orow = dst >= 0 ? out + (int64_t)dst * d : partial + (int64_t)(-dst - 1) * d;
   for (int f0 = 0; f0 < d; f0 += G * STEPS) {
     float acc[STEPS];
-    slot_sum<G, STEPS>(cols, coef, h, d, f0, beg, len, lane, acc);
+    spmm::slot_sum<G, STEPS, 1, kIlp>(cols, coef, h, d, f0, beg, len, lane, acc);
     if (lane < G) {
 #pragma unroll
       for (int s = 0; s < STEPS; ++s) {
@@ -101,23 +55,6 @@ ell_spmm_kernel(const int* __restrict__ work_beg, const int* __restrict__ work_l
         if (f < d) orow[f] = acc[s];
       }
     }
-  }
-}
-
-// out[split_rows[i]] = sum of partials [split_ptr[i], split_ptr[i+1]) in order.
-__global__ void __launch_bounds__(kWarps * 32)
-ell_reduce_kernel(const int* __restrict__ split_rows, const int* __restrict__ split_ptr,
-                  const float* __restrict__ partial, float* __restrict__ out, int n_split,
-                  int d) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (i >= n_split) return;
-  const int p0 = split_ptr[i], p1 = split_ptr[i + 1];
-  float* orow = out + (int64_t)split_rows[i] * d;
-  for (int f = lane; f < d; f += 32) {
-    float sum = 0.f;
-    for (int p = p0; p < p1; ++p) sum += partial[(int64_t)p * d + f];
-    orow[f] = sum;
   }
 }
 
@@ -161,10 +98,7 @@ extern "C" int ell_spmm(const void* work_beg, const void* work_len, const void* 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (n_split > 0) {
-    ell_reduce_kernel<<<(n_split + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
-        static_cast<const int*>(split_rows), static_cast<const int*>(split_ptr), p, o,
-        n_split, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(spmm::reduce_partials(
+      static_cast<const int*>(split_rows), static_cast<const int*>(split_ptr), p, o, n_split,
+      d, /*accumulate=*/0, s));
 }

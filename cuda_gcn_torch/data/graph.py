@@ -19,8 +19,8 @@ Layouts per backend:
 
 Not ported: the flat bucketed piece layout ``Blocked2DDev``
 (cuda_gcn_tpu/data/graph.py:114-433). It works around TPU gather and
-segment-sum costs; on the GPU the residual is plain CSR with one warp per row,
-which sums the same edges.
+segment-sum costs; on the GPU the residual is plain CSR, cut into work items
+of at most 256 edges with one warp each, which sums the same edges.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 from cuda_gcn_torch.data.dataset import CSR
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops.bsr import TilePlan, tile_plan
-from cuda_gcn_torch.ops.ell import EllBucket, EllPlan, ell_plan
+from cuda_gcn_torch.ops.ell import EllBucket, EllPlan, WorkList, csr_work_list, ell_plan
 
 # 'auto' backend: dense below this node count, block-sparse tiles above
 # (cuda_gcn_tpu/data/graph.py:544).
@@ -57,6 +57,7 @@ class ResidualCSR:
     row_ptr: torch.Tensor  # (n+1,) int32
     cols: torch.Tensor     # (m,) int32
     coef: torch.Tensor     # (m,) float32
+    work: WorkList         # kernel 2's work items over the rows (ops/ell.py)
 
     @property
     def nnz(self) -> int:
@@ -251,7 +252,8 @@ def _residual_csr(rows, cols, coef, n, device) -> ResidualCSR:
     return ResidualCSR(
         row_ptr=torch.from_numpy(row_ptr.astype(np.int32)).to(device),
         cols=torch.from_numpy(cols.astype(np.int32)).to(device),
-        coef=torch.from_numpy(np.ascontiguousarray(coef, dtype=np.float32)).to(device))
+        coef=torch.from_numpy(np.ascontiguousarray(coef, dtype=np.float32)).to(device),
+        work=csr_work_list(row_ptr, device))
 
 
 def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TILE,

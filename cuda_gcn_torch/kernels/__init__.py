@@ -4,7 +4,8 @@ At first use each source in ``cuda_gcn_torch/csrc/*.cu`` is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface under
 ``build/kernels/`` at the repository root (one ``nvcc`` per source, started
 together), and loaded with ctypes. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt. Nothing is built or loaded
+source, of the headers of ``csrc/`` that the source includes, and of the flags,
+so an edited source or header is rebuilt. Nothing is built or loaded
 when this module is imported.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,8 +38,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # cudaError_t.
 _ENTRY = {
     "bsr_tile": ("bsr_tile", "bsr_tile_contract",
-                 [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "csr_spmm": ("csr_spmm", "csr_spmm", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                 [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "csr_spmm": ("csr_spmm", "csr_spmm",
+                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "ell_spmm": ("ell_spmm", "ell_spmm",
                  [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P]),
     "gather_probe": ("gather_probe", "gather_probe", [_P, _P, _P, _P, _L, _I, _I, _P]),
@@ -66,10 +69,30 @@ def _nvcc() -> str:
                        "machine with the card (CUDA toolkit under /usr/local/cuda)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_files(name: str) -> list[str]:
+    """``name``.cu and every file of ``SRC_DIR`` that it includes, directly or
+    through another one, in the order found."""
+    files, queue = [], [f"{name}.cu"]
+    while queue:
+        rel = queue.pop(0)
+        path = os.path.join(SRC_DIR, rel)
+        if rel in files or not os.path.exists(path):
+            continue
+        files.append(rel)
+        with open(path, "rb") as f:
+            queue += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return files
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}.{digest[:12]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _source_files(name):
+        with open(os.path.join(SRC_DIR, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:12]}.so")
 
 
 def build(names=None) -> dict[str, dict]:
@@ -137,15 +160,36 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# Kernel 1's CTA covers one block row of at most 256 rows (2 per thread),
-# walking the tile in 32-column steps (csrc/bsr_tile.cu).
+# Kernel 1 (csrc/bsr_tile.cu). The tensor-core kernel takes bf16 tiles whose
+# size is a multiple of 64 up to 256, at most 88 features wide; its
+# accumulators are BSR_MMA_WIDTHS wide. The FMA kernel's CTA covers a block row
+# of at most 256 rows (2 per thread), walking the tile in 32-column steps.
 BSR_MAX_TB = 256
 BSR_TB_MULTIPLE = 32
+BSR_MMA_TB_MULTIPLE = 64
+BSR_MMA_WIDTHS = (16, 32, 48, 88)
 
 
-def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int,
-             transpose: bool) -> torch.Tensor:
-    """Launch kernel 1: returns the dense-tile part [n, d] in f32."""
+def bsr_mma_width(tiles_dtype, tb: int, k: int, d: int) -> int | None:
+    """The accumulator width of the tensor-core kernel for this call, or None
+    where the FMA kernel takes it: f32 tiles, a tile size that is no multiple of
+    64, more than 88 features, or no tile at all."""
+    if tiles_dtype != torch.bfloat16 or tb % BSR_MMA_TB_MULTIPLE or k == 0 \
+            or d > BSR_MMA_WIDTHS[-1]:
+        return None
+    return next(w for w in BSR_MMA_WIDTHS if d <= w)
+
+
+def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int, transpose: bool,
+             row_order=None) -> torch.Tensor:
+    """Launch kernel 1: returns the dense-tile part [n, d] in f32.
+
+    Which of the source's two kernels runs is decided here, by what
+    ``bsr_mma_width`` reads (tile dtype, tile size, width), never by a failed
+    build or launch: bf16 tiles go to the tensor-core kernel (bf16x3 parts of h,
+    f32 accumulators; one launch counts its pre-pass and the contraction as
+    one), everything else to the f32 FMA kernel. ``row_order`` (``TilePlan.
+    by_load``, optional) is the order in which CTAs take the block rows."""
     if not h.is_cuda:
         raise RuntimeError(f"bsr_tile launches on a CUDA tensor, got {h.device}")
     dev = h.device
@@ -168,30 +212,46 @@ def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int,
     if h.shape[0] != n or ptr.numel() != t_blocks + 1 or order.numel() != k \
             or hblk.numel() != k or t_blocks * tb < n or t_blocks > 65535:
         raise ValueError("bsr_tile: inconsistent shapes")
+    if row_order is not None:
+        _check(row_order, "row_order", torch.int32, dev)
+        if row_order.numel() != t_blocks:
+            raise ValueError(f"row_order must hold {t_blocks} block rows")
     out = torch.empty(n, d, dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
+    width = bsr_mma_width(tiles.dtype, tb, k, d)
+    planes = None if width is None else torch.empty(
+        3 * width * t_blocks * tb, dtype=torch.bfloat16, device=dev)
     _call("bsr_tile", ptr.data_ptr(), order.data_ptr(), hblk.data_ptr(),
-          tiles.data_ptr(), int(tiles.dtype == torch.bfloat16), h.data_ptr(),
-          out.data_ptr(), n, d, tb, t_blocks, int(transpose), _stream(dev))
+          None if row_order is None else row_order.data_ptr(), tiles.data_ptr(),
+          int(tiles.dtype == torch.bfloat16), h.data_ptr(),
+          None if planes is None else planes.data_ptr(), out.data_ptr(), n, d, tb,
+          t_blocks, k, int(transpose), _stream(dev))
     return out
 
 
-def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
-    """Launch kernel 2: Σ_e coef·h[col] per CSR row in f32, added in place to
-    ``out`` when given, else written to a new [n, d] tensor. The row count n
-    comes from ``row_ptr``; ``cols`` index the rows of h, of which there may be
-    any number (n for an adjacency, F for a feature matrix times [F, d])."""
+def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
+    """Launch kernel 2 over the work list ``work`` of a CSR's rows (ops/ell.py
+    ``WorkList``): Σ_e coef·h[col] per row in f32, added in place to ``out``
+    when given, else written to a new [n, d] tensor. ``n`` is the number of CSR
+    rows; ``cols`` index the rows of h, of which there may be any number (n for
+    an adjacency, F for a feature matrix times [F, d]). When adding to ``out``
+    only the items that have edges are launched."""
     if not h.is_cuda:
         raise RuntimeError(f"csr_spmm launches on a CUDA tensor, got {h.device}")
     dev = h.device
     h = h.contiguous()
     _check(h, "h", torch.float32, dev)
-    _check(row_ptr, "row_ptr", torch.int32, dev)
-    _check(cols, "cols", torch.int32, dev)
+    for t, what in ((work.beg, "work.beg"), (work.len, "work.len"), (work.dst, "work.dst"),
+                    (work.split_rows, "work.split_rows"),
+                    (work.split_ptr, "work.split_ptr"), (cols, "cols")):
+        _check(t, what, torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
-    n, d = int(row_ptr.numel()) - 1, int(h.shape[1])
-    if n < 0 or h.dim() != 2 or cols.numel() != coef.numel():
+    d = int(h.shape[1])
+    n_items, n_split = int(work.beg.numel()), int(work.split_rows.numel())
+    if n < 0 or h.dim() != 2 or cols.numel() != coef.numel() \
+            or work.len.numel() != n_items or work.dst.numel() != n_items \
+            or work.split_ptr.numel() != n_split + 1 or not 0 <= work.n_nonempty <= n_items:
         raise ValueError("csr_spmm: inconsistent shapes")
     accumulate = out is not None
     if out is None:
@@ -201,8 +261,12 @@ def csr_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
         raise ValueError(f"out must be [{n}, {d}], got {tuple(out.shape)}")
     if n == 0 or d == 0:
         return out
-    _call("csr_spmm", row_ptr.data_ptr(), cols.data_ptr(), coef.data_ptr(),
-          h.data_ptr(), out.data_ptr(), n, d, int(accumulate), _stream(dev))
+    partial = torch.empty(work.n_partials, d, dtype=torch.float32, device=dev)
+    _call("csr_spmm", work.beg.data_ptr(), work.len.data_ptr(), work.dst.data_ptr(),
+          work.n_nonempty if accumulate else n_items, work.split_rows.data_ptr(),
+          work.split_ptr.data_ptr(), n_split, cols.data_ptr(), coef.data_ptr(),
+          h.data_ptr(), out.data_ptr(), partial.data_ptr(), d, int(accumulate),
+          _stream(dev))
     return out
 
 

@@ -94,9 +94,10 @@ class EllPlan:
 
 @dataclasses.dataclass
 class WorkList:
-    """Kernel 3's work items over rows of slots, on the device: each item is a
-    row's slots, or a chunk of at most ``ELL_CHUNK_SLOTS`` of a longer row whose
-    partial sums are added in chunk order. Longest items come first."""
+    """Work items over rows of slots, on the device, for kernels 2 and 3: each
+    item is a row's slots, or a chunk of at most ``ELL_CHUNK_SLOTS`` of a longer
+    row whose partial sums are added in chunk order. Longest items come first,
+    so the items of rows without slots are the last ``len(beg) - n_nonempty``."""
 
     beg: torch.Tensor         # (items,) int32 first slot of the item
     len: torch.Tensor         # (items,) int32 slots of the item
@@ -104,6 +105,7 @@ class WorkList:
     split_rows: torch.Tensor  # (n_split,) int32 output row of each chunked row
     split_ptr: torch.Tensor   # (n_split+1,) int32 its partials, in chunk order
     n_partials: int
+    n_nonempty: int           # items that have slots (the first ones)
 
 
 def _dev(a, device, dtype=torch.int32):
@@ -134,7 +136,14 @@ def work_list(start: np.ndarray, length: np.ndarray, rows: np.ndarray,
     np.cumsum(chunks[split], out=split_ptr[1:])
     return WorkList(beg=_dev(beg[order], device), len=_dev(item_len[order], device),
                     dst=_dev(dst[order], device), split_rows=_dev(rows[split], device),
-                    split_ptr=_dev(split_ptr, device), n_partials=int(split_ptr[-1]))
+                    split_ptr=_dev(split_ptr, device), n_partials=int(split_ptr[-1]),
+                    n_nonempty=int(np.count_nonzero(item_len)))
+
+
+def csr_work_list(row_ptr: np.ndarray, device: torch.device) -> WorkList:
+    """The work list over the rows of a CSR whose row pointer is ``row_ptr``."""
+    row_ptr = np.asarray(row_ptr, np.int64)
+    return work_list(row_ptr[:-1], np.diff(row_ptr), np.arange(len(row_ptr) - 1), device)
 
 
 def ell_plan(buckets: list[EllBucket], degrees: np.ndarray,

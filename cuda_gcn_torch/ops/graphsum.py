@@ -27,7 +27,7 @@ from cuda_gcn_torch.ops.residual import residual_spmm
 
 
 def _residual(h, resid: ResidualCSR, out=None):
-    return residual_spmm(resid.row_ptr, resid.cols, resid.coef, h, out)
+    return residual_spmm(resid.row_ptr, resid.cols, resid.coef, h, out, work=resid.work)
 
 
 def _bsr_apply(h, graph: Graph, transpose: bool):

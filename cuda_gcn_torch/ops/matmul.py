@@ -9,15 +9,14 @@ library call; device.resolve_device turns TF32 off so it runs in full f32.
 W[cols[j]]. In the JAX package it is XLA (a gather and a sorted segment sum);
 on the card it is the work the hand-written SpMM kernels already do, so:
 
-* forward, [n_rows, d]: kernel 2 (csrc/csr_spmm.cu) over X's CSR, W as the
-  gathered operand;
+* forward, [n_rows, d]: kernel 2 (csrc/csr_spmm.cu) over the work list of X's
+  rows, W as the gathered operand;
 * backward dW = Xᵀ·g, [F, d]: kernel 3 (csrc/ell_spmm.cu) over the CSR of Xᵀ,
   with ``values[t_perm]`` so that a dropout applied to the forward's values
   reaches the transpose (as ``banded_matmul``'s ``t_idx`` does in the JAX
   package). Xᵀ has few, long rows (synth-reddit: 602 rows of about 6,800
-  entries), which kernel 2's 32-rows-per-CTA split would put on a fifth of the
-  card; kernel 3's work list cuts them into 256-entry chunks whose partial
-  sums are added in chunk order. One writer per row of dW and no atomics: this
+  entries); the work list cuts them into 256-entry chunks whose partial sums
+  are added in chunk order. One writer per row of dW and no atomics: this
   is the scatter the reference's CUDA backward races on
   (src/cuda/cuda_kernel.cu:112-122), and here it gives the same bits on
   every run;
@@ -36,7 +35,7 @@ import numpy as np
 import torch
 
 from cuda_gcn_torch import kernels
-from cuda_gcn_torch.ops.ell import WorkList, work_list
+from cuda_gcn_torch.ops.ell import WorkList, csr_work_list
 
 # From this many rows on, the JAX package lays sparse features out in row
 # bands (cuda_gcn_tpu/ops/matmul.py:83 and ``BandedFeatures``); the port has no
@@ -67,6 +66,7 @@ class SparseFeatures:
     t_rows: torch.Tensor   # (nnz,) int32: Xᵀ's column ids (rows of X), per row ascending
     t_perm: torch.Tensor   # (nnz,) int64: values[t_perm] are Xᵀ's values in its order
     t_work: WorkList       # kernel 3's work list over the rows of Xᵀ
+    work: WorkList         # kernel 2's work list over the rows of X
 
     @property
     def nnz(self) -> int:
@@ -92,7 +92,7 @@ class SparseFeatures:
         return cls(values=dev(np.asarray(values, np.float32), torch.float32), rows=dev(rows),
                    cols=dev(cols), n_rows=n_rows, n_cols=n_cols, row_ptr=dev(indptr),
                    t_ptr=dev(t_ptr), t_rows=dev(rows[t_perm]), t_perm=dev(t_perm, torch.int64),
-                   t_work=work_list(t_ptr[:-1], np.diff(t_ptr), np.arange(n_cols), device))
+                   t_work=csr_work_list(t_ptr, device), work=csr_work_list(indptr, device))
 
 
 def csr_matmul_plain(values, rows, cols, w, n_rows: int) -> torch.Tensor:
@@ -119,7 +119,7 @@ class _CsrMatmul(torch.autograd.Function):
     def forward(ctx, values, w, x: SparseFeatures):
         ctx.x = x
         ctx.save_for_backward(values, w)
-        return kernels.csr_spmm(x.row_ptr, x.cols, values.detach(), w.detach())
+        return kernels.csr_spmm(x.work, x.cols, values.detach(), w.detach(), x.n_rows)
 
     @staticmethod
     def backward(ctx, g):

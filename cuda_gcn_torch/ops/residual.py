@@ -5,7 +5,8 @@ package this is XLA, not Pallas: ``_segment_apply``
 (cuda_gcn_tpu/ops/graphsum.py:42-44) and, above 49,152 nodes,
 ``_blocked2d_apply`` (:136-154) over the flat piece layout. It is a kernel here
 because it is the other half of every adjacency pass, and because
-``index_add_`` on the card uses atomics and is not deterministic.
+``index_add_`` on the card uses atomics and is not deterministic. The kernel
+walks a ``WorkList`` over the CSR rows (ops/ell.py), built once with the graph.
 
 A tensor on the CPU takes the plain PyTorch version below; a CUDA tensor
 launches the kernel (cuda_gcn_torch.kernels) or raises.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from cuda_gcn_torch import kernels
+from cuda_gcn_torch.ops.ell import WorkList
 
 
 def residual_spmm_plain(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
@@ -31,9 +33,15 @@ def residual_spmm_plain(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
     return out.add_(resid)
 
 
-def residual_spmm(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
+def residual_spmm(row_ptr, cols, coef, h, out=None,
+                  work: WorkList | None = None) -> torch.Tensor:
     """Σ over the CSR rows of coef · h[col], in f32; added in place to ``out``
-    when it is given (the kernel writes each row once, no atomics)."""
+    when it is given (the kernel writes each row once, no atomics). ``work`` is
+    ``csr_work_list(row_ptr)``, built once with the CSR (``ResidualCSR.work``);
+    the kernel needs it, the plain version does not."""
     if h.device.type == "cpu":
         return residual_spmm_plain(row_ptr, cols, coef, h, out)
-    return kernels.csr_spmm(row_ptr, cols, coef, h, out)
+    if work is None:
+        raise ValueError("residual_spmm on a device tensor needs the CSR's work list "
+                         "(ops/ell.py csr_work_list)")
+    return kernels.csr_spmm(work, cols, coef, h, int(row_ptr.numel()) - 1, out)

@@ -4,6 +4,7 @@ The import check runs in a subprocess because tests/conftest.py imports jax.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -91,14 +92,19 @@ def _meta_ell_plan(n):
                         split_ptr=_meta(1, **i32), n_partials=0)
 
 
+def _meta_work(rows):
+    i32 = dict(dtype=torch.int32)
+    return tell.WorkList(beg=_meta(rows, **i32), len=_meta(rows, **i32),
+                         dst=_meta(rows, **i32), split_rows=_meta(0, **i32),
+                         split_ptr=_meta(1, **i32), n_partials=0, n_nonempty=rows)
+
+
 def _meta_features(n, f, nnz):
     i32 = dict(dtype=torch.int32)
-    work = tell.WorkList(beg=_meta(f, **i32), len=_meta(f, **i32), dst=_meta(f, **i32),
-                         split_rows=_meta(0, **i32), split_ptr=_meta(1, **i32), n_partials=0)
     return tmm.SparseFeatures(
         values=_meta(nnz), rows=_meta(nnz, **i32), cols=_meta(nnz, **i32), n_rows=n, n_cols=f,
         row_ptr=_meta(n + 1, **i32), t_ptr=_meta(f + 1, **i32), t_rows=_meta(nnz, **i32),
-        t_perm=_meta(nnz, dtype=torch.int64), t_work=work)
+        t_perm=_meta(nnz, dtype=torch.int64), t_work=_meta_work(f), work=_meta_work(n))
 
 
 def _wrapper_calls():
@@ -114,7 +120,8 @@ def _wrapper_calls():
             _meta(4, 32, 32, dtype=torch.bfloat16), _meta(4, **i32), _meta(4, **i32),
             _meta(60, 16), 60, 2, plan=plan)),
         ("csr_spmm", lambda: tres.residual_spmm(_meta(61, **i32), _meta(9, **i32),
-                                                _meta(9), _meta(60, 16))),
+                                                _meta(9), _meta(60, 16),
+                                                work=_meta_work(60))),
         ("ell_spmm", lambda: tell.ell_spmm(_meta_ell_plan(60), _meta(60, 16))),
         ("gather_probe", lambda: tprobe.gather_probe(_meta(4096, **i32), _meta(64, 128))),
         ("scatter_probe", lambda: tprobe.scatter_probe(_meta(4096, **i32), _meta(4096),
@@ -169,6 +176,84 @@ def test_device_tensors_raise_in_the_real_launchers(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA tensor"):
             call()
     assert all(v == 0 for v in kernels.launches.values())
+
+
+def _cpu_work(rows):
+    z = torch.zeros(rows, dtype=torch.int32)
+    return tell.WorkList(beg=z, len=z, dst=z, split_rows=z[:0], split_ptr=z[:1],
+                         n_partials=0, n_nonempty=rows)
+
+
+@pytest.mark.parametrize("case", ["bsr_tile-bf16-64", "bsr_tile-bf16-32", "bsr_tile-f32",
+                                  "csr_spmm", "csr_spmm-accumulate"])
+def test_redesigned_launchers_raise_on_cpu_tensors(case):
+    """Kernels 1 and 2 have no path for a CPU tensor, whichever of kernel 1's
+    two device kernels the call would take: the launcher raises before it
+    builds, allocates or counts anything."""
+    i32 = torch.int32
+    kernels.reset_launches()
+    if case.startswith("bsr_tile"):
+        tb = 64 if case.endswith("64") else 32
+        dtype = torch.float32 if case.endswith("f32") else torch.bfloat16
+        k, t_blocks, n = 3, 2, 2 * tb - 5
+        call = lambda: kernels.bsr_tile(  # noqa: E731
+            torch.zeros(k, tb, tb, dtype=dtype), torch.tensor([0, 2, 3], dtype=i32),
+            torch.arange(k, dtype=i32), torch.zeros(k, dtype=i32), torch.zeros(n, 16), n,
+            t_blocks, False, row_order=torch.arange(t_blocks, dtype=i32))
+    else:
+        out = torch.zeros(60, 16) if case.endswith("accumulate") else None
+        call = lambda: kernels.csr_spmm(  # noqa: E731
+            _cpu_work(60), torch.zeros(9, dtype=i32), torch.zeros(9), torch.zeros(60, 16), 60,
+            out)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        call()
+    assert all(v == 0 for v in kernels.launches.values())
+
+
+def test_residual_spmm_needs_its_work_list_off_the_cpu(monkeypatch):
+    """Off the CPU the residual product does not rebuild the work list from
+    ``row_ptr`` on every call (a device-to-host copy): it raises when the
+    caller has none, before it reaches the launcher."""
+    _forbid_plain(monkeypatch)
+    monkeypatch.setattr(kernels, "csr_spmm", lambda *a, **k: pytest.fail("launched"))
+    i32 = dict(dtype=torch.int32)
+    with pytest.raises(ValueError, match="work list"):
+        tres.residual_spmm(_meta(61, **i32), _meta(9, **i32), _meta(9), _meta(60, 16))
+
+
+@pytest.mark.parametrize("dtype,tb,k,d,width", [
+    (torch.bfloat16, 256, 9, 16, 16), (torch.bfloat16, 256, 9, 17, 32),
+    (torch.bfloat16, 256, 9, 41, 48), (torch.bfloat16, 128, 9, 64, 88),
+    (torch.bfloat16, 64, 9, 82, 88), (torch.bfloat16, 256, 9, 88, 88),
+    (torch.bfloat16, 256, 9, 89, None), (torch.bfloat16, 32, 9, 16, None),
+    (torch.bfloat16, 96, 9, 16, None), (torch.bfloat16, 256, 0, 16, None),
+    (torch.float32, 256, 9, 16, None)])
+def test_kernel_1_is_chosen_by_dtype_tile_size_and_width(dtype, tb, k, d, width):
+    """bf16 tiles whose size is a multiple of 64 go to the tensor-core kernel at
+    the next accumulator width; f32 tiles, other tile sizes, more than 88
+    features and a call without tiles go to the FMA kernel."""
+    assert kernels.bsr_mma_width(dtype, tb, k, d) == width
+
+
+def test_an_edited_header_changes_the_library_path(tmp_path, monkeypatch):
+    """A library's name hashes its source and the csrc headers it includes: an
+    edit to the shared SpMM header rebuilds kernels 2 and 3 and nothing else."""
+    src = tmp_path / "csrc"
+    shutil.copytree(kernels.SRC_DIR, src)
+    monkeypatch.setattr(kernels, "SRC_DIR", str(src))
+    assert kernels._source_files("csr_spmm") == ["csr_spmm.cu", "spmm_common.cuh"]
+    assert kernels._source_files("ell_spmm") == ["ell_spmm.cu", "spmm_common.cuh"]
+    assert kernels._source_files("bsr_tile") == ["bsr_tile.cu", "hopper_ptx.cuh"]
+    before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+    with open(src / "spmm_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+    changed = {name for name in kernels.SOURCES if before[name] != after[name]}
+    assert changed == {"csr_spmm", "ell_spmm"}
+    with open(src / "bsr_tile.cu", "a") as f:
+        f.write("// edited\n")
+    assert kernels._lib_path("bsr_tile") != after["bsr_tile"]
+    assert kernels._lib_path("csr_spmm") == after["csr_spmm"]
 
 
 def test_kernel_build_sources_and_flags():

@@ -6,7 +6,8 @@ port's ``csr_matmul`` (on the CPU: its plain version under autograd) and
 ``csr_matmul_dw`` (the transposed product the kernels compute on the card, here
 through its plain version). Tolerance rtol 1e-5, atol 1e-6: f32 sums of a few
 products whose order differs. The CSR of Xᵀ and ``t_perm`` are held exactly
-against ``scipy.sparse``.
+against ``scipy.sparse``. The forward's work list over X's rows, which kernel
+2 walks on the card, is restated in numpy and held against the JAX product.
 """
 
 import jax
@@ -94,6 +95,28 @@ def test_transpose_structures_match_scipy(problem):
     whole = x.t_work.dst[x.t_work.dst >= 0].numpy()
     split = x.t_work.split_rows.numpy()
     assert sorted([*whole, *split]) == list(range(m.shape[1]))
+
+
+def test_forward_work_list_matches_jax(problem):
+    """``from_csr`` carries kernel 2's work list over the rows of X: every row
+    of the product has one writer (an empty row's item writes zeros), and the
+    items' sums equal the JAX sparse product and the port's ``csr_matmul``."""
+    m, x, w, _ = problem
+    work = x.work
+    n_items = len(work.beg)
+    assert work.n_nonempty == int((np.diff(m.indptr) > 0).sum()) <= n_items
+    assert int(work.len.sum()) == m.nnz and work.n_partials == 0
+    cols, values = x.cols.numpy(), x.values.numpy()
+    got = np.full((m.shape[0], w.shape[1]), np.nan, np.float32)
+    for beg, ln, dst in zip(work.beg.tolist(), work.len.tolist(), work.dst.tolist()):
+        assert np.isnan(got[dst]).all()  # one writer
+        got[dst] = (values[beg:beg + ln, None] * w[cols[beg:beg + ln]]).sum(0)
+    rows = np.repeat(np.arange(m.shape[0], dtype=np.int32), np.diff(m.indptr))
+    want = np.asarray(jmm.csr_matmul(jnp.asarray(m.data), jnp.asarray(rows),
+                                     jnp.asarray(m.indices), jnp.asarray(w), m.shape[0]))
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(tmm.csr_matmul(x.values, x, torch.from_numpy(w)).numpy(), want,
+                               **TOL)
 
 
 def test_dw_work_list_chunks_long_columns():

@@ -4,7 +4,9 @@ Kernel 1's and kernel 2's plain versions (the code the wrappers run for CPU
 tensors) against the XLA and interpret-mode Pallas paths; graphsum forward and
 backward against ``jax.vjp``; loss, accuracy, L2 and Adam at 1e-6; dropout by
 distribution. Tolerances: rtol 1e-5 / atol 1e-6 in f32 wherever only the
-summation order differs.
+summation order differs. Kernel 1's tensor-core arithmetic (h as three bf16
+parts) and kernel 2's work list are restated here, in PyTorch and numpy, and
+held against the plain versions and the JAX package.
 """
 
 import importlib
@@ -28,6 +30,7 @@ from cuda_gcn_torch.data import graph as tgraph
 from cuda_gcn_torch.ops import adam as tadam
 from cuda_gcn_torch.ops import bsr as tbsr
 from cuda_gcn_torch.ops import dropout as tdropout
+from cuda_gcn_torch.ops import ell as tell
 from cuda_gcn_torch.ops import graphsum as tgs
 from cuda_gcn_torch.ops import loss as tloss
 from cuda_gcn_torch.ops import residual as tres
@@ -111,6 +114,78 @@ def test_tile_contract_plain_matches_pallas(d, variant):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_bf16x3_sums_back_bit_for_bit(seed):
+    """hi + mid + lo == h exactly, over 30 binades around 1 and down to 2^-110.
+    Below that the last mantissa bits of h lie under bf16's smallest subnormal
+    (2^-133 = 2^-110 / 2^23) and ``lo`` cannot hold them: exactness ends there."""
+    rng = np.random.default_rng(seed)
+    mant = rng.uniform(1.0, 2.0, 60000) * rng.choice([-1.0, 1.0], 60000)
+    for lo_exp, hi_exp in ((-15, 15), (-110, -80)):
+        h = (mant * np.exp2(rng.integers(lo_exp, hi_exp, mant.size))).astype(np.float32)
+        parts = tbsr.split_bf16x3(torch.from_numpy(h))
+        assert all(p.dtype == torch.bfloat16 for p in parts)
+        hi, mid, lo = (p.float().numpy() for p in parts)
+        np.testing.assert_array_equal((hi + mid) + lo, h)
+        assert mid.any() and lo.any()
+        # each part takes the remainder's leading bits: |mid| <= ulp(hi) / 2 and so on
+        assert (np.abs(mid) <= np.abs(hi) * 2.0 ** -8).all()
+        assert (np.abs(lo) <= np.abs(hi) * 2.0 ** -16).all()
+    tiny = (mant * 2.0 ** -120).astype(np.float32)  # last bits under 2^-133: not exact
+    hi, mid, lo = (p.float().numpy() for p in tbsr.split_bf16x3(torch.from_numpy(tiny)))
+    back = (hi + mid) + lo
+    assert (back != tiny).any()
+    np.testing.assert_allclose(back, tiny, rtol=0, atol=2.0 ** -133)
+
+
+def _bf16(tiles):
+    import ml_dtypes
+
+    tiles_bf16 = tiles.astype(ml_dtypes.bfloat16)
+    return tiles_bf16, torch.from_numpy(tiles_bf16.view(np.int16)).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("d", [16, 41, 82])
+def test_tile_contract_split_plain_matches_plain_and_jax(d, transpose):
+    """The tensor-core kernel's arithmetic (three bf16 parts of h against bf16
+    tiles, f32 sums) against the plain version and the JAX package: the Pallas
+    kernel in interpret mode for the forward orientation, the XLA path for the
+    transpose, which the JAX package has no Pallas kernel for. The three parts
+    sum to h exactly and every product is exact in f32, so only the order and
+    grouping of the f32 additions differ: tolerance 1e-6 · Σ|a·h|, about 8 f32
+    epsilons of the sum of the terms' magnitudes."""
+    tiles, rows, cols, n, t_blocks = random_tiles(transpose)
+    tiles_bf16, t_tiles = _bf16(tiles)
+    h = np.random.default_rng(d).standard_normal((n, d)).astype(np.float32)
+    args = (t_tiles, torch.from_numpy(rows), torch.from_numpy(cols))
+    got = tbsr.bsr_tile_contract_split_plain(*args, torch.from_numpy(h), n, t_blocks,
+                                             transpose=transpose).numpy()
+    plain = tbsr.bsr_tile_contract_plain(*args, torch.from_numpy(h), n, t_blocks,
+                                         transpose=transpose).numpy()
+    tol = 1e-6 * tbsr.bsr_tile_contract_plain(*args, torch.from_numpy(np.abs(h)), n, t_blocks,
+                                              transpose=transpose).numpy()
+    if transpose:
+        want = jax_dense_part(tiles_bf16.astype(np.float32), rows, cols, h, n, t_blocks, True)
+    else:
+        want = np.asarray(pallas_bsr.bsr_tile_contract(
+            jnp.asarray(tiles_bf16), jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(h),
+            n, t_blocks, interpret=True))
+    assert tol.max() > 0
+    assert (np.abs(got - plain) <= tol).all()
+    assert (np.abs(got - want) <= tol).all()
+    for r in sorted(set(range(t_blocks)) - set(rows.tolist())):
+        assert not got[r * 32:(r + 1) * 32].any()
+
+
+def test_tile_plan_orders_block_rows_by_load():
+    """``by_load`` lists every block row once, most tiles first, ties in row order."""
+    _, rows, cols, _, t_blocks = random_tiles(False)
+    plan = tbsr.tile_plan(torch.from_numpy(rows), torch.from_numpy(cols), t_blocks)
+    assert plan.by_load.dtype == torch.int32
+    assert plan.by_load.tolist() == [3, 0, 1, 5, 2, 4]  # 3, 2, 1, 1, 0, 0 tiles
+
+
 def test_tile_plan_groups_by_output_row():
     tiles, rows, cols, n, t_blocks = random_tiles(True)
     plan = tbsr.tile_plan(torch.from_numpy(rows), torch.from_numpy(cols), t_blocks)
@@ -139,6 +214,77 @@ def test_residual_plain_matches_segment_apply(clustered, d):
     got2 = tres.residual_spmm(r.row_ptr, r.cols, r.coef, torch.from_numpy(h), out=out)
     assert got2 is out
     np.testing.assert_allclose(got2.numpy(), base + want, rtol=RTOL, atol=ATOL)
+
+
+def ragged_residual():
+    """A residual CSR of 700 rows with about 3 edges per row, three rows of no
+    edge (the first, one inside, the last) and two rows above the 256 edges of a
+    work item (600 and 257)."""
+    rng = np.random.default_rng(8)
+    n = 700
+    deg = rng.integers(1, 6, n)
+    deg[[0, 310, n - 1]] = 0
+    deg[5], deg[400] = 600, tell.ELL_CHUNK_SLOTS + 1
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([np.sort(rng.choice(n, k, replace=False)) for k in deg])
+    coef = rng.standard_normal(len(rows)).astype(np.float32)
+    return tgraph._residual_csr(rows, cols, coef, n, "cpu"), rows, cols, coef, deg
+
+
+def residual_kernel_restated(r, h, base=None):
+    """csrc/csr_spmm.cu in numpy: each work item sums its edges into its output
+    row (added to the row's old value when accumulating) or into its partial;
+    each chunked row adds its partials in chunk order (onto the old value when
+    accumulating). Accumulating launches only the items that have edges.
+    Returns the result and how often each output row was written."""
+    w = r.work
+    cols, coef = r.cols.numpy(), r.coef.numpy()
+    n, d = len(r.row_ptr) - 1, h.shape[1]
+    accumulate = base is not None
+    out = base.copy() if accumulate else np.full((n, d), np.nan, np.float32)
+    partial = np.full((w.n_partials, d), np.nan, np.float32)
+    writes = np.zeros(n, np.int64)
+    n_items = w.n_nonempty if accumulate else len(w.beg)
+    for beg, ln, dst in zip(w.beg.tolist()[:n_items], w.len.tolist()[:n_items],
+                            w.dst.tolist()[:n_items]):
+        assert 0 <= ln <= tell.ELL_CHUNK_SLOTS and (ln > 0 or not accumulate)
+        s = (coef[beg:beg + ln, None] * h[cols[beg:beg + ln]]).sum(0, dtype=np.float32)
+        if dst >= 0:
+            out[dst] = out[dst] + s if accumulate else s
+            writes[dst] += 1
+        else:
+            partial[-dst - 1] = s
+    ptr = w.split_ptr.numpy()
+    for i, row in enumerate(w.split_rows.tolist()):
+        s = partial[ptr[i]:ptr[i + 1]].sum(0, dtype=np.float32)
+        out[row] = out[row] + s if accumulate else s
+        writes[row] += 1
+    assert not np.isnan(partial).any()
+    return out, writes
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("d", [16, 41])
+def test_residual_work_list_restates_the_kernel(d, accumulate):
+    r, rows, cols, coef, deg = ragged_residual()
+    w = r.work
+    assert w.n_nonempty == len(w.beg) - 3 and (w.len[w.n_nonempty:] == 0).all()
+    assert w.split_rows.tolist() == [5, 400] and w.split_ptr.tolist() == [0, 3, 5]
+    assert int(w.len.sum()) == r.nnz == len(rows)
+    rng = np.random.default_rng(d)
+    h = rng.standard_normal((len(deg), d)).astype(np.float32)
+    base = rng.standard_normal((len(deg), d)).astype(np.float32) if accumulate else None
+    got, writes = residual_kernel_restated(r, h, base)
+    # one writer per output row; when accumulating, the empty rows are left alone
+    np.testing.assert_array_equal(writes, (deg > 0).astype(int) if accumulate else 1)
+    out = torch.from_numpy(base.copy()) if accumulate else None
+    plain = tres.residual_spmm_plain(r.row_ptr, r.cols, r.coef, torch.from_numpy(h), out)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=1e-5)
+    want = np.asarray(jgs._segment_apply(jnp.asarray(h), jnp.asarray(rows), jnp.asarray(cols),
+                                         jnp.asarray(coef), len(deg)))
+    np.testing.assert_allclose(got, want + base if accumulate else want, rtol=1e-5, atol=1e-5)
+    if not accumulate:
+        assert not got[deg == 0].any()  # an empty row's item writes zeros
 
 
 def graph_pair(csr, backend, **kw):
