@@ -33,19 +33,29 @@ Phases, each of which raises (exit code not 0) when it fails:
     adjacency pass (4 per epoch + 2 + 2) and no other kernel; card against
     CPU for 3 epochs at dropout 0 within 1e-4; an early-stopping run that
     stops at the same epoch on the card as on the CPU;
-(h) kernel 3 at reddit scale: synth-reddit without reordering, backend
-    ``ell``, against its plain version at d 16, 32, 41, 82, timed beside its
-    plain version, a sparse CSR product and its bound; ``train.run`` 3 epochs
-    with 4 launches per epoch + 4;
+(h) kernel 3 at reddit scale, backend ``ell``, on two graphs: synth-reddit as
+    it is loaded, and relabelled with its cached locality permutation (the
+    main path's dataset). On each: against its plain version at d 16, 32, 41,
+    82 and bitwise equal across two runs; timed beside its plain version, a
+    sparse CSR product, its bound (every byte once) and a second yardstick,
+    the time of the row gathers alone from the memory with no reuse and the
+    rate at which the kernel gathered them; the item order that
+    ``ops.ell.pick_order`` chose for the graph against the other candidate;
+    the steady epoch. Then ``train.run`` 3 epochs with 4 launches per epoch + 4;
 (i) the probe kernels (``python -m cuda_gcn_torch.probes.gather``) at the
     script's default shapes: each against its plain version, its time, ns per
-    row and bound, and a PyTorch call as the yardstick;
+    row and bound, and a PyTorch call as the yardstick; for the kernel and for
+    the library call, the device time (torch.profiler) and the host's time per
+    call apart (``split_times``);
 (j) the take-along-axis probes (``python -m cuda_gcn_torch.probes.taa`` and
     ``probes.dyngather``) at every shape, type and step count of the TPU
     scripts: the two gather kernels bitwise equal to their plain versions, the
     column scan and the piece within √S · epsilon · max|cs| of theirs and
     bitwise equal across two runs; each case's time beside its plain version,
     a PyTorch library call where one computes the same function, and its bound;
+    device time and host time per call of every case and of its library call,
+    taken in turns, and for the gathers the time of their loads from the memory
+    with no reuse; k1, k2 and k5 against ``take_along_dim``/``index_select``;
 (k) sparse layer-0 features at full width (run while (c)'s graph is alive):
     the CSR product X·W (kernel 2) at d 16 and 32 and its dW = Xᵀ·g (kernel 3's
     work list) at d 16 against ``csr_matmul_plain`` on synth-reddit's features,
@@ -58,7 +68,8 @@ Phases, each of which raises (exit code not 0) when it fails:
     with ``--feature-matmul sparse`` in the reference's output format.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-with all nine kernels, and last ``{"ok": true, "device": {...}}``. Without a
+with all nine kernels (each with ``host_us_per_call``, the host's share of one
+call), and last ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits 1 and prints no result.
 """
 
@@ -89,6 +100,73 @@ def cuda_ms(fn, iters: int) -> float:
     from cuda_gcn_torch.device import cuda_ms as timed
 
     return timed(fn, iters)
+
+
+SPLIT_CALLS, SPLIT_BATCHES = 100, 5
+PROFILED_CALLS = 20
+L2_BYTES = 50e6  # the H100's L2
+
+
+def _device_us(fn) -> float:
+    """Device time per call of ``fn``: the self device time of every kernel
+    that torch.profiler saw in ``PROFILED_CALLS`` calls, over their number."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+            total += dev_us
+    return total / PROFILED_CALLS
+
+
+def split_times(*fns) -> list[dict]:
+    """For each of ``fns``, what a call costs where: ``device_us``, the kernels'
+    time on the card per call (torch.profiler; CUDA events around 200 launches
+    if the profiler saw no kernel, and then ``device_by`` says 'events');
+    ``host_us``, the host's time per call, the least over ``SPLIT_BATCHES``
+    batches of ``SPLIT_CALLS`` calls that nothing waits for (the host is shared,
+    so the least is what the code costs); ``event_us``, CUDA events around the
+    same batches, which read the larger of the two. The batches of the
+    functions take turns, so that they share the machine's moods."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    host = [[] for _ in fns]
+    event = [[] for _ in fns]
+    for _ in range(SPLIT_BATCHES):
+        for i, fn in enumerate(fns):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(SPLIT_CALLS):
+                fn()
+            host[i].append((time.perf_counter() - t0) / SPLIT_CALLS * 1e6)
+            end.record()
+            end.synchronize()
+            event[i].append(start.elapsed_time(end) / SPLIT_CALLS * 1e3)
+    out = []
+    for i, fn in enumerate(fns):
+        dev, by = _device_us(fn), "profiler"
+        if dev == 0.0:
+            dev, by = cuda_ms(fn, 200) * 1e3, "events"
+        out.append(dict(device_us=dev, device_by=by, host_us=min(host[i]),
+                        event_us=min(event[i])))
+    return out
+
+
+def _fmt_split(t: dict) -> str:
+    return (f"device {t['device_us']:.2f} us, host {t['host_us']:.2f} us per call "
+            f"(events over {SPLIT_CALLS} calls {t['event_us']:.2f} us)")
 
 
 def max_errors(got, want):
@@ -520,6 +598,13 @@ def phase_timing(graph, launches, errs):
                                                 h, n, t_blocks, plan=in_row_order), 20)
     log(f"  bsr_tile at d={d} with the block rows taken in row order instead of most tiles "
         f"first: {t1_rows:.3f} ms")
+    out = torch.zeros(n, d, device="cuda")
+    split = dict(zip(("bsr_tile", "csr_spmm"), split_times(
+        lambda: bsr_tile_contract(graph.tiles, graph.tile_rows, graph.tile_cols, h, n, t_blocks,
+                                  plan=graph.plan),
+        lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, out=out, work=r.work))))
+    for name, t in split.items():
+        log(f"  {name} at d={d}, where its call's time goes: {_fmt_split(t)}")
     kernels_line = []
     for name, src, replaces, lib in (
             ("bsr_tile", "cuda_gcn_torch/csrc/bsr_tile.cu",
@@ -533,6 +618,7 @@ def phase_timing(graph, launches, errs):
             "launches": launches[name], "max_abs_err": errs[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": lib, "d": d,
+            "host_us_per_call": split[name]["host_us"], "device_us": split[name]["device_us"],
             "by_width": {str(w): v for w, v in by_width[name].items()}})
     return kernels_line
 
@@ -591,7 +677,11 @@ def _check_ell(plan, widths, label, gen, errs, bitwise):
 
 
 def _time_ell(plan, widths, label, gen, library_csr=None):
-    """{d: (ms, plain ms, library ms or None, bound ms, bound_by)}"""
+    """{d: {ms, plain_ms, library_ms, bound_ms, bound_by, gather_no_reuse_ms,
+    gather_tb_per_s, h_fits_l2}}. Beside the bound (every byte once) stands the
+    time of the row gathers alone if none were reused, nnz · 4d bytes at the
+    memory's rate, and the rate at which the kernel gathered them: a rate above
+    the memory's 3.35 TB/s is the caches' work."""
     import torch
 
     from cuda_gcn_torch.ops.ell import ell_spmm, ell_spmm_plain
@@ -604,10 +694,42 @@ def _time_ell(plan, widths, label, gen, library_csr=None):
         lib, note = (None, "not timed") if library_csr is None else _library_ms(
             lambda: (lambda: library_csr @ h), 10)
         bound, by = _ell_bound(plan, d)
-        rows[d] = (ms, plain, lib, bound, by)
+        gather_bytes = plan.nnz * 4 * d
+        fits = 4 * plan.n_nodes * d <= L2_BYTES
+        rows[d] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                       gather_no_reuse_ms=gather_bytes / PEAK_BYTES_PER_S * 1e3,
+                       gather_tb_per_s=gather_bytes / ms / 1e9, h_fits_l2=fits)
         log(f"  {label} d={d}: ell_spmm {ms:.4f} ms (plain {plain:.3f}; library "
-            f"{'%.4f ms' % lib if lib is not None else note}; bound {bound:.4f} ms, {by})")
+            f"{'%.4f ms' % lib if lib is not None else note}; bound {bound:.4f} ms, {by}; the "
+            f"row gathers alone with no reuse {rows[d]['gather_no_reuse_ms']:.4f} ms, gathered "
+            f"at {rows[d]['gather_tb_per_s']:.2f} TB/s; h is {4 * plan.n_nodes * d / 1e6:.1f} MB"
+            f"{', fits L2' if fits else ', exceeds L2'})")
     return rows
+
+
+def _time_ell_orders(plan, widths, label, gen):
+    """Kernel 3 with its items in the order that ``pick_order`` chose for this
+    graph against the other candidate, in turns: {order: {d: ms}}."""
+    import torch
+
+    from cuda_gcn_torch.ops.ell import ell_spmm, with_order
+
+    other = "blocks" if plan.order == "longest" else "longest"
+    plans = {plan.order: plan, other: with_order(plan, other)}
+    out = {o: {} for o in plans}
+    for d in widths:
+        h = torch.randn(plan.n_nodes, d, generator=gen, device="cuda")
+        if not torch.equal(ell_spmm(plans[other], h), ell_spmm(plan, h)):
+            raise AssertionError(f"ell_spmm {label} d={d}: the item order changed the result")
+        times = {o: [] for o in plans}
+        for _ in range(2):
+            for o, p in plans.items():
+                times[o].append(cuda_ms(lambda: ell_spmm(p, h), 20))
+        for o in plans:
+            out[o][str(d)] = min(times[o])
+        log(f"  {label} d={d}: items '{plan.order}' (as shipped for this graph) "
+            f"{out[plan.order][str(d)]:.4f} ms, '{other}' {out[other][str(d)]:.4f} ms")
+    return out
 
 
 def phase_pallas_path(errs):
@@ -629,7 +751,8 @@ def phase_pallas_path(errs):
     log(f"(g) pallas path: synth-pubmed graph built in {time.perf_counter() - t0:.2f} s: "
         f"n={plan.n_nodes} nnz={plan.nnz} ELL slots={plan.slots} buckets={len(plan.widths)} "
         f"(widths {plan.widths[0]}..{plan.widths[-1]}) work items={plan.work_beg.numel()} "
-        f"chunked rows={plan.split_rows.numel()} symmetric={graph.symmetric}")
+        f"(order '{plan.order}') chunked rows={plan.split_rows.numel()} "
+        f"symmetric={graph.symmetric}")
     gen = torch.Generator(device="cuda").manual_seed(2)
     _check_ell(plan, PUBMED_WIDTHS, "synth-pubmed", gen, errs, bitwise=True)
     timing = _time_ell(plan, PUBMED_WIDTHS, "synth-pubmed", gen)
@@ -683,46 +806,62 @@ def phase_pallas_path(errs):
 
 
 def phase_ell_reddit(errs):
+    """(h): kernel 3 on synth-reddit as it is loaded and relabelled with the
+    cached locality permutation (the main path's dataset). Returns
+    {graph: {"timing", "orders", "epoch_ms", "order"}} and the split times of a
+    call at d = 82 on the graph as loaded."""
     import numpy as np
     import torch
 
     from cuda_gcn_torch import kernels, train
     from cuda_gcn_torch.config import GCNConfig
-    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.data.dataset import load_cached, reorder_cached
     from cuda_gcn_torch.data.graph import build_graph, normalization_coefficients
+    from cuda_gcn_torch.ops.ell import ell_spmm
 
-    ds = load_cached("synth-reddit")
-    t0 = time.perf_counter()
-    graph = build_graph(ds.graph, backend="ell", device="cuda")
-    torch.cuda.synchronize()
-    plan = graph.ell
-    log(f"(h) kernel 3 at reddit scale: synth-reddit (no reordering) ell graph built in "
-        f"{time.perf_counter() - t0:.1f} s: n={plan.n_nodes} nnz={plan.nnz} ELL slots="
-        f"{plan.slots} buckets={len(plan.widths)} (widths {plan.widths[0]}.."
-        f"{plan.widths[-1]}) work items={plan.work_beg.numel()} chunked rows="
-        f"{plan.split_rows.numel()} partials={plan.n_partials}")
+    raw = load_cached("synth-reddit")
+    out, split = {}, None
     gen = torch.Generator(device="cuda").manual_seed(3)
-    _check_ell(plan, WIDTHS, "synth-reddit", gen, errs, bitwise=True)
-    indptr = ds.graph.indptr.astype(np.int64)
-    indices = ds.graph.indices.astype(np.int64)
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(indptr).cuda(), torch.from_numpy(indices).cuda(),
-        torch.from_numpy(normalization_coefficients(indptr, indices)).cuda(),
-        size=(plan.n_nodes, plan.n_nodes))
-    timing = _time_ell(plan, WIDTHS, "synth-reddit", gen, library_csr=csr)
-    del csr
-    phase_steady(graph, ds, " (synth-reddit, ell)")
-    phase_profile(graph, ds, label="  ell backend,")
-    del graph, plan
-    torch.cuda.empty_cache()
+    for label, ds in (("as loaded", raw),
+                      ("relabelled", reorder_cached(raw, "synth-reddit"))):
+        t0 = time.perf_counter()
+        graph = build_graph(ds.graph, backend="ell", device="cuda")
+        torch.cuda.synchronize()
+        plan = graph.ell
+        log(f"(h) kernel 3 at reddit scale: synth-reddit {label}, ell graph built in "
+            f"{time.perf_counter() - t0:.1f} s: n={plan.n_nodes} nnz={plan.nnz} ELL slots="
+            f"{plan.slots} buckets={len(plan.widths)} (widths {plan.widths[0]}.."
+            f"{plan.widths[-1]}) work items={plan.work_beg.numel()} in the order "
+            f"'{plan.order}' chunked rows={plan.split_rows.numel()} "
+            f"partials={plan.n_partials}")
+        name = f"synth-reddit {label}"
+        _check_ell(plan, WIDTHS, name, gen, errs, bitwise=True)
+        indptr = ds.graph.indptr.astype(np.int64)
+        indices = ds.graph.indices.astype(np.int64)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(indptr).cuda(), torch.from_numpy(indices).cuda(),
+            torch.from_numpy(normalization_coefficients(indptr, indices)).cuda(),
+            size=(plan.n_nodes, plan.n_nodes))
+        timing = _time_ell(plan, WIDTHS, name, gen, library_csr=csr)
+        del csr
+        orders = _time_ell_orders(plan, WIDTHS, name, gen)
+        epoch_ms = phase_steady(graph, ds, f" (synth-reddit {label}, ell)")
+        if split is None:
+            h = torch.randn(plan.n_nodes, WIDTHS[-1], generator=gen, device="cuda")
+            (split,) = split_times(lambda: ell_spmm(plan, h))
+            log(f"  ell_spmm at d={WIDTHS[-1]}, where its call's time goes: {_fmt_split(split)}")
+        phase_profile(graph, ds, label=f"  ell backend, {label},")
+        out[label] = dict(timing=timing, orders=orders, epoch_ms=epoch_ms, order=plan.order)
+        del graph, plan
+        torch.cuda.empty_cache()
 
     cfg = GCNConfig(epochs=REDDIT_ELL_EPOCHS, graphsum_backend="ell", seed=0)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = train.run(cfg, ds, device="cuda", verbose=False)
+    res = train.run(cfg, raw, device="cuda", verbose=False)
     launches = dict(kernels.launches)
     expected = 4 * REDDIT_ELL_EPOCHS + 4
-    log(f"  train.run {ds.input_dim}-{cfg.hidden_dim}-{ds.output_dim} ell, "
+    log(f"  train.run {raw.input_dim}-{cfg.hidden_dim}-{raw.output_dim} ell, "
         f"{REDDIT_ELL_EPOCHS} epochs: {time.perf_counter() - t0:.1f} s (graph build "
         f"included), fused loop {res.total_train_time * 1e3 / REDDIT_ELL_EPOCHS:.2f} "
         f"ms/epoch; launches {launches}, expected ell_spmm {expected}")
@@ -730,7 +869,7 @@ def phase_ell_reddit(errs):
         raise AssertionError("non-finite metrics on the reddit ell run")
     if launches["ell_spmm"] != expected:
         raise AssertionError("the reddit ell run did not go through kernel 3")
-    return timing
+    return out, split
 
 
 def phase_probes(errs):
@@ -775,17 +914,25 @@ def phase_probes(errs):
     lib_b, _ = _library_ms(scatter_lib, 10)
     bound_a = _bound(4 * m + 4 * rows * d + 4 * d, m * d)
     bound_b = _bound(8 * mb + 4 * min(mb, rows) * d + 4 * rows * d, 2 * mb * d)
+    fn_lib_b = scatter_lib()
+    split = split_times(lambda: probes.gather_probe(idx, h),
+                        lambda: h.index_select(0, idx).sum(0),
+                        lambda: probes.scatter_probe(idx_sorted, coef, h, mb), fn_lib_b)
     out = {}
-    for name, key, plain, lib, (bound, by), count in (
-            ("gather_probe", "A", plain_a, lib_a, bound_a, m),
-            ("scatter_probe", "B", plain_b, lib_b, bound_b, mb)):
+    for name, key, plain, lib, (bound, by), count, own, lib_split in (
+            ("gather_probe", "A", plain_a, lib_a, bound_a, m, split[0], split[1]),
+            ("scatter_probe", "B", plain_b, lib_b, bound_b, mb, split[2], split[3])):
         ms = res[key]["ms"]
         log(f"  {name}: {ms:.4f} ms = {res[key]['ns_per_row']:.4f} ns/row over {count} "
             f"rows (plain {plain:.4f} ms; library "
             f"{'%.4f ms' % lib if lib is not None else 'did not run'}; bound "
             f"{bound:.4f} ms, {by})")
+        log(f"    the kernel: {_fmt_split(own)}; the library call: {_fmt_split(lib_split)}")
         out[name] = dict(launches=launches[name], ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bound, bound_by=by, ns_per_row=res[key]["ns_per_row"])
+                         bound_ms=bound, bound_by=by, ns_per_row=res[key]["ns_per_row"],
+                         device_us=own["device_us"], host_us_per_call=own["host_us"],
+                         library_device_us=lib_split["device_us"],
+                         library_host_us_per_call=lib_split["host_us"])
     return out
 
 
@@ -844,17 +991,40 @@ def phase_taa_probes(errs):
     out = {k: {"launches": launches[k], "cases": []}
            for k in ("taa_rows", "taa_lanes", "cumsum_cols", "piece")}
 
-    def record(kernel, label, ms, plain_ms, lib_ms, lib_name, bound, err, head=False):
+    def record(kernel, label, ms, plain_ms, lib_ms, lib_name, bound, err, fns, head=False,
+               gather_bytes=None):
+        """``fns``: the kernel's call and, where there is one, the library's."""
         bound_ms, by = bound
-        log(f"  {kernel} {label}: {ms:.4f} ms (plain {plain_ms:.4f}; library "
-            f"{_fmt_ms(lib_ms)}{' ' + lib_name if lib_name else ''}; bound {bound_ms:.5f} ms, "
-            f"{by}); max_abs_err {err:.3e}")
-        row = dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=lib_name,
-                   bound_ms=bound_ms, bound_by=by, max_abs_err=err)
+        own, *rest = split_times(*fns)
+        log(f"  {kernel} {label}: {ms:.4f} ms at its entry point (plain {plain_ms:.4f}; "
+            f"library {_fmt_ms(lib_ms)}{' ' + lib_name if lib_name else ''}; bound "
+            f"{bound_ms:.5f} ms, {by}); max_abs_err {err:.3e}")
+        log(f"    the kernel: {_fmt_split(own)}"
+            + (f"; the library call: {_fmt_split(rest[0])}" if rest else ""))
+        # ms and library_ms: events over the batches taken in turns, one method
+        # for both; the entry point's own reading (5 launches) beside them
+        row = dict(case=label, ms=own["event_us"] / 1e3, entry_point_ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library=lib_name, bound_ms=bound_ms, bound_by=by,
+                   max_abs_err=err, device_us=own["device_us"],
+                   host_us_per_call=own["host_us"], event_us=own["event_us"])
+        if rest:
+            row.update(library_ms=rest[0]["event_us"] / 1e3, library_alone_ms=lib_ms,
+                       library_device_us=rest[0]["device_us"],
+                       library_host_us_per_call=rest[0]["host_us"],
+                       library_event_us=rest[0]["event_us"])
+        if gather_bytes is not None:
+            # beside the bound: the rows or elements gathered, every one from the
+            # memory with no reuse, and the rate at which the kernel gathered them
+            row.update(gather_no_reuse_ms=gather_bytes / PEAK_BYTES_PER_S * 1e3,
+                       gather_tb_per_s=gather_bytes / own["device_us"] / 1e6)
+            log(f"    gathers {gather_bytes / 1e6:.1f} MB a launch: {row['gather_no_reuse_ms']:.4f}"
+                f" ms from the memory with no reuse; gathered at {row['gather_tb_per_s']:.2f} "
+                f"TB/s of device time")
         out[kernel]["cases"].append(row)
         if head:
             out[kernel].update({k: v for k, v in row.items() if k != "case"}, case=label)
         errs[kernel] = max(errs.get(kernel, 0.0), err)
+        return row
 
     # the gathers: bitwise equal to their plain versions (same additions, same order)
     a2 = taa.taa_probe(ids, tab, reps)
@@ -862,8 +1032,10 @@ def phase_taa_probes(errs):
         raise AssertionError("probe A2 differs from its plain version")
     record("taa_rows", f"A2 [{s}x{taa.LANES}] f32 x{reps} reps", res["A2"]["ms"],
            cuda_ms(lambda: taa.taa_probe_plain(ids, tab, reps), 3), None, "",
-           _bound(4 * s + 8 * elems, elems * reps), 0.0)
+           _bound(4 * s + 8 * elems, elems * reps), 0.0,
+           (lambda: taa.taa_probe(ids, tab, reps),), gather_bytes=4 * elems * reps)
     heads = {"single TAA axis0, full idx", "single TAA axis1 [16x8192]"}
+    versus = []
     for case, ms in timed:
         got, want = case.run(), case.plain()
         if got.dtype != torch.float32 or not torch.equal(got, want):
@@ -875,11 +1047,24 @@ def phase_taa_probes(errs):
             "embedding_bag" if case.steps > 1 else
             "index_select" if case.form in ("bcast_rows", "take_rows") else "take_along_dim")
         n = case.tab.numel()
-        bound = _bound(4 * case.idx.numel() + case.tab.element_size() * n + 4 * n,
-                       n * case.steps * case.reps)
-        record("taa_rows" if case.axis == 0 else "taa_lanes", case.label, ms,
-               cuda_ms(case.plain, 2), lib_ms, lib_name, bound, 0.0, head=case.label in heads)
+        item = case.tab.element_size()
+        bound = _bound(4 * case.idx.numel() + item * n + 4 * n, n * case.steps * case.reps)
+        row = record("taa_rows" if case.axis == 0 else "taa_lanes", case.label, ms,
+                     cuda_ms(case.plain, 2), lib_ms, lib_name, bound, 0.0,
+                     (case.run,) if lib is None else (case.run, lib),
+                     head=case.label in heads, gather_bytes=item * n * case.steps * case.reps)
         log("    " + dyngather.rate_line(case, ms).replace("\n", " "))
+        if case.group == "bisect" and case.axis == 0 and case.steps == 1:
+            versus.append((case.label, lib_name, row))
+    for label, lib_name, row in versus:  # k1, k2, k5 against the library's call
+        log(f"  {label} against {lib_name}: device {row['device_us']:.2f} / "
+            f"{row['library_device_us']:.2f} us, host {row['host_us_per_call']:.2f} / "
+            f"{row['library_host_us_per_call']:.2f} us per call, events {row['event_us']:.2f} / "
+            f"{row['library_event_us']:.2f} us: "
+            + ("no slower" if row["event_us"] <= row["library_event_us"] else "SLOWER")
+            + " by the events, "
+            + ("no slower" if row["device_us"] <= row["library_device_us"] else "SLOWER")
+            + " on the device")
 
     # the scans: tolerance √S · epsilon · max|cs| per rep, same bits on two runs
     ref64 = torch.cumsum(tab.double(), 0)
@@ -896,7 +1081,8 @@ def phase_taa_probes(errs):
     record("cumsum_cols", f"C [{s}x{taa.LANES}] f32 x{reps} reps", res["C"]["ms"],
            cuda_ms(lambda: taa.cumsum_probe_plain(tab, reps), 5),
            cuda_ms(lambda: torch.cumsum(tab, 0), 10), "cumsum (one scan, no repeats)",
-           _bound(8 * elems, elems * (1 + reps)), err, head=True)
+           _bound(8 * elems, elems * (1 + reps)), err,
+           (lambda: taa.cumsum_probe(tab, reps), lambda: torch.cumsum(tab, 0)), head=True)
 
     got = taa.piece_probe(ids, coef, begin, end, tab, reps)
     want = taa.piece_probe_plain(ids, coef, begin, end, tab, reps)
@@ -912,7 +1098,9 @@ def phase_taa_probes(errs):
     record("piece", f"D [{s}x{taa.LANES}] f32 x{reps} reps", res["D"]["ms"],
            cuda_ms(lambda: taa.piece_probe_plain(ids, coef, begin, end, tab, reps), 5),
            res["X"]["ms"], "index_select*coef + index_add_ (one piece)",
-           _bound(16 * s + 8 * elems, elems * (3 + reps)), err, head=True)
+           _bound(16 * s + 8 * elems, elems * (3 + reps)), err,
+           (lambda: taa.piece_probe(ids, coef, begin, end, tab, reps),
+            lambda: taa.gather_segment_library(ids, coef, rows_sorted, tab)), head=True)
     for name in ("A2", "C", "D", "X"):
         log(f"    {name}: {res[name]['ms']:.4f} ms = {res[name]['ns_per_row']:.3f} ns/row "
             f"over {res[name]['rows']} rows")
@@ -1171,7 +1359,7 @@ def main() -> int:
     del dataset
     errs["ell_spmm"] = 0.0
     pallas_launches, pubmed_timing = phase_pallas_path(errs)
-    reddit_timing = phase_ell_reddit(errs)
+    reddit, ell_split = phase_ell_reddit(errs)
     probe_rows = phase_probes(errs)
     taa_rows = phase_taa_probes(errs)
     text_launches = phase_text_entry()
@@ -1181,24 +1369,30 @@ def main() -> int:
             line["layer0_forward"] = layer0["forward"]
             line["launches_text_run"] = text_launches["csr_spmm"]
     d = WIDTHS[-1]
-    ms, plain, lib, bound, by = reddit_timing[d]
+    graphs = {"synth-pubmed": pubmed_timing,
+              "synth-reddit": reddit["as loaded"]["timing"],
+              "synth-reddit relabelled": reddit["relabelled"]["timing"]}
+
+    def by_width(key):
+        return {g: {str(w): r[key] for w, r in t.items()} for g, t in graphs.items()}
+
+    row = graphs["synth-reddit"][d]
     kernels_line.append({
         "name": "ell_spmm", "route": "cuda", "source": "cuda_gcn_torch/csrc/ell_spmm.cu",
         "replaces": "cuda_gcn_tpu/ops/pallas_spmm.py:67 (_ell_kernel)",
         "launches": pallas_launches["ell_spmm"], "max_abs_err": errs["ell_spmm"],
-        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "d": d, "graph": "synth-reddit",
-        "ms_by_width": {g: {str(w): r[0] for w, r in t.items()}
-                        for g, t in (("synth-pubmed", pubmed_timing),
-                                     ("synth-reddit", reddit_timing))},
-        "plain_ms_by_width": {g: {str(w): r[1] for w, r in t.items()}
-                              for g, t in (("synth-pubmed", pubmed_timing),
-                                           ("synth-reddit", reddit_timing))},
-        "bound_ms_by_width": {g: {str(w): r[3] for w, r in t.items()}
-                              for g, t in (("synth-pubmed", pubmed_timing),
-                                           ("synth-reddit", reddit_timing))},
-        "library_ms_by_width": {"synth-reddit": {str(w): r[2]
-                                                 for w, r in reddit_timing.items()}},
+        "host_us_per_call": ell_split["host_us"], "device_us": ell_split["device_us"],
+        "ms_by_width": by_width("ms"), "plain_ms_by_width": by_width("plain_ms"),
+        "bound_ms_by_width": by_width("bound_ms"),
+        "library_ms_by_width": by_width("library_ms"),
+        "gather_no_reuse_ms_by_width": by_width("gather_no_reuse_ms"),
+        "gather_tb_per_s_by_width": by_width("gather_tb_per_s"),
+        "item_order": {g: reddit[g]["order"] for g in reddit},
+        "ms_by_item_order": {g: reddit[g]["orders"] for g in reddit},
+        "ell_epoch_ms": {g: reddit[g]["epoch_ms"] for g in reddit},
         "layer0_dw": layer0["dw"], "launches_sparse_run": sparse_launches["ell_spmm"],
         "launches_text_run": text_launches["ell_spmm"]})
     for name, line in probe_rows.items():
@@ -1219,6 +1413,9 @@ def main() -> int:
         kernels_line.append({"name": name, "route": "cuda",
                              "source": "cuda_gcn_torch/csrc/taa_probe.cu",
                              "replaces": replaces[name], **line})
+    log(f"steady fused epoch on synth-reddit in this call: bsr {dense_ms:.2f} ms (sparse "
+        f"features {sparse_ms:.2f}), ell {reddit['as loaded']['epoch_ms']:.2f} ms as loaded and "
+        f"{reddit['relabelled']['epoch_ms']:.2f} ms relabelled")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -20,12 +20,27 @@
 // forms of an in-VMEM dynamic gather the TPU compiler lowers and at what rate;
 // on the card every form runs, from device memory and L2.
 //
-// taa_rows: one thread per output element, neighbouring threads on
-// neighbouring columns. With a compact index a warp reads 128 contiguous bytes
-// of one table row; with a full index every lane reads 4 bytes of its own row.
+// taa_rows moves few bytes (at [8192, 128] f32 one step reads and writes 8 MB,
+// 2.5 us at the card's rate), so a launch is bound by the number of load
+// instructions it takes to cover the table, and by the latency of a chain of
+// dependent loads (index, then row) for every step. The launcher picks one of
+// two forms from the strides (kernels.taa_rows_form):
+// * row form, sj == 0: one index gives a whole row. A thread takes 4
+//   neighbouring columns, 16 bytes of a f32 row or 8 of a bf16 row, so a warp
+//   reads 512 contiguous bytes of one table row with one instruction and
+//   stores its 4 sums with one. The index is the same address for the threads
+//   of a row (one broadcast load per row and step). The steps go in whole
+//   batches of 8 whose row loads are all in flight before the first is added,
+//   then one by one. A thread id splits into (row, column group) in 32 bits,
+//   by a shift when the row has a power-of-two number of groups.
+// * the general form: one thread per output element, any strides, 64-bit
+//   offsets. A full index (a different row per element) stays here: its loads
+//   are 4 scattered bytes each whatever a thread is given, and 4 elements a
+//   thread with one 16-byte index load measured level on one step and slower
+//   on the repeated small shapes, where fewer threads walk the same chain.
 // taa_lanes: a CTA stages its table row in shared memory (above 48 KB by
 // opt-in; a row that does not fit is read from global memory) and walks a tile
-// of the columns. In both, the sum starts at 0 and adds step after step, rep
+// of the columns. In all of them, the sum starts at 0 and adds step after step, rep
 // after rep, in f32, and every rep reads the table again (a compiler barrier
 // keeps the loads inside the loop): the probes time gathers, not additions.
 //
@@ -59,6 +74,28 @@ constexpr int kScanThreads = 128;         // columns per scan CTA
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// 4 neighbouring table values as f32
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);  // a bf16 is the high half of its f32
+  v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+// thread t of the row form -> (row i, first column j) of its 4 outputs, which
+// are out[4 * t ..]; groups = l / 4, shift = log2(groups) or -1
+__device__ __forceinline__ void split_thread(unsigned t, int groups, int shift, unsigned& i,
+                                             unsigned& j) {
+  i = shift >= 0 ? t >> shift : t / (unsigned)groups;
+  j = 4u * (t - i * (unsigned)groups);
+}
+
+constexpr int kRowBatch = 8;  // row loads in flight per thread of the row form
+
+// general form: one thread per output element, any strides
 template <class T>
 __global__ void __launch_bounds__(kThreads)
 taa_rows_kernel(const int* idx, int64_t si, int64_t sj, int64_t sk, const T* tab,
@@ -75,6 +112,44 @@ taa_rows_kernel(const int* idx, int64_t si, int64_t sj, int64_t sk, const T* tab
     asm volatile("" ::: "memory");
   }
   out[t] = acc;
+}
+
+// row form (sj == 0, l % 4 == 0, S * L < 2^31): out[i, j..j+3] from whole rows
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+taa_rows_row_kernel(const int* idx, int64_t si, int sk, const T* tab, float* __restrict__ out,
+                    int l, int shift, int steps, int reps, unsigned total) {
+  const unsigned t = blockIdx.x * (unsigned)kThreads + threadIdx.x;
+  if (t >= total) return;
+  unsigned i, j;
+  split_thread(t, l >> 2, shift, i, j);
+  const int* ip = idx + i * si;
+  const T* col = tab + j;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const unsigned ul = (unsigned)l;
+  for (int r = 0; r < reps; ++r) {
+    int k = 0;
+    for (; k + kRowBatch <= steps; k += kRowBatch) {  // whole batches: all loads, then all adds
+      int id[kRowBatch];
+      float v[kRowBatch][4];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) id[u] = ip[(k + u) * sk];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) load4(col + (unsigned)id[u] * ul, v[u]);
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] += v[u][c];
+    }
+    for (; k < steps; ++k) {
+      float v[4];
+      load4(col + (unsigned)ip[k * sk] * ul, v);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] += v[c];
+    }
+    asm volatile("" ::: "memory");
+  }
+  reinterpret_cast<float4*>(out)[t] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
 template <class T>
@@ -185,13 +260,33 @@ piece_diff_kernel(const float* __restrict__ cs, const int* __restrict__ begin,
   out[t] = acc;
 }
 
+constexpr int kFormGeneral = 0, kFormRow = 1;  // kernels.TAA_FORMS
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
 template <class T>
-cudaError_t launch_rows(const int* idx, int64_t si, int64_t sj, int64_t sk, const void* tab,
-                        float* out, int s, int l, int steps, int reps, cudaStream_t stream) {
+cudaError_t launch_rows(int form, const int* idx, int64_t si, int64_t sj, int64_t sk,
+                        const void* tab_v, float* out, int s, int l, int steps, int reps,
+                        cudaStream_t stream) {
+  const T* tab = static_cast<const T*>(tab_v);
   const int64_t total = (int64_t)s * l;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  taa_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      idx, si, sj, sk, static_cast<const T*>(tab), out, l, steps, reps, total);
+  if (form == kFormGeneral) {
+    const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+    taa_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(idx, si, sj, sk, tab, out, l, steps,
+                                                        reps, total);
+    return cudaGetLastError();
+  }
+  // what the row form rests on; the launcher chose the form by the same rules,
+  // so a refusal here is a fault of the caller
+  if (form != kFormRow || sj != 0 || l % 4 != 0 || total >= (int64_t(1) << 31) ||
+      (steps - 1) * sk >= (int64_t(1) << 31) || !aligned(tab, 4 * (int)sizeof(T)) ||
+      !aligned(out, 16))
+    return cudaErrorInvalidValue;
+  const int groups = l / 4;
+  const int shift = (groups & (groups - 1)) == 0 ? __builtin_ctz(groups) : -1;
+  const unsigned threads = (unsigned)(total / 4);
+  taa_rows_row_kernel<T><<<(threads + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      idx, si, (int)sk, tab, out, l, shift, steps, reps, threads);
   return cudaGetLastError();
 }
 
@@ -233,14 +328,15 @@ cudaError_t launch_scan(Src src, float* totals, float* out, int s, int l, int re
 }  // namespace
 
 extern "C" int taa_rows(const void* idx, int64_t si, int64_t sj, int64_t sk, const void* tab,
-                        int tab_bf16, void* out, int s, int l, int steps, int reps,
+                        int tab_bf16, void* out, int s, int l, int steps, int reps, int form,
                         void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto ip = static_cast<const int*>(idx);
   auto o = static_cast<float*>(out);
   return static_cast<int>(
-      tab_bf16 ? launch_rows<__nv_bfloat16>(ip, si, sj, sk, tab, o, s, l, steps, reps, st)
-               : launch_rows<float>(ip, si, sj, sk, tab, o, s, l, steps, reps, st));
+      tab_bf16
+          ? launch_rows<__nv_bfloat16>(form, ip, si, sj, sk, tab, o, s, l, steps, reps, st)
+          : launch_rows<float>(form, ip, si, sj, sk, tab, o, s, l, steps, reps, st));
 }
 
 extern "C" int taa_lanes(const void* idx, int64_t si, int64_t sj, int64_t sk, const void* tab,

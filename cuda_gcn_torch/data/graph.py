@@ -35,7 +35,8 @@ import torch
 from cuda_gcn_torch.data.dataset import CSR
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops.bsr import TilePlan, tile_plan
-from cuda_gcn_torch.ops.ell import EllBucket, EllPlan, WorkList, csr_work_list, ell_plan
+from cuda_gcn_torch.ops.ell import (EllBucket, EllPlan, WorkList, csr_work_list, ell_plan,
+                                    pick_order)
 
 # 'auto' backend: dense below this node count, block-sparse tiles above
 # (cuda_gcn_tpu/data/graph.py:544).
@@ -240,7 +241,7 @@ def _coo_to_csr(rows_sorted: np.ndarray, n: int) -> np.ndarray:
 
 def _ell_plan_of(indptr, indices, coef, device) -> EllPlan:
     return ell_plan(build_ell(indptr, indices.astype(np.int32), coef), np.diff(indptr),
-                    device)
+                    device, order=pick_order(indptr, indices))
 
 
 def _residual_csr(rows, cols, coef, n, device) -> ResidualCSR:

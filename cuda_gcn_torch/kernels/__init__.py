@@ -9,10 +9,15 @@ so an edited source or header is rebuilt. Nothing is built or loaded
 when this module is imported.
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
-output, launches on PyTorch's current stream without synchronising, raises if
-the C entry point returns a CUDA error, and adds one to its entry in
-``launches`` — there and nowhere else. There is no fallback: a failed build or
-launch raises.
+output, launches on PyTorch's current stream (read at every call) without
+synchronising, raises if the C entry point returns a CUDA error, and adds one
+to its entry in ``launches`` — in ``_call`` and nowhere else. There is no
+fallback: a failed build or launch raises.
+
+A launch of a small kernel is bound by this path, so it does once what can be
+done once: each C function is bound with its argtypes when its library is
+loaded, devices are compared by index, and a refusal is worded only when
+there is one.
 """
 
 from __future__ import annotations
@@ -40,12 +45,13 @@ _ENTRY = {
     "bsr_tile": ("bsr_tile", "bsr_tile_contract",
                  [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "csr_spmm": ("csr_spmm", "csr_spmm",
-                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "ell_spmm": ("ell_spmm", "ell_spmm",
-                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P]),
+                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "gather_probe": ("gather_probe", "gather_probe", [_P, _P, _P, _P, _L, _I, _I, _P]),
     "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "taa_rows": ("taa_probe", "taa_rows", [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "taa_rows": ("taa_probe", "taa_rows",
+                 [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "taa_lanes": ("taa_probe", "taa_lanes", [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _P]),
     "cumsum_cols": ("taa_probe", "cumsum_cols", [_P, _P, _P, _I, _I, _I, _P]),
     "piece": ("taa_probe", "piece", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
@@ -54,6 +60,7 @@ SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
 launches = {name: 0 for name in _ENTRY}
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict = {}  # kernel name -> its bound C function, once its library is loaded
 
 
 def reset_launches() -> None:
@@ -126,38 +133,63 @@ def build(names=None) -> dict[str, dict]:
 
 
 def _lib(source: str) -> ctypes.CDLL:
+    """Build (if need be) and load ``source``'s library, and bind the C function
+    of every kernel it holds."""
     lib = _libs.get(source)
     if lib is None:
         build([source])
         lib = ctypes.CDLL(_lib_path(source))
-        for src, fn_name, argtypes in _ENTRY.values():
+        for name, (src, fn_name, argtypes) in _ENTRY.items():
             if src == source:
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _fns[name] = fn
         _libs[source] = lib
     return lib
 
 
 def _call(name: str, *args) -> None:
-    source, fn_name, _ = _ENTRY[name]
-    err = getattr(_lib(source), fn_name)(*args)
+    fn = _fns.get(name)
+    if fn is None:
+        _lib(_ENTRY[name][0])
+        fn = _fns[name]
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     launches[name] += 1
 
 
-def _check(t: torch.Tensor, what: str, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
+def _on_cuda(t: torch.Tensor, name: str) -> int:
+    """The index of the CUDA device that ``t``, the launch's main operand, lies
+    on; a tensor that is not on a card is refused."""
+    if not t.is_cuda:
+        raise RuntimeError(f"{name} launches on a CUDA tensor, got {t.device}")
+    return t.get_device()
+
+
+def _check(t: torch.Tensor, what: str, dtype, index: int) -> None:
+    """Refuse a tensor that is not contiguous, of ``dtype`` and on CUDA device
+    ``index``."""
+    if t.dtype is dtype and t.is_cuda and t.get_device() == index and t.is_contiguous():
+        return
+    if not t.is_cuda or t.get_device() != index:
+        raise ValueError(f"{what} is on {t.device}, expected cuda:{index}")
+    if t.dtype is not dtype:
         raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    raise ValueError(f"{what} must be contiguous")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+# torch's own getter of the current stream's handle, without the Stream object
+# that torch.cuda.current_stream builds (CUDA builds of torch only)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``index``."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 # Kernel 1 (csrc/bsr_tile.cu). The tensor-core kernel takes bf16 tiles whose
@@ -190,24 +222,24 @@ def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int, transpose: bool,
     f32 accumulators; one launch counts its pre-pass and the contraction as
     one), everything else to the f32 FMA kernel. ``row_order`` (``TilePlan.
     by_load``, optional) is the order in which CTAs take the block rows."""
-    if not h.is_cuda:
-        raise RuntimeError(f"bsr_tile launches on a CUDA tensor, got {h.device}")
-    dev = h.device
+    dev = _on_cuda(h, "bsr_tile")
     h = h.contiguous()
     _check(h, "h", torch.float32, dev)
     if tiles.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"tiles must be bfloat16 or float32, got {tiles.dtype}")
     _check(tiles, "tiles", tiles.dtype, dev)
-    for t, what in ((ptr, "ptr"), (order, "order"), (hblk, "hblk")):
-        _check(t, what, torch.int32, dev)
-    k, tb = int(tiles.shape[0]), int(tiles.shape[1])
-    d = int(h.shape[1])
-    if tiles.dim() != 3 or tiles.shape[2] != tb:
+    _check(ptr, "ptr", torch.int32, dev)
+    _check(order, "order", torch.int32, dev)
+    _check(hblk, "hblk", torch.int32, dev)
+    if tiles.dim() != 3 or tiles.shape[2] != tiles.shape[1]:
         raise ValueError(f"tiles must be [K, tb, tb], got {tuple(tiles.shape)}")
+    k, tb = tiles.shape[0], tiles.shape[1]
+    d = h.shape[1]
     if tb > BSR_MAX_TB or tb % BSR_TB_MULTIPLE:
         raise ValueError(f"tile size {tb} must be a multiple of "
                          f"{BSR_TB_MULTIPLE} and at most {BSR_MAX_TB}")
-    if tiles.data_ptr() % 16:
+    tiles_ptr = tiles.data_ptr()
+    if tiles_ptr % 16:
         raise ValueError("tiles must be 16-byte aligned (the kernel loads 16 bytes at a time)")
     if h.shape[0] != n or ptr.numel() != t_blocks + 1 or order.numel() != k \
             or hblk.numel() != k or t_blocks * tb < n or t_blocks > 65535:
@@ -216,18 +248,29 @@ def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int, transpose: bool,
         _check(row_order, "row_order", torch.int32, dev)
         if row_order.numel() != t_blocks:
             raise ValueError(f"row_order must hold {t_blocks} block rows")
-    out = torch.empty(n, d, dtype=torch.float32, device=dev)
+    out = torch.empty(n, d, dtype=torch.float32, device=h.device)
     if n == 0 or d == 0:
         return out
     width = bsr_mma_width(tiles.dtype, tb, k, d)
     planes = None if width is None else torch.empty(
-        3 * width * t_blocks * tb, dtype=torch.bfloat16, device=dev)
+        3 * width * t_blocks * tb, dtype=torch.bfloat16, device=h.device)
     _call("bsr_tile", ptr.data_ptr(), order.data_ptr(), hblk.data_ptr(),
-          None if row_order is None else row_order.data_ptr(), tiles.data_ptr(),
-          int(tiles.dtype == torch.bfloat16), h.data_ptr(),
+          None if row_order is None else row_order.data_ptr(), tiles_ptr,
+          int(tiles.dtype is torch.bfloat16), h.data_ptr(),
           None if planes is None else planes.data_ptr(), out.data_ptr(), n, d, tb,
           t_blocks, k, int(transpose), _stream(dev))
     return out
+
+
+def spmm_vec(d: int, *bases: int) -> int:
+    """How many f32 features a lane of kernels 2 and 3 loads and stores at once
+    (csrc/spmm_common.cuh): 4 or 2 where the width ``d`` is a multiple of it and
+    every base address (h, out, the partials; rows are d floats apart) is
+    aligned to that many floats, else 1."""
+    for vec in (4, 2):
+        if d % vec == 0 and not any(b % (4 * vec) for b in bases):
+            return vec
+    return 1
 
 
 def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
@@ -237,36 +280,38 @@ def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
     rows; ``cols`` index the rows of h, of which there may be any number (n for
     an adjacency, F for a feature matrix times [F, d]). When adding to ``out``
     only the items that have edges are launched."""
-    if not h.is_cuda:
-        raise RuntimeError(f"csr_spmm launches on a CUDA tensor, got {h.device}")
-    dev = h.device
+    dev = _on_cuda(h, "csr_spmm")
     h = h.contiguous()
     _check(h, "h", torch.float32, dev)
-    for t, what in ((work.beg, "work.beg"), (work.len, "work.len"), (work.dst, "work.dst"),
-                    (work.split_rows, "work.split_rows"),
-                    (work.split_ptr, "work.split_ptr"), (cols, "cols")):
-        _check(t, what, torch.int32, dev)
+    _check(work.beg, "work.beg", torch.int32, dev)
+    _check(work.len, "work.len", torch.int32, dev)
+    _check(work.dst, "work.dst", torch.int32, dev)
+    _check(work.split_rows, "work.split_rows", torch.int32, dev)
+    _check(work.split_ptr, "work.split_ptr", torch.int32, dev)
+    _check(cols, "cols", torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
-    d = int(h.shape[1])
-    n_items, n_split = int(work.beg.numel()), int(work.split_rows.numel())
+    n_items, n_split = work.beg.numel(), work.split_rows.numel()
     if n < 0 or h.dim() != 2 or cols.numel() != coef.numel() \
             or work.len.numel() != n_items or work.dst.numel() != n_items \
             or work.split_ptr.numel() != n_split + 1 or not 0 <= work.n_nonempty <= n_items:
         raise ValueError("csr_spmm: inconsistent shapes")
+    d = h.shape[1]
     accumulate = out is not None
     if out is None:
-        out = torch.empty(n, d, dtype=torch.float32, device=dev)
-    _check(out, "out", torch.float32, dev)
-    if tuple(out.shape) != (n, d):
-        raise ValueError(f"out must be [{n}, {d}], got {tuple(out.shape)}")
+        out = torch.empty(n, d, dtype=torch.float32, device=h.device)
+    else:
+        _check(out, "out", torch.float32, dev)
+        if out.dim() != 2 or out.shape[0] != n or out.shape[1] != d:
+            raise ValueError(f"out must be [{n}, {d}], got {tuple(out.shape)}")
     if n == 0 or d == 0:
         return out
-    partial = torch.empty(work.n_partials, d, dtype=torch.float32, device=dev)
+    partial = torch.empty(work.n_partials, d, dtype=torch.float32, device=h.device)
+    h_ptr, out_ptr, partial_ptr = h.data_ptr(), out.data_ptr(), partial.data_ptr()
     _call("csr_spmm", work.beg.data_ptr(), work.len.data_ptr(), work.dst.data_ptr(),
           work.n_nonempty if accumulate else n_items, work.split_rows.data_ptr(),
           work.split_ptr.data_ptr(), n_split, cols.data_ptr(), coef.data_ptr(),
-          h.data_ptr(), out.data_ptr(), partial.data_ptr(), d, int(accumulate),
-          _stream(dev))
+          h_ptr, out_ptr, partial_ptr, d, spmm_vec(d, h_ptr, out_ptr, partial_ptr),
+          int(accumulate), _stream(dev))
     return out
 
 
@@ -275,28 +320,30 @@ def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
     """Launch kernel 3 over a work list (ops/ell.py ``WorkList``): returns the
     [n, d] product in f32 as a new tensor. ``n`` is the number of output rows;
     ``cols`` index the rows of h, of which there may be any number."""
-    if not h.is_cuda:
-        raise RuntimeError(f"ell_spmm launches on a CUDA tensor, got {h.device}")
-    dev = h.device
+    dev = _on_cuda(h, "ell_spmm")
     h = h.contiguous()
     _check(h, "h", torch.float32, dev)
-    for t, what in ((work_beg, "work_beg"), (work_len, "work_len"), (work_dst, "work_dst"),
-                    (split_rows, "split_rows"), (split_ptr, "split_ptr"), (cols, "cols")):
-        _check(t, what, torch.int32, dev)
+    _check(work_beg, "work_beg", torch.int32, dev)
+    _check(work_len, "work_len", torch.int32, dev)
+    _check(work_dst, "work_dst", torch.int32, dev)
+    _check(split_rows, "split_rows", torch.int32, dev)
+    _check(split_ptr, "split_ptr", torch.int32, dev)
+    _check(cols, "cols", torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
-    d = int(h.shape[1])
-    n_items, n_split = int(work_beg.numel()), int(split_rows.numel())
+    n_items, n_split = work_beg.numel(), split_rows.numel()
     if h.dim() != 2 or work_len.numel() != n_items or work_dst.numel() != n_items \
             or split_ptr.numel() != n_split + 1 or cols.numel() != coef.numel():
         raise ValueError("ell_spmm: inconsistent shapes")
-    out = torch.empty(n, d, dtype=torch.float32, device=dev)
-    partial = torch.empty(n_partials, d, dtype=torch.float32, device=dev)
+    d = h.shape[1]
+    out = torch.empty(n, d, dtype=torch.float32, device=h.device)
     if n == 0 or d == 0:
         return out
+    partial = torch.empty(n_partials, d, dtype=torch.float32, device=h.device)
+    h_ptr, out_ptr, partial_ptr = h.data_ptr(), out.data_ptr(), partial.data_ptr()
     _call("ell_spmm", work_beg.data_ptr(), work_len.data_ptr(), work_dst.data_ptr(),
           n_items, split_rows.data_ptr(), split_ptr.data_ptr(), n_split, cols.data_ptr(),
-          coef.data_ptr(), h.data_ptr(), out.data_ptr(), partial.data_ptr(), d,
-          _stream(dev))
+          coef.data_ptr(), h_ptr, out_ptr, partial_ptr, d,
+          spmm_vec(d, h_ptr, out_ptr, partial_ptr), _stream(dev))
     return out
 
 
@@ -308,17 +355,17 @@ GATHER_MAX_BLOCKS = 1024
 
 def gather_probe(idx, h) -> torch.Tensor:
     """Launch probe A: Σ_i h[idx[i]] as a [1, d] tensor in f32."""
-    if not h.is_cuda:
-        raise RuntimeError(f"gather_probe launches on a CUDA tensor, got {h.device}")
-    dev = h.device
+    dev = _on_cuda(h, "gather_probe")
     _check(idx, "idx", torch.int32, dev)
     _check(h, "h", torch.float32, dev)
-    m, d = int(idx.numel()), int(h.shape[1])
-    out = torch.zeros(1, d, dtype=torch.float32, device=dev)
+    if h.dim() != 2:
+        raise ValueError(f"h must be [rows, d], got {tuple(h.shape)}")
+    m, d = idx.numel(), h.shape[1]
+    out = torch.zeros(1, d, dtype=torch.float32, device=h.device)
     if m == 0 or d == 0:
         return out
     blocks = min(GATHER_MAX_BLOCKS, -(-m // GATHER_IDS_PER_BLOCK))
-    partial = torch.empty(blocks, d, dtype=torch.float32, device=dev)
+    partial = torch.empty(blocks, d, dtype=torch.float32, device=h.device)
     _call("gather_probe", idx.data_ptr(), h.data_ptr(), partial.data_ptr(), out.data_ptr(),
           m, blocks, d, _stream(dev))
     return out
@@ -327,16 +374,16 @@ def gather_probe(idx, h) -> torch.Tensor:
 def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
     """Launch probe B: out[idx[i]] += coef[i] · h[i mod rows] for i < mb, idx
     sorted ascending, into a new [rows, d] tensor in f32."""
-    if not h.is_cuda:
-        raise RuntimeError(f"scatter_probe launches on a CUDA tensor, got {h.device}")
-    dev = h.device
+    dev = _on_cuda(h, "scatter_probe")
     _check(idx, "idx", torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
     _check(h, "h", torch.float32, dev)
-    rows, d = int(h.shape[0]), int(h.shape[1])
+    if h.dim() != 2:
+        raise ValueError(f"h must be [rows, d], got {tuple(h.shape)}")
+    rows, d = h.shape
     if not 0 <= mb <= min(idx.numel(), coef.numel()):
         raise ValueError(f"scatter_probe: mb={mb} exceeds the {idx.numel()} ids")
-    out = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    out = torch.empty(rows, d, dtype=torch.float32, device=h.device)
     if rows == 0 or d == 0:
         return out
     _call("scatter_probe", idx.data_ptr(), coef.data_ptr(), h.data_ptr(), out.data_ptr(),
@@ -349,40 +396,63 @@ def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
 TAA_LANES_MAX_ROWS = 65535
 SCAN_CHUNK_ROWS = 64
 SCAN_MAX_ROWS = 65535 * SCAN_CHUNK_ROWS
+# The forms of taa_rows (csrc/taa_probe.cu), by their number in the C interface.
+TAA_FORMS = ("general", "row")
+
+
+def taa_rows_form(strides, s: int, l: int, steps: int, idx_numel: int, itemsize: int,
+                  tab_ptr: int = 0, out_ptr: int = 0) -> str:
+    """Which form of ``taa_rows`` takes a call, from what the launcher can read:
+    'row' where one index gives a whole row (sj == 0), a row is a whole number of
+    4-column groups that are aligned in the table (16 bytes of f32, 8 of bf16)
+    and in out, and the table and the index array are below 2^31 elements
+    (32-bit offsets); 'general' for everything else, a full index included."""
+    if strides[1] == 0 and l % 4 == 0 and s * l < 2**31 and idx_numel < 2**31 \
+            and tab_ptr % (4 * itemsize) == 0 and out_ptr % 16 == 0:
+        return "row"
+    return "general"
 
 
 def _taa(name: str, idx, strides, tab, steps: int, reps: int) -> torch.Tensor:
-    if not tab.is_cuda:
-        raise RuntimeError(f"{name} launches on a CUDA tensor, got {tab.device}")
-    dev = tab.device
+    dev = _on_cuda(tab, name)
     _check(idx, "idx", torch.int32, dev)
-    if tab.dtype not in (torch.float32, torch.bfloat16):
+    if tab.dtype is not torch.float32 and tab.dtype is not torch.bfloat16:
         raise TypeError(f"tab must be float32 or bfloat16, got {tab.dtype}")
     _check(tab, "tab", tab.dtype, dev)
     if tab.dim() != 2:
         raise ValueError(f"tab must be [S, L], got {tuple(tab.shape)}")
-    s, l = int(tab.shape[0]), int(tab.shape[1])
-    si, sj, sk = (int(v) for v in strides)
-    if steps < 1 or reps < 1 or min(si, sj, sk) < 0:
+    s, l = tab.shape
+    si, sj, sk = strides
+    if steps < 1 or reps < 1 or si < 0 or sj < 0 or sk < 0:
         raise ValueError(f"{name}: steps and reps must be positive, strides non-negative")
-    if s and l and (s - 1) * si + (l - 1) * sj + (steps - 1) * sk >= idx.numel():
+    n_idx = idx.numel()
+    if s and l and (s - 1) * si + (l - 1) * sj + (steps - 1) * sk >= n_idx:
         raise ValueError(f"{name}: strides {(si, sj, sk)} over [{s}, {l}, {steps}] run past "
-                         f"the {idx.numel()} indices")
-    if name == "taa_lanes" and s > TAA_LANES_MAX_ROWS:
+                         f"the {n_idx} indices")
+    rows = name == "taa_rows"
+    if not rows and s > TAA_LANES_MAX_ROWS:
         raise ValueError(f"taa_lanes takes at most {TAA_LANES_MAX_ROWS} table rows, got {s}")
-    out = torch.empty(s, l, dtype=torch.float32, device=dev)
+    out = torch.empty(s, l, dtype=torch.float32, device=tab.device)
     if s == 0 or l == 0:
         return out
-    _call(name, idx.data_ptr(), si, sj, sk, tab.data_ptr(),
-          int(tab.dtype == torch.bfloat16), out.data_ptr(), s, l, steps, reps, _stream(dev))
+    bf16 = tab.dtype is torch.bfloat16
+    tab_ptr, out_ptr = tab.data_ptr(), out.data_ptr()
+    if rows:
+        form = TAA_FORMS.index(taa_rows_form(strides, s, l, steps, n_idx, 2 if bf16 else 4,
+                                             tab_ptr, out_ptr))
+        _call(name, idx.data_ptr(), si, sj, sk, tab_ptr, bf16, out_ptr, s, l, steps, reps,
+              form, _stream(dev))
+    else:
+        _call(name, idx.data_ptr(), si, sj, sk, tab_ptr, bf16, out_ptr, s, l, steps, reps,
+              _stream(dev))
     return out
 
 
 def taa_rows(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
     """Launch the axis-0 element gather: out[i, j] = Σ_{r<reps} Σ_{k<steps}
     tab[idx[i·si + j·sj + k·sk], j] in f32, for ``strides`` (si, sj, sk) in
-    elements of the int32 ``idx``. The indices must lie in [0, S): the kernel
-    does not check them."""
+    elements of the int32 ``idx``, in the form that ``taa_rows_form`` names.
+    The indices must lie in [0, S): the kernel does not check them."""
     return _taa("taa_rows", idx, strides, tab, steps, reps)
 
 
@@ -392,25 +462,23 @@ def taa_lanes(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
     return _taa("taa_lanes", idx, strides, tab, steps, reps)
 
 
-def _scan_totals(s: int, l: int, dev) -> torch.Tensor:
+def _scan_totals(s: int, l: int, device) -> torch.Tensor:
     if s > SCAN_MAX_ROWS:
         raise ValueError(f"the column scan takes at most {SCAN_MAX_ROWS} rows, got {s}")
-    return torch.empty(-(-s // SCAN_CHUNK_ROWS), l, dtype=torch.float32, device=dev)
+    return torch.empty(-(-s // SCAN_CHUNK_ROWS), l, dtype=torch.float32, device=device)
 
 
 def cumsum_cols(tab, reps: int = 1) -> torch.Tensor:
     """Launch the column scan: ``reps`` additions of cumsum(tab, axis 0), [S, L] f32."""
-    if not tab.is_cuda:
-        raise RuntimeError(f"cumsum_cols launches on a CUDA tensor, got {tab.device}")
-    dev = tab.device
+    dev = _on_cuda(tab, "cumsum_cols")
     _check(tab, "tab", torch.float32, dev)
     if tab.dim() != 2 or reps < 1:
         raise ValueError("cumsum_cols: tab must be [S, L] and reps positive")
-    s, l = int(tab.shape[0]), int(tab.shape[1])
-    out = torch.empty(s, l, dtype=torch.float32, device=dev)
+    s, l = tab.shape
+    out = torch.empty(s, l, dtype=torch.float32, device=tab.device)
     if s == 0 or l == 0:
         return out
-    totals = _scan_totals(s, l, dev)
+    totals = _scan_totals(s, l, tab.device)
     _call("cumsum_cols", tab.data_ptr(), out.data_ptr(), totals.data_ptr(), s, l, reps,
           _stream(dev))
     return out
@@ -421,23 +489,22 @@ def piece(ids, coef, begin, end, tab, reps: int = 1) -> torch.Tensor:
     additions of cs[end] − cs[begin], [S, L] f32. ``ids``, ``begin``, ``end``
     (int32) and ``coef`` (f32) hold S values each; ids lie in [0, S), begin and
     end in [0, S] (the kernel does not check them)."""
-    if not tab.is_cuda:
-        raise RuntimeError(f"piece launches on a CUDA tensor, got {tab.device}")
-    dev = tab.device
+    dev = _on_cuda(tab, "piece")
     _check(tab, "tab", torch.float32, dev)
-    for t, what in ((ids, "ids"), (begin, "begin"), (end, "end")):
-        _check(t, what, torch.int32, dev)
+    _check(ids, "ids", torch.int32, dev)
+    _check(begin, "begin", torch.int32, dev)
+    _check(end, "end", torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
     if tab.dim() != 2 or reps < 1:
         raise ValueError("piece: tab must be [S, L] and reps positive")
-    s, l = int(tab.shape[0]), int(tab.shape[1])
-    if any(t.numel() != s for t in (ids, coef, begin, end)):
+    s, l = tab.shape
+    if ids.numel() != s or coef.numel() != s or begin.numel() != s or end.numel() != s:
         raise ValueError(f"piece: ids, coef, begin and end must hold {s} values each")
-    out = torch.empty(s, l, dtype=torch.float32, device=dev)
+    out = torch.empty(s, l, dtype=torch.float32, device=tab.device)
     if s == 0 or l == 0:
         return out
-    totals = _scan_totals(s, l, dev)
-    cs = torch.empty(s + 1, l, dtype=torch.float32, device=dev)
+    totals = _scan_totals(s, l, tab.device)
+    cs = torch.empty(s + 1, l, dtype=torch.float32, device=tab.device)
     _call("piece", ids.data_ptr(), coef.data_ptr(), begin.data_ptr(), end.data_ptr(),
           tab.data_ptr(), out.data_ptr(), cs.data_ptr(), totals.data_ptr(), s, l, reps,
           _stream(dev))

@@ -67,23 +67,19 @@ def _layout(form: str, idx, s: int, l: int):
     return int(form.endswith("lanes")), strides, steps
 
 
-def _dispatch(form: str, idx, tab, reps: int, plain: bool) -> torch.Tensor:
-    axis, strides, steps = _layout(form, idx, *tab.shape)
-    fn = {(0, False): taa.taa_rows, (0, True): taa.taa_rows_plain,
-          (1, False): taa.taa_lanes, (1, True): taa.taa_lanes_plain}[axis, plain]
-    return fn(idx, strides, tab, steps, reps)
-
-
 def gather(form: str, idx, tab, reps: int = 1) -> torch.Tensor:
     """The gather of ``form`` (one of ``FORMS``) summed over its steps and
     ``reps`` repeats, [S, L] f32: the kernel for a CUDA table, the plain version
     for a table on the CPU."""
-    return _dispatch(form, idx, tab, reps, plain=False)
+    axis, strides, steps = _layout(form, idx, *tab.shape)
+    return (taa.taa_lanes if axis else taa.taa_rows)(idx, strides, tab, steps, reps)
 
 
 def gather_plain(form: str, idx, tab, reps: int = 1) -> torch.Tensor:
     """Plain version of ``gather``: ``take_along_dim`` step by step."""
-    return _dispatch(form, idx, tab, reps, plain=True)
+    axis, strides, steps = _layout(form, idx, *tab.shape)
+    return (taa.taa_lanes_plain if axis else taa.taa_rows_plain)(idx, strides, tab, steps,
+                                                                 reps)
 
 
 def sublane_gather(idx, tab) -> torch.Tensor:
@@ -98,7 +94,8 @@ def lane_gather(idx, tab) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Case:
-    """One line of a script: a form at a shape, with its inputs."""
+    """One line of a script: a form at a shape, with its inputs. The layout of
+    the form (axis, strides, steps) is worked out once, when the case is made."""
 
     group: str      # 'forms' | 'bisect' | 'envelope'
     label: str
@@ -106,20 +103,20 @@ class Case:
     idx: torch.Tensor
     tab: torch.Tensor
     reps: int = 1
+    axis: int = dataclasses.field(init=False)
+    strides: tuple = dataclasses.field(init=False)
+    steps: int = dataclasses.field(init=False)
 
-    @property
-    def axis(self) -> int:
-        return _layout(self.form, self.idx, *self.tab.shape)[0]
-
-    @property
-    def steps(self) -> int:
-        return _layout(self.form, self.idx, *self.tab.shape)[2]
+    def __post_init__(self):
+        self.axis, self.strides, self.steps = _layout(self.form, self.idx, *self.tab.shape)
 
     def run(self) -> torch.Tensor:
-        return gather(self.form, self.idx, self.tab, self.reps)
+        fn = taa.taa_lanes if self.axis else taa.taa_rows
+        return fn(self.idx, self.strides, self.tab, self.steps, self.reps)
 
     def plain(self) -> torch.Tensor:
-        return gather_plain(self.form, self.idx, self.tab, self.reps)
+        fn = taa.taa_lanes_plain if self.axis else taa.taa_rows_plain
+        return fn(self.idx, self.strides, self.tab, self.steps, self.reps)
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -18,8 +18,9 @@ kernel bodies are, on an [S, 128] f32 table:
 
 The four kernels are in csrc/taa_probe.cu: ``taa_rows`` and ``taa_lanes`` (an
 element gather along axis 0 or 1 whose index array is read through three
-strides, so that one kernel serves full, compact and broadcast indices; A2 is
-``taa_rows`` with one index per row), ``cumsum_cols`` and ``piece``.
+strides, so that one entry point serves full, compact and broadcast indices; A2
+is ``taa_rows`` with one index per row, which its launcher gives to the form
+that reads whole rows), ``cumsum_cols`` and ``piece``.
 probes/dyngather.py drives the other forms. A2 repeats its gather ``reps``
 times; C and D take their scan once per launch and repeat the last addition.
 A tensor on the CPU takes the plain PyTorch version; a CUDA tensor launches the

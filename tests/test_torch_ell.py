@@ -6,7 +6,7 @@ is held against the interpret-mode Pallas kernel (cuda_gcn_tpu/ops/
 pallas_spmm.py ``ell_spmm``, as tests/test_ops.py runs it), graphsum and its
 gradient against JAX graphsum on the same backend, and a short training run
 against JAX ``train.run``. The work list that kernel 3 walks is restated in
-numpy. Tolerances: atol 1e-5, rtol 1e-5 in f32, where only the summation
+numpy, in each of the orders its items can be listed in. Tolerances: atol 1e-5, rtol 1e-5 in f32, where only the summation
 order differs; the training run as tests/test_torch_train.py.
 """
 
@@ -93,40 +93,116 @@ def test_ell_buckets_match_jax(graphs):
 
 
 def kernel_restated(plan: tell.EllPlan, h: np.ndarray) -> np.ndarray:
-    """csrc/ell_spmm.cu in numpy: each work item sums its slots into its
-    output row or its partial; each chunked row adds its partials in order.
-    Every output row must be written exactly once."""
+    """csrc/ell_spmm.cu in numpy: the items are taken in the order listed, each
+    sums its slots into its output row or its partial; then each chunked row
+    adds its partials in chunk order. Every output row must be written exactly
+    once, every partial exactly once, and no pad slot read."""
     cols, coef = plan.cols.numpy(), plan.coef.numpy()
     out = np.full((plan.n_nodes, h.shape[1]), np.nan, np.float32)
     partial = np.full((plan.n_partials, h.shape[1]), np.nan, np.float32)
     writes = np.zeros(plan.n_nodes, np.int64)
+    partial_writes = np.zeros(plan.n_partials, np.int64)
     for beg, ln, dst in zip(plan.work_beg.tolist(), plan.work_len.tolist(),
                             plan.work_dst.tolist()):
         assert 0 <= ln <= tell.ELL_CHUNK_SLOTS
+        assert (coef[beg:beg + ln] != 0).all()
         s = (coef[beg:beg + ln, None] * h[cols[beg:beg + ln]]).sum(0)
         if dst >= 0:
             out[dst] = s
             writes[dst] += 1
         else:
             partial[-dst - 1] = s
+            partial_writes[-dst - 1] += 1
     ptr = plan.split_ptr.numpy()
     for i, r in enumerate(plan.split_rows.tolist()):
-        out[r] = partial[ptr[i]:ptr[i + 1]].sum(0)
+        acc = np.zeros(h.shape[1], np.float32)
+        for p in range(ptr[i], ptr[i + 1]):  # in chunk order
+            acc = acc + partial[p]
+        out[r] = acc
         writes[r] += 1
     np.testing.assert_array_equal(writes, 1)
-    assert not np.isnan(partial).any()
+    np.testing.assert_array_equal(partial_writes, 1)
     return out
 
 
-@pytest.mark.parametrize("d", [3, 41])
-def test_work_list_restates_the_kernel(graphs, d):
+@pytest.mark.parametrize("order", tell.ORDERS)
+@pytest.mark.parametrize("d", [3, 6, 16, 41, 82])
+def test_work_list_restates_the_kernel(graphs, d, order):
     _, _, tg = graphs
     h = np.random.default_rng(d).standard_normal((tg.n_nodes, d)).astype(np.float32)
     for plan in filter(None, (tg.ell, tg.ell_t)):
         want = tell.ell_spmm_plain(plan, torch.from_numpy(h)).numpy()
-        np.testing.assert_allclose(kernel_restated(plan, h), want, rtol=RTOL, atol=ATOL)
+        listed = tell.with_order(plan, order)
+        np.testing.assert_allclose(kernel_restated(listed, h), want, rtol=RTOL, atol=ATOL)
         # the items list real slots only: the pads are skipped
-        assert int(plan.work_len.sum()) == plan.nnz < plan.slots
+        assert int(listed.work_len.sum()) == plan.nnz < plan.slots
+        # another order lists the same items, and changes no sum
+        key = lambda p: sorted(zip(p.work_beg.tolist(), p.work_len.tolist(),  # noqa: E731
+                                   p.work_dst.tolist()))
+        assert key(listed) == key(plan)
+        assert torch.equal(listed.split_ptr, plan.split_ptr)
+
+
+def test_item_orders():
+    """'longest' lists the items by falling length, 'blocks' by block of
+    neighbouring output rows, longest first within; in both the items without
+    slots are last (kernel 2 launches only the first ``n_nonempty`` when it
+    accumulates)."""
+    rng = np.random.default_rng(0)
+    n = 3 * tell.ORDER_BLOCK_ROWS
+    length = rng.integers(0, 40, n)
+    length[5], length[n - 7] = 700, 300
+    start = np.cumsum(length) - length
+    rows = rng.permutation(n)
+    lists = {o: tell.work_list(start, length, rows, torch.device("cpu"), o)
+             for o in tell.ORDERS}
+    n_items = n + 2 + 1
+    for order, w in lists.items():
+        ln = w.len.numpy()
+        assert len(ln) == n_items and w.n_nonempty == int((ln > 0).sum())
+        assert (ln[:w.n_nonempty] > 0).all() and (ln[w.n_nonempty:] == 0).all()
+    full = lambda w: w.len.numpy()[:w.n_nonempty]  # noqa: E731
+    assert (np.diff(full(lists["longest"])) <= 0).all()
+    w = lists["blocks"]
+    dst = w.dst.numpy()[:w.n_nonempty]
+    row_of = np.where(dst >= 0, dst, 0)
+    row_of[dst < 0] = np.repeat(w.split_rows.numpy(), np.diff(w.split_ptr.numpy()))[-dst[dst < 0] - 1]
+    block = row_of // tell.ORDER_BLOCK_ROWS
+    assert (np.diff(block) >= 0).all() and len(np.unique(block)) == 3
+    for b in range(3):
+        assert (np.diff(full(w)[block == b]) <= 0).all()
+    with pytest.raises(ValueError, match="unknown item order"):
+        tell.work_list(start, length, rows, torch.device("cpu"), "shortest")
+
+
+@pytest.mark.parametrize("pattern,order", [("random", "longest"), ("banded", "blocks"),
+                                           ("half", "blocks"), ("empty", "longest")])
+def test_item_order_follows_the_graphs_locality(pattern, order):
+    """``pick_order`` reads the share of edges within a block's width of the
+    diagonal: a graph numbered at random keeps 'longest', one whose rows gather
+    their neighbours in node order gets 'blocks'."""
+    rng = np.random.default_rng(2)
+    n, deg = 8 * tell.ORDER_BLOCK_ROWS, 4
+    row = np.repeat(np.arange(n), deg)
+    far = rng.integers(0, n, n * deg)
+    near = np.clip(row + rng.integers(-64, 65, n * deg), 0, n - 1)
+    cols = {"random": far, "banded": near, "empty": far[:0],
+            "half": np.where(np.arange(n * deg) % 5 < 3, near, far)}[pattern]
+    indptr = np.arange(n + 1) * (0 if pattern == "empty" else deg)
+    assert tell.pick_order(indptr, cols) == order
+
+
+def test_build_graph_lists_the_items_in_the_picked_order(graphs):
+    """The test graphs are smaller than a block, so every edge is near: the
+    plan says 'blocks', which within one block is longest first."""
+    _, _, tg = graphs
+    for plan in filter(None, (tg.ell, tg.ell_t)):
+        assert plan.order == "blocks" and plan.n_nodes < tell.ORDER_BLOCK_ROWS
+        longest = tell.with_order(plan, "longest")
+        assert longest.order == "longest"
+        for a, b in ((plan.work_beg, longest.work_beg), (plan.work_len, longest.work_len),
+                     (plan.work_dst, longest.work_dst)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("d", [3, 6, 16, 41])

@@ -244,6 +244,8 @@ def test_an_edited_header_changes_the_library_path(tmp_path, monkeypatch):
     assert kernels._source_files("csr_spmm") == ["csr_spmm.cu", "spmm_common.cuh"]
     assert kernels._source_files("ell_spmm") == ["ell_spmm.cu", "spmm_common.cuh"]
     assert kernels._source_files("bsr_tile") == ["bsr_tile.cu", "hopper_ptx.cuh"]
+    assert kernels._source_files("taa_probe") == ["taa_probe.cu"]
+    assert kernels._source_files("gather_probe") == ["gather_probe.cu"]
     before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
     with open(src / "spmm_common.cuh", "a") as f:
         f.write("// edited\n")
@@ -263,6 +265,11 @@ def test_kernel_build_sources_and_flags():
         with open(os.path.join(kernels.SRC_DIR, f"{source}.cu")) as f:
             assert f'extern "C" int {fn_name}(' in f.read()
     assert "taa_probe" in kernels.SOURCES
+    # kernels 2 and 3 are one body in the shared header, each under its own kernel
+    for source in ("csr_spmm", "ell_spmm"):
+        with open(os.path.join(kernels.SRC_DIR, f"{source}.cu")) as f:
+            text = f.read()
+        assert "spmm::run_item<" in text and f"{source}_kernel" in text
     assert {n for n, e in kernels._ENTRY.items() if e[0] == "taa_probe"} == {
         "taa_rows", "taa_lanes", "cumsum_cols", "piece"}
     for source in kernels.SOURCES:
