@@ -12,8 +12,9 @@ Phases, each of which raises (exit code not 0) when it fails:
     both orientations; kernel 2 with and without accumulate), each also run
     twice and compared bitwise; then kernel 1's other cases on synth-pubmed:
     f32 tiles (the FMA kernel), tile sizes 64 and 128, the widths 60 and 100
-    that the main path does not reach (100 falls to the FMA kernel), and a
-    case built so that every output needs the third bf16 part of h;
+    that the main path does not reach (100 falls to the FMA kernel), each with
+    f32 and with bf16 h, and a case built so that every output needs the third
+    bf16 part of h;
 (c) the main path: ``train.run`` trains the 602-16-41 GCN on the bsr backend
     with dropout 0.5; losses must be finite, the train loss must fall, and
     each kernel must have launched on every adjacency pass (4 per epoch, 2
@@ -65,12 +66,25 @@ Phases, each of which raises (exit code not 0) when it fails:
     synth-pubmed sparse, card against CPU, within 1e-4;
 (l) the text entry point: synth-cora written as cora-text.{graph,split,svmlight},
     parsed back array for array, and trained from the files by ``cli.main``
-    with ``--feature-matmul sparse`` in the reference's output format.
+    with ``--feature-matmul sparse`` in the reference's output format;
+(m) bf16 activations and weights (run after (e)): on synth-reddit built for
+    bf16 activations (bf16 edge coefficients), kernels 1 (both orientations),
+    2 (both forms) and 3 at bf16 h, d 16, 32, 41, 82, against their plain
+    versions within one bf16 ulp (of the larger of the two values) plus 1e-6
+    of the sum of the terms' magnitudes, bitwise repeatable, timed beside their bytes bound
+    at bf16 and the library's call where it takes bf16; the dense layer 0 at
+    bf16 against the JAX package's form of it; 10 fused epochs on bsr and on
+    ell at compute_dtype='bfloat16' and on bsr with param_dtype='bfloat16' too,
+    with their profiles and ``train.run``s that count the kernels' launches;
+    synth-pubmed at bf16, card against CPU (loss rtol 5e-3, accuracy within 2
+    nodes); and ``cli.main(["synth-cora", "--seed", "3", "--epochs", "3"])``,
+    which must generate the dataset.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
-call), and last ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits 1 and prints no result.
+call) and the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
+``csr_spmm_bf16``, ``ell_spmm_bf16``), and last ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -202,9 +216,16 @@ def phase_build():
     log(f"(a) built {sorted(report) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.2f} s with {' '.join(kernels.NVCC_FLAGS)}")
     for name, r in report.items():
+        spilled, fn = [], ""
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+                if "spill stores" in line and " 0 bytes spill stores" not in line:
+                    spilled.append(fn)
+        if spilled:
+            log(f"  {name}: spills in {len(spilled)} kernels: {', '.join(spilled)}")
 
 
 def phase_kernels(dataset, device):
@@ -273,7 +294,9 @@ def phase_tile_cases(errs):
     """(b), second half: the cases of kernel 1 that the main path does not
     reach, on synth-pubmed: f32 tiles (the FMA kernel), bf16 tiles of size 64
     and 128 (fewer consumer warpgroups), a width between two accumulator
-    widths and one above the widest."""
+    widths and one above the widest; each for f32 h and for bf16 h (one bf16
+    plane on the tensor cores; the FMA kernel reading bf16 h, with f32 tiles
+    rounded to bf16), the bf16 ones held as in (m)."""
     import torch
 
     from cuda_gcn_torch import kernels
@@ -287,10 +310,11 @@ def phase_tile_cases(errs):
                               ("bfloat16", 128, (41,)), ("bfloat16", 256, (60, 100))):
         graph = build_graph(ds.graph, backend="bsr", bsr_tile=tb, bsr_dtype=dtype,
                             device="cuda")
-        for d in widths:
-            width = kernels.bsr_mma_width(graph.tiles.dtype, tb, graph.num_tiles, d)
+        for d, h_dtype in ((d, h_dtype) for d in widths
+                           for h_dtype in (torch.float32, torch.bfloat16)):
+            width = kernels.bsr_mma_width(graph.tiles.dtype, tb, graph.num_tiles, d, h_dtype)
             which = "FMA kernel" if width is None else f"tensor cores, N={width}"
-            h = torch.randn(graph.n_nodes, d, generator=gen, device="cuda")
+            h = torch.randn(graph.n_nodes, d, generator=gen, device="cuda").to(h_dtype)
             for transpose in (False, True):
                 rows, cols = ((graph.tile_cols, graph.tile_rows) if transpose
                               else (graph.tile_rows, graph.tile_cols))
@@ -298,9 +322,15 @@ def phase_tile_cases(errs):
                                         graph.t_blocks, transpose=transpose)
                 want = bsr_tile_contract_plain(graph.tiles, rows, cols, h, graph.n_nodes,
                                                graph.t_blocks, transpose=transpose)
-                errs["bsr_tile"] = max(errs["bsr_tile"], check(
-                    f"bsr_tile synth-pubmed {dtype} tb={tb} K={graph.num_tiles} d={d} "
-                    f"transpose={transpose} ({which})", got, want))
+                label = (f"bsr_tile synth-pubmed {dtype} tiles tb={tb} K={graph.num_tiles} d={d} "
+                         f"h {str(h_dtype)[6:]} transpose={transpose} ({which})")
+                if h_dtype == torch.float32:
+                    errs["bsr_tile"] = max(errs["bsr_tile"], check(label, got, want))
+                    continue
+                mass = bsr_tile_contract_plain(graph.tiles, rows, cols, h.float().abs(),
+                                               graph.n_nodes, graph.t_blocks, transpose)
+                errs["bsr_tile_bf16"] = max(errs.get("bsr_tile_bf16", 0.0),
+                                            check_bf16(label, got, want, mass))
     torch.cuda.synchronize()
 
 
@@ -383,40 +413,45 @@ def phase_main_path(dataset):
     return launches
 
 
-def _features(dataset, sparse: bool):
-    """The layer-0 input on the card: dense [N, F], or ``SparseFeatures``."""
+def _features(dataset, sparse: bool, dtype=None):
+    """The layer-0 input on the card: dense [N, F], or ``SparseFeatures``, in
+    ``dtype`` (f32 by default)."""
     import numpy as np
     import torch
 
     from cuda_gcn_torch.ops.matmul import SparseFeatures
 
+    dtype = dtype or torch.float32
     if not sparse:
-        return torch.from_numpy(dataset.dense_features(np.float32)).cuda()
+        return torch.from_numpy(dataset.dense_features(np.float32)).cuda().to(dtype)
     fi = dataset.feature_index
     return SparseFeatures.from_csr(fi.indptr, fi.indices, dataset.feature_value,
-                                   dataset.input_dim, "cuda")
+                                   dataset.input_dim, "cuda", dtype)
 
 
-def _fused_inputs(dataset, sparse: bool = False):
+def _fused_inputs(dataset, sparse: bool = False, **dtypes):
     """Features, truths and step arguments of the main path, for timing
-    ``train.run_epochs`` on an already built graph."""
+    ``train.run_epochs`` on an already built graph; ``dtypes`` are the
+    config's ``compute_dtype``/``param_dtype``."""
+    import torch
+
     from cuda_gcn_torch import train
     from cuda_gcn_torch.config import GCNConfig
 
-    cfg = dataset.apply_config(GCNConfig(seed=0))
-    x = _features(dataset, sparse)
+    cfg = dataset.apply_config(GCNConfig(seed=0, **dtypes))
+    x = _features(dataset, sparse, getattr(torch, cfg.compute_dtype))
     truths = [train.make_truth(dataset.split, dataset.label, s, "cuda") for s in (1, 2)]
     kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay,
               lr=cfg.learning_rate)
     return cfg, x, truths, kw
 
 
-def phase_steady(graph, dataset, label: str = "", sparse: bool = False) -> float:
+def phase_steady(graph, dataset, label: str = "", sparse: bool = False, **dtypes) -> float:
     import torch
 
     from cuda_gcn_torch import train
 
-    cfg, x, truths, kw = _fused_inputs(dataset, sparse)
+    cfg, x, truths, kw = _fused_inputs(dataset, sparse, **dtypes)
     train.run_epochs(train.create_state(cfg, "cuda"), graph, x, *truths, epochs=2, **kw)
     state = train.create_state(cfg, "cuda")
     torch.cuda.synchronize()
@@ -428,15 +463,16 @@ def phase_steady(graph, dataset, label: str = "", sparse: bool = False) -> float
     return ms
 
 
-def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)"):
+def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)", **dtypes):
     """torch.profiler over a few warm fused epochs: device time by kernel and
-    the device's busy share of the wall time."""
+    the device's busy share of the wall time. Returns {wall_ms, busy_ms} per
+    epoch and the device ms per epoch of every kernel of the port."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from cuda_gcn_torch import train
 
-    cfg, x, truths, kw = _fused_inputs(dataset)
+    cfg, x, truths, kw = _fused_inputs(dataset, **dtypes)
     state = train.create_state(cfg, "cuda")
     train.run_epochs(state, graph, x, *truths, epochs=2, **kw)
     torch.cuda.synchronize()
@@ -463,6 +499,10 @@ def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)"):
             log(f"  {ms / epochs:9.3f} ms/epoch  {name[:110]}")
     rest = sum(ms for name, ms in ranked if not any(key in name for key in own))
     log(f"  {rest / epochs:9.3f} ms/epoch  everything that is no kernel of the port")
+    return dict(wall_ms=wall_ms / epochs, busy_ms=busy / epochs, busy_share=busy / wall_ms,
+                not_port_ms=rest / epochs,
+                port_ms={key: sum(ms for name, ms in ranked if key in name) / epochs
+                         for key in own})
 
 
 def phase_epoch_events(graph, dataset, epochs: int = 3):
@@ -649,9 +689,8 @@ REDDIT_ELL_EPOCHS = 3
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    """(bound ms, 'bytes' or 'operations') for a byte count and f32 operations."""
+    return _bound_at(nbytes, ops / PEAK_F32_FLOPS)[:2]
 
 
 def _ell_bound(plan, d: int) -> tuple[float, str]:
@@ -943,6 +982,21 @@ def _fmt_ms(v) -> str:
     return "none" if v is None else f"{v:.4f}"
 
 
+def _one_step_library(idx, strides, tab, axis: int):
+    """One ``take_along_dim`` over the first of a case's steps: out[i, j] =
+    tab[ind[i, j], j] on axis 0, tab[i, ind[i, j]] on axis 1, with ind[i, j] =
+    idx[i·si + j·sj]. It computes one of the case's steps × reps gathers, for
+    the cases where no single call computes them all."""
+    import torch
+
+    s, l = tab.shape
+    si, sj, _ = strides
+    pos = (torch.arange(s, device=tab.device)[:, None] * si
+           + torch.arange(l, device=tab.device)[None, :] * sj)
+    ind = idx.reshape(-1).long()[pos]
+    return lambda: torch.take_along_dim(tab, ind, axis)
+
+
 def _gather_library(case):
     """One PyTorch call that computes a gather case's function, or None: a
     single step has ``take_along_dim``/``index_select``, a compact f32 row
@@ -1030,10 +1084,11 @@ def phase_taa_probes(errs):
     a2 = taa.taa_probe(ids, tab, reps)
     if not torch.equal(a2, taa.taa_probe_plain(ids, tab, reps)):
         raise AssertionError("probe A2 differs from its plain version")
+    a2_lib = _one_step_library(ids, (1, 0, 0), tab, 0)
     record("taa_rows", f"A2 [{s}x{taa.LANES}] f32 x{reps} reps", res["A2"]["ms"],
-           cuda_ms(lambda: taa.taa_probe_plain(ids, tab, reps), 3), None, "",
-           _bound(4 * s + 8 * elems, elems * reps), 0.0,
-           (lambda: taa.taa_probe(ids, tab, reps),), gather_bytes=4 * elems * reps)
+           cuda_ms(lambda: taa.taa_probe_plain(ids, tab, reps), 3), cuda_ms(a2_lib, 10),
+           f"take_along_dim, one of the {reps} reps", _bound(4 * s + 8 * elems, elems * reps),
+           0.0, (lambda: taa.taa_probe(ids, tab, reps), a2_lib), gather_bytes=4 * elems * reps)
     heads = {"single TAA axis0, full idx", "single TAA axis1 [16x8192]"}
     versus = []
     for case, ms in timed:
@@ -1042,16 +1097,18 @@ def phase_taa_probes(errs):
             raise AssertionError(f"{case.label}: the kernel differs from its plain version "
                                  f"(max abs err {float((got - want).abs().max()):.3e})")
         lib = _gather_library(case)
-        lib_ms = None if lib is None else cuda_ms(lib, 10)
         lib_name = "" if lib is None else (
             "embedding_bag" if case.steps > 1 else
             "index_select" if case.form in ("bcast_rows", "take_rows") else "take_along_dim")
+        if lib is None:  # no single call: one step of the case's, by take_along_dim
+            lib = _one_step_library(case.idx, case.strides, case.tab, case.axis)
+            lib_name = f"take_along_dim, one of the {case.steps * case.reps} steps x reps"
+        lib_ms = cuda_ms(lib, 10)
         n = case.tab.numel()
         item = case.tab.element_size()
         bound = _bound(4 * case.idx.numel() + item * n + 4 * n, n * case.steps * case.reps)
         row = record("taa_rows" if case.axis == 0 else "taa_lanes", case.label, ms,
-                     cuda_ms(case.plain, 2), lib_ms, lib_name, bound, 0.0,
-                     (case.run,) if lib is None else (case.run, lib),
+                     cuda_ms(case.plain, 2), lib_ms, lib_name, bound, 0.0, (case.run, lib),
                      head=case.label in heads, gather_bytes=item * n * case.steps * case.reps)
         log("    " + dyngather.rate_line(case, ms).replace("\n", " "))
         if case.group == "bisect" and case.axis == 0 and case.steps == 1:
@@ -1320,6 +1377,348 @@ def phase_text_entry():
     return launches
 
 
+# (m) bf16 activations and weights at full width
+
+
+def _ulp_bf16(x):
+    """One bf16 ulp of each element of the f32 tensor x: 2^(e - 8) where |x| =
+    m·2^e with m in [0.5, 1) (bf16 keeps 8 significant bits); 0 where x is 0."""
+    import torch
+
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e - 8))
+
+
+BF16_ORDER = 1e-6  # the f32 accumulation-order term, a share of the sum of the terms' magnitudes
+
+
+def check_bf16(name: str, got, want, mass) -> float:
+    """bf16 outputs of a kernel and of its plain version, both summed in f32 and
+    rounded once: per element within one bf16 ulp (the two f32 sums may round
+    to neighbours; the ulp of the larger of the two, since neighbours may lie
+    on either side of a power of two) plus ``BF16_ORDER`` of the sum of the
+    terms' magnitudes ``mass`` (the f32 sums' different orders)."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: expected bf16 outputs, got {got.dtype} and {want.dtype}")
+    err = (got.float() - want.float()).abs()
+    tol = _ulp_bf16(torch.maximum(got.float().abs(), want.float().abs())) + BF16_ORDER * mass
+    ratio = float((err / tol.clamp_min(1e-30)).max())
+    ok = ratio <= 1.0
+    log(f"  {name}: max_abs_err={float(err.max()):.3e} max_err/tol={ratio:.3f} (one bf16 ulp "
+        f"+ {BF16_ORDER} x sum of |terms|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at bf16")
+    return float(err.max())
+
+
+def _bf16_kernels(graph, plan, ell_csr, errs):
+    """(m): kernels 1, 2 (both forms) and 3 at bf16 h on synth-reddit, at the
+    main path's widths: each against its plain version and bitwise repeatable,
+    then timed beside its plain version, its bytes bound at bf16 and the
+    library's call (None where the library refuses bf16; ``ell_csr`` is the
+    ELL graph's adjacency as a bf16 sparse CSR tensor). Returns {name: {d:
+    row}}."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, bsr_tile_contract_plain, tile_plan
+    from cuda_gcn_torch.ops.ell import ell_spmm, ell_spmm_plain
+    from cuda_gcn_torch.ops.residual import residual_spmm, residual_spmm_plain
+
+    bf16 = torch.bfloat16
+    n, k, tb, t_blocks = graph.n_nodes, graph.num_tiles, graph.tb, graph.t_blocks
+    r = graph.resid
+    if r.coef.dtype != bf16 or plan.coef.dtype != bf16:
+        raise AssertionError("a graph built for bf16 activations must hold bf16 coefficients")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tile_bytes = graph.tiles.numel() * graph.tiles.element_size()
+    csr = torch.sparse_csr_tensor(r.row_ptr.long(), r.cols.long(), r.coef, size=(n, n))
+    plan_t = tile_plan(graph.tile_cols, graph.tile_rows, t_blocks)
+    out = {"bsr_tile": {}, "csr_spmm": {}, "ell_spmm": {}}
+    log(f"(m) bf16 kernels on synth-reddit: K={k} bf16 tiles, residual nnz={r.nnz} (bf16 "
+        f"coefficients), ELL nnz={plan.nnz}; tolerance per element: one bf16 ulp (of the larger "
+        f"of kernel and plain value) + {BF16_ORDER} x sum of |terms|")
+    for d in WIDTHS:
+        h = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+        habs = h.float().abs()
+        for transpose in (False, True):
+            rows, cols, tplan = ((graph.tile_cols, graph.tile_rows, plan_t) if transpose
+                                 else (graph.tile_rows, graph.tile_cols, graph.plan))
+
+            def tile_part():
+                return bsr_tile_contract(graph.tiles, rows, cols, h, n, t_blocks,
+                                         transpose=transpose, plan=tplan)
+
+            got = tile_part()
+            want = bsr_tile_contract_plain(graph.tiles, rows, cols, h, n, t_blocks, transpose)
+            mass = bsr_tile_contract_plain(graph.tiles, rows, cols, habs, n, t_blocks, transpose)
+            errs["bsr_tile_bf16"] = max(errs.get("bsr_tile_bf16", 0.0), check_bf16(
+                f"bsr_tile bf16 d={d} transpose={transpose}", got, want, mass))
+            if not torch.equal(got, tile_part()):
+                raise AssertionError(f"bsr_tile bf16 d={d} differs between two runs")
+        rmass = residual_spmm_plain(r.row_ptr, r.cols, r.coef.float(), habs)
+        got = residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work)
+        errs["csr_spmm_bf16"] = max(errs.get("csr_spmm_bf16", 0.0), check_bf16(
+            f"csr_spmm bf16 d={d}", got, residual_spmm_plain(r.row_ptr, r.cols, r.coef, h), rmass))
+        base = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+        got2 = residual_spmm(r.row_ptr, r.cols, r.coef, h, out=base.clone(), work=r.work)
+        want2 = residual_spmm_plain(r.row_ptr, r.cols, r.coef, h, out=base.clone())
+        errs["csr_spmm_bf16"] = max(errs["csr_spmm_bf16"], check_bf16(
+            f"csr_spmm bf16 d={d} accumulate", got2, want2, rmass + base.float().abs()))
+        got3 = ell_spmm(plan, h)
+        errs["ell_spmm_bf16"] = max(errs.get("ell_spmm_bf16", 0.0), check_bf16(
+            f"ell_spmm bf16 d={d}", got3, ell_spmm_plain(plan, h), ell_spmm_plain(plan, habs)))
+        if not torch.equal(got, residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work)) \
+                or not torch.equal(got3, ell_spmm(plan, h)):
+            raise AssertionError(f"kernel 2 or 3 at bf16 d={d} differs between two runs")
+
+        # times at bf16 (CUDA events, warm), bounds: each input read once and
+        # each output written once, h and out at 2 bytes a value
+        t1 = cuda_ms(lambda: bsr_tile_contract(graph.tiles, graph.tile_rows, graph.tile_cols,
+                                               h, n, t_blocks, plan=graph.plan), 20)
+        p1 = cuda_ms(lambda: bsr_tile_contract_plain(graph.tiles, graph.tile_rows,
+                                                     graph.tile_cols, h, n, t_blocks), 3)
+        acc = torch.zeros(n, d, device="cuda", dtype=bf16)
+        t2 = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, out=acc,
+                                           work=r.work), 20)
+        t2_new = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work), 20)
+        p2 = cuda_ms(lambda: residual_spmm_plain(r.row_ptr, r.cols, r.coef, h, out=acc), 5)
+        t3 = cuda_ms(lambda: ell_spmm(plan, h), 20)
+        p3 = cuda_ms(lambda: ell_spmm_plain(plan, h), 3)
+        l2, note2 = _library_ms(lambda: (lambda: csr @ h), 20)
+        width = kernels.bsr_mma_width(graph.tiles.dtype, tb, k, d, bf16)
+        b1 = (_bound_at(tile_bytes + 4 * (2 * k + 2 * t_blocks + 1) + 2 * n * d + 2 * n * d,
+                        2 * k * tb * tb * width / PEAK_BF16_FLOPS if width is not None
+                        else 2 * k * tb * tb * d / PEAK_F32_FLOPS))
+        b2 = _bound_at(12 * r.work.beg.numel() + 6 * r.nnz + 2 * n * d + 2 * 2 * n * d,
+                       2 * r.nnz * d / PEAK_F32_FLOPS)
+        b3 = _bound_at(6 * plan.nnz + 4 * n + 2 * n * d + 2 * n * d,
+                       2 * plan.nnz * d / PEAK_F32_FLOPS)
+        for name, ms, plain, bound in (("bsr_tile", t1, p1, b1), ("csr_spmm", t2, p2, b2),
+                                       ("ell_spmm", t3, p3, b3)):
+            out[name][d] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+                                bound_bytes_ms=bound[2], bound_operations_ms=bound[3])
+        out["csr_spmm"][d].update(new_out_ms=t2_new, library_ms=l2,
+                                  library_note=note2 or "sparse CSR (bf16 values) @ bf16 h")
+        out["bsr_tile"][d]["accumulator_width"] = width
+        gather_bytes = plan.nnz * 2 * d
+        out["ell_spmm"][d].update(gather_no_reuse_ms=gather_bytes / PEAK_BYTES_PER_S * 1e3,
+                                  gather_tb_per_s=gather_bytes / t3 / 1e9)
+        log(f"  d={d} bf16: bsr_tile {t1:.3f} ms (N={width}, one bf16 plane; plain {p1:.3f}; "
+            f"bound {b1[0]:.3f} ms by {b1[1]}: bytes {b1[2]:.3f}, operations {b1[3]:.3f}); "
+            f"csr_spmm adding {t2:.3f} ms, new {t2_new:.3f} (plain {p2:.3f}; library sparse "
+            f"CSR @ dense {_fmt_ms(l2)}{' (' + note2 + ')' if note2 else ''}; bound "
+            f"{b2[0]:.4f} by {b2[1]}); ell_spmm {t3:.4f} ms (plain {p3:.3f}; bound {b3[0]:.4f} "
+            f"by {b3[1]}; gathered at {out['ell_spmm'][d]['gather_tb_per_s']:.2f} TB/s)")
+    d = WIDTHS[-1]
+    h = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+
+    def bsr_lib():
+        a = torch.sparse_bsr_tensor(graph.plan.ptr.long(), graph.tile_cols.long(),
+                                    graph.tiles, size=(t_blocks * tb, t_blocks * tb))
+        hp = torch.zeros(t_blocks * tb, d, device="cuda", dtype=bf16)
+        hp[:n] = h
+        return lambda: a @ hp
+
+    l1, note1 = _library_ms(bsr_lib, 3)
+    out["bsr_tile"][d].update(library_ms=l1, library_note=note1 or
+                              "sparse BSR (bf16 tiles) @ bf16 dense")
+    l3, note3 = _library_ms(lambda: (lambda: ell_csr @ h), 10)
+    out["ell_spmm"][d].update(library_ms=l3, library_note=note3 or
+                              "sparse CSR (bf16 values) @ bf16 h")
+    log(f"  library at d={d}, bf16: sparse BSR @ dense {_fmt_ms(l1)}"
+        f"{' (' + note1 + ')' if note1 else ''}; sparse CSR @ dense over the ELL graph "
+        f"{_fmt_ms(l3)}{' (' + note3 + ')' if note3 else ''}")
+    return out
+
+
+def _bound_at(nbytes: float, op_s: float):
+    """(bound ms, 'bytes' or 'operations', bytes ms, operations ms) for a byte
+    count and an operation time in seconds."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = op_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
+
+
+def _bf16_run(dataset, backend: str, epochs: int, expected: dict, label: str, **dtypes):
+    """``train.run`` at bf16 with the launch counts set to 0 just before and read
+    just after: finite metrics, a falling train loss, and each kernel of the
+    path launched as often as the code should make it."""
+    import numpy as np
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.config import GCNConfig
+
+    cfg = GCNConfig(epochs=epochs, graphsum_backend=backend, reorder="none", seed=0, **dtypes)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = train.run(cfg, dataset, device="cuda", verbose=False)
+    launches = dict(kernels.launches)
+    losses = [h["train_loss"] for h in res.history]
+    log(f"  train.run {label}: {time.perf_counter() - t0:.1f} s (graph build included), "
+        f"train loss {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc {res.test_acc:.5f}; "
+        f"launches {launches}, expected {expected}, 0 for the others")
+    if not np.isfinite(_metrics(res)).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the bf16 run ({label}) did not train")
+    if any(v != expected.get(k, 0) for k, v in launches.items()):
+        raise AssertionError(f"the bf16 run ({label}) did not go through its kernels")
+    return launches
+
+
+def _bf16_layer0(dataset):
+    """The dense layer 0 at compute bf16, param f32: the port's bf16 GEMM on W
+    rounded to bf16 against the JAX package's form, an f32 product of bf16 x
+    and f32 W rounded to bf16, on synth-reddit's features; error in bf16 ulps
+    of the JAX form's value and times of both forms."""
+    import torch
+
+    from cuda_gcn_torch.ops.matmul import dense_matmul
+
+    x = _features(dataset, False, torch.bfloat16)
+    w = torch.randn(dataset.input_dim, 16, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda") * (6.0 / (dataset.input_dim + 16)) ** 0.5
+    got = dense_matmul(x, w)
+    want = (x.float() @ w).to(torch.bfloat16)
+    err = (got.float() - want.float()).abs()
+    scale = x.float().abs() @ w.abs()
+    # in units of bf16's rounding error 2^-8 of sum |x||w|: W's rounding, and
+    # each form's own rounding of its result, are at most one unit each
+    units = float((err / scale.clamp_min(1e-30)).max()) / 2.0 ** -8
+    t_port = cuda_ms(lambda: dense_matmul(x, w), 20)
+    t_jax = cuda_ms(lambda: (x.float() @ w).to(torch.bfloat16), 20)
+    log(f"  dense layer 0 at bf16 x, f32 W, [{x.shape[0]}, {x.shape[1]}] x [{w.shape[0]}, 16]: "
+        f"the port's bf16 GEMM on bf16-rounded W against the JAX form (f32 product of bf16 x, "
+        f"rounded): max error {float(err.max()):.3e}, {units:.2f} x 2^-8 of sum |x||w| (limit "
+        f"3: W's rounding and the two results'); {t_port:.4f} ms against {t_jax:.4f} ms for "
+        f"the JAX form")
+    if not units <= 3.0:
+        raise AssertionError("the bf16 layer-0 GEMM is further from the JAX form than its roundings")
+    return dict(max_abs_err=float(err.max()), max_err_units=units, ms=t_port, jax_form_ms=t_jax)
+
+
+def phase_bf16(dataset, errs):
+    """(m): bf16 activations and weights at full width on synth-reddit
+    (602-16-41): the kernels at bf16 against their plain versions and timed;
+    the main path (bsr) and the ell path at compute_dtype='bfloat16', 10 fused
+    epochs each with their profile; a param_dtype='bfloat16' run; synth-pubmed
+    at bf16 against the CPU; the seeded CLI."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import cli, train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached, reorder_cached
+    from cuda_gcn_torch.data.graph import build_graph, normalization_coefficients
+
+    bf = dict(compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    graph = build_graph(dataset.graph, backend="bsr", act_itemsize=2, device="cuda")
+    raw = load_cached("synth-reddit")
+    ell_graph = build_graph(raw.graph, backend="ell", act_itemsize=2, device="cuda")
+    torch.cuda.synchronize()
+    log(f"(m) bf16: bsr graph (relabelled) and ell graph (as loaded) of synth-reddit built for "
+        f"bf16 activations in {time.perf_counter() - t0:.1f} s")
+    indptr, indices = (a.astype(np.int64) for a in (raw.graph.indptr, raw.graph.indices))
+    ell_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(indptr).cuda(), torch.from_numpy(indices).cuda(),
+        torch.from_numpy(normalization_coefficients(indptr, indices)).cuda().to(torch.bfloat16),
+        size=(raw.num_nodes, raw.num_nodes))
+    timing = _bf16_kernels(graph, ell_graph.ell, ell_csr, errs)
+    del ell_csr
+    layer0 = _bf16_layer0(dataset)
+
+    epoch = {}
+    epoch["bsr"] = phase_steady(graph, dataset, " (synth-reddit, bsr, compute bf16)", **bf)
+    prof = {"bsr": phase_profile(graph, dataset, label="  bsr at bf16,", **bf)}
+    epoch["bsr, param bf16"] = phase_steady(
+        graph, dataset, " (synth-reddit, bsr, compute and param bf16)",
+        compute_dtype="bfloat16", param_dtype="bfloat16")
+    del graph
+    epoch["ell"] = phase_steady(ell_graph, raw, " (synth-reddit as loaded, ell, compute bf16)",
+                                **bf)
+    prof["ell"] = phase_profile(ell_graph, raw, label="  ell at bf16,", **bf)
+    del ell_graph
+    torch.cuda.empty_cache()
+
+    launches = {"bsr": _bf16_run(dataset, "bsr", EPOCHS, {"bsr_tile": 4 * EPOCHS + 4,
+                                                          "csr_spmm": 4 * EPOCHS + 4},
+                                 "synth-reddit bsr, compute bf16", **bf)}
+    _bf16_run(dataset, "bsr", EPOCHS, {"bsr_tile": 4 * EPOCHS + 4, "csr_spmm": 4 * EPOCHS + 4},
+              "synth-reddit bsr, compute and param bf16", compute_dtype="bfloat16",
+              param_dtype="bfloat16")
+    launches["ell"] = _bf16_run(raw, "ell", REDDIT_ELL_EPOCHS,
+                                {"ell_spmm": 4 * REDDIT_ELL_EPOCHS + 4},
+                                "synth-reddit ell, compute bf16", **bf)
+    del raw
+
+    # synth-pubmed at bf16: the card's metrics against the CPU plain versions
+    ds = reorder_cached(load_cached("synth-pubmed"), "synth-pubmed")
+    worst = {}
+    for params in ("float32", "bfloat16"):
+        cfg = GCNConfig(epochs=3, dropout=0.0, graphsum_backend="bsr", reorder="none",
+                        compute_dtype="bfloat16", param_dtype=params)
+        a, b = (_metrics(train.run(cfg, ds, device=dev, verbose=False)) for dev in ("cuda", "cpu"))
+        # the test row holds (test loss, test acc, 0, 0): its second "loss" is 0
+        loss = np.abs(a[:, [0, 2]] - b[:, [0, 2]]) / np.maximum(np.abs(b[:, [0, 2]]), 1e-30)
+        counts = [int((ds.split == s).sum()) for s in (1, 2)]
+        nodes = np.abs(a[:-1, [1, 3]] - b[:-1, [1, 3]]) * counts
+        test_nodes = abs(a[-1, 1] - b[-1, 1]) * int((ds.split == 3).sum())
+        worst[params] = (float(loss.max()), float(max(nodes.max(), test_nodes)))
+        log(f"  synth-pubmed bf16 (param {params}), 3 epochs at dropout 0, card vs CPU plain "
+            f"versions: loss max rel diff {worst[params][0]:.3e} (tolerance 5e-3), accuracy "
+            f"at most {worst[params][1]:.1f} nodes apart (tolerance 2)")
+        if not worst[params][0] <= 5e-3 or not worst[params][1] <= 2.0 + 1e-6:
+            raise AssertionError(f"card and CPU disagree on synth-pubmed at bf16:\n{a}\n{b}")
+
+    # the seeded CLI: synth-cora generated at seed 3 on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["synth-cora", "--seed", "3", "--epochs", "3"])
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log("  | " + line)
+    num = r"-?\d+\.\d{5}"
+    ok = rc == 0 and lines[:2] == ["Generated synthetic dataset synth-cora.", "RUNNING ON CUDA"] \
+        and len(lines) == 2 + 3 + 2 and re.fullmatch(rf"test_loss={num} test_acc={num} "
+                                                     rf"time={num}", lines[-1])
+    if not ok:
+        raise AssertionError("the seeded CLI run did not generate and train synth-cora")
+    return dict(timing=timing, errs=errs, epoch_ms=epoch, profile=prof, launches=launches,
+                layer0=layer0, pubmed=worst)
+
+
+def _bf16_kernel_lines(m) -> list[dict]:
+    """The bf16 variants of kernels 1-3 for the kernels line, at d = 82."""
+    d = WIDTHS[-1]
+    rows = []
+    for name, replaces, launches in (
+            ("bsr_tile", "cuda_gcn_tpu/ops/pallas_bsr.py:65 (+ :120 _bsr_kernel_resident), "
+                         "bf16 h", m["launches"]["bsr"]["bsr_tile"]),
+            ("csr_spmm", "cuda_gcn_tpu/ops/graphsum.py:136 (XLA _blocked2d_apply, not Pallas), "
+                         "bf16 h", m["launches"]["bsr"]["csr_spmm"]),
+            ("ell_spmm", "cuda_gcn_tpu/ops/pallas_spmm.py:67 (_ell_kernel), bf16 h",
+             m["launches"]["ell"]["ell_spmm"])):
+        row = m["timing"][name][d]
+        rows.append({
+            "name": f"{name}_bf16", "route": "cuda", "source": f"cuda_gcn_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": m["errs"][f"{name}_bf16"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "library_note": row.get("library_note"), "d": d, "dtype": "bfloat16",
+            "by_width": {str(w): v for w, v in m["timing"][name].items()}})
+    rows[0]["epoch_ms"] = m["epoch_ms"]
+    rows[0]["profile"] = m["profile"]
+    rows[0]["layer0_dense"] = m["layer0"]
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1356,6 +1755,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse_launches = phase_sparse_path(dataset)
     phase_small_reference()
+    bf16 = phase_bf16(dataset, errs)
     del dataset
     errs["ell_spmm"] = 0.0
     pallas_launches, pubmed_timing = phase_pallas_path(errs)
@@ -1413,9 +1813,12 @@ def main() -> int:
         kernels_line.append({"name": name, "route": "cuda",
                              "source": "cuda_gcn_torch/csrc/taa_probe.cu",
                              "replaces": replaces[name], **line})
+    kernels_line += _bf16_kernel_lines(bf16)
     log(f"steady fused epoch on synth-reddit in this call: bsr {dense_ms:.2f} ms (sparse "
         f"features {sparse_ms:.2f}), ell {reddit['as loaded']['epoch_ms']:.2f} ms as loaded and "
-        f"{reddit['relabelled']['epoch_ms']:.2f} ms relabelled")
+        f"{reddit['relabelled']['epoch_ms']:.2f} ms relabelled; at compute bf16: bsr "
+        f"{bf16['epoch_ms']['bsr']:.2f} ms (param bf16 too: {bf16['epoch_ms']['bsr, param bf16']:.2f}), "
+        f"ell {bf16['epoch_ms']['ell']:.2f} ms as loaded")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -4,14 +4,16 @@ A copy of ``GCNConfig`` from the JAX package (cuda_gcn_tpu/config.py:19-57) with
 the same fields and defaults, so the same config means the same run in both
 packages. The port keeps its own copy because it imports nothing of the JAX
 package. ``feature_matmul`` selects dense or sparse (CSR) layer-0 features.
-Fields that select what the port does not have yet (``halo_dtype``, bf16
-``compute_dtype``) are accepted and rejected where a run would use them
-(train.prepare).
+``compute_dtype`` (activations and features) and ``param_dtype`` (weights) are
+each 'float32' or 'bfloat16'; another value is refused here, by name.
+``halo_dtype`` belongs to the sharded trainer, which is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass
@@ -42,6 +44,12 @@ class GCNConfig:
     compute_dtype: str = "float32"
     halo_dtype: str = "bfloat16"
     bsr_budget_gb: float | None = None
+
+    def __post_init__(self):
+        for field in ("compute_dtype", "param_dtype"):
+            if getattr(self, field) not in DTYPES:
+                raise ValueError(f"{field} must be one of {DTYPES}, got "
+                                 f"{getattr(self, field)!r}")
 
     def layer_dims(self) -> tuple[int, ...]:
         hidden = self.hidden_dims if self.hidden_dims is not None else (self.hidden_dim,)

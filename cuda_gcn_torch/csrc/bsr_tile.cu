@@ -53,6 +53,12 @@
 //   [64, tb] (64 tile rows = k, tb columns = m) and read MN-major by wgmma.
 // * Each accumulator is written once; rows past n and columns past d are
 //   masked in the epilogue. No atomics: the same bits on every run.
+// * bf16 h (compute_dtype='bfloat16') is its own single bf16 plane: the kernel
+//   is built with the plane count P (3 for f32 h, 1 for bf16 h) as a template
+//   parameter, the pre-pass then only writes h K-major, a stage shrinks to
+//   (tb + P N) x 128 B so four stages fit at every N, one tensor-core pass
+//   replaces three, and the f32 accumulators are rounded to bf16 once where
+//   they are stored. The bound stays the tiles' bytes.
 //
 // B. bsr_tile_kernel (below it): f32 tiles (bsr_dtype='float32'), tile sizes
 // that are no multiple of 64, and d > 88. CUDA-core f32 FMAs, bound by
@@ -70,7 +76,10 @@
 // once, with no atomics, so the result is deterministic; a block row with no
 // tiles writes zeros. Rows and features past n and d are masked (the JAX
 // version pads h instead); the tile offset is computed in 64 bits (K*tb*tb
-// passes 2^31 at 4x reddit).
+// passes 2^31 at 4x reddit). bf16 h is read as bf16 and converted to f32 as it
+// is staged, the sums stay f32 and out is stored in bf16; with f32 tiles each
+// tile value is first rounded to bf16, as the TPU kernel casts its tiles to
+// h's type (cuda_gcn_tpu/ops/pallas_bsr.py:79).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -78,6 +87,9 @@
 #include <stdint.h>
 
 #include "hopper_ptx.cuh"
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // ---- A. bf16 tiles on the tensor cores --------------------------------------
 
@@ -96,60 +108,88 @@ constexpr int kSplitRows = 64;         // rows of h per CTA of the pre-pass
 constexpr int kSplitThreads = 256;
 constexpr int kMaxN = 88;
 
-// x = hi + mid + lo, each part x's remainder rounded to bf16 (nearest even).
-__device__ __forceinline__ void split3(float x, uint32_t part[3]) {
+// x = part[0] + ... + part[P-1], each part x's remainder rounded to bf16
+// (nearest even): hi, mid, lo for P = 3; for a bf16 x (P = 1) the one part is
+// x exactly.
+template <int P>
+__device__ __forceinline__ void split(float x, uint32_t part[P]) {
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
+  for (int p = 0; p < P; ++p) {
     const __nv_bfloat16 b = __float2bfloat16_rn(x);
     part[p] = __bfloat16_as_ushort(b);
     x -= __bfloat162float(b);  // exact in f32
   }
 }
 
-// planes[p][f][row], p = hi, mid, lo: the bf16 parts of h[row, f]; zero for
-// row >= n and for d <= f < n_pad. One CTA reads 64 rows of h with coalesced
-// loads and writes them transposed, 8 rows (16 bytes) per thread and plane.
+// planes[p][f][row], p < P: the bf16 parts of h[row, f] (HT is f32 with P = 3,
+// or bf16 with P = 1); zero for row >= n and for d <= f < n_pad. One CTA reads
+// 64 rows of h with coalesced loads and writes them transposed, 8 rows (16
+// bytes) per thread and plane.
+template <class HT, int P>
 __global__ void __launch_bounds__(kSplitThreads)
-split_planes_kernel(const float* __restrict__ h, __nv_bfloat16* __restrict__ planes, int n,
+split_planes_kernel(const HT* __restrict__ h, __nv_bfloat16* __restrict__ planes, int n,
                     int d, int n_pad, int64_t rows_pad) {
   __shared__ float hs[kSplitRows][kMaxN + 1];
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * kSplitRows;
   const int64_t base = (int64_t)row0 * d, limit = (int64_t)n * d;
   for (int e = t; e < kSplitRows * d; e += kSplitThreads)
-    hs[e / d][e % d] = base + e < limit ? h[base + e] : 0.f;
+    hs[e / d][e % d] = base + e < limit ? to_f32(h[base + e]) : 0.f;
   __syncthreads();
   const int i0 = (t % 8) * 8;
   for (int f = t / 8; f < n_pad; f += kSplitThreads / 8) {
-    uint32_t w[3][4];  // per plane, 8 rows as 4 bf16 pairs (lower row in the low half)
+    uint32_t w[P][4];  // per plane, 8 rows as 4 bf16 pairs (lower row in the low half)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      uint32_t lo_row[3], hi_row[3];
-      split3(f < d ? hs[i0 + 2 * q][f] : 0.f, lo_row);
-      split3(f < d ? hs[i0 + 2 * q + 1][f] : 0.f, hi_row);
+      uint32_t lo_row[P], hi_row[P];
+      split<P>(f < d ? hs[i0 + 2 * q][f] : 0.f, lo_row);
+      split<P>(f < d ? hs[i0 + 2 * q + 1][f] : 0.f, hi_row);
 #pragma unroll
-      for (int p = 0; p < 3; ++p) w[p][q] = lo_row[p] | (hi_row[p] << 16);
+      for (int p = 0; p < P; ++p) w[p][q] = lo_row[p] | (hi_row[p] << 16);
     }
 #pragma unroll
-    for (int p = 0; p < 3; ++p)
+    for (int p = 0; p < P; ++p)
       *reinterpret_cast<uint4*>(planes + ((int64_t)p * n_pad + f) * rows_pad + row0 + i0) =
           make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
   }
 }
 
+// Two values of a row of out, at col and col + 1 (an aligned pair when
+// `pairs`), each only if it lies below d.
+__device__ __forceinline__ void store_pair(float* o, int col, int d, bool pairs, float v0,
+                                           float v1) {
+  if (pairs) {
+    if (col < d) *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+  } else {
+    if (col < d) o[col] = v0;
+    if (col + 1 < d) o[col + 1] = v1;
+  }
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, int col, int d, bool pairs,
+                                           float v0, float v1) {
+  if (pairs) {
+    if (col < d) *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (col < d) o[col] = __float2bfloat16_rn(v0);
+    if (col + 1 < d) o[col + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
 // Shared memory, from a 1024-byte boundary: `stages` stages of
-// [tile slab tb x 128 B | plane slabs 3 x N x 128 B], then the barriers.
-template <int N, int TA>
+// [tile slab tb x 128 B | plane slabs P x N x 128 B], then the barriers. out
+// is of h's type, OutT.
+template <int N, int TA, int P, class OutT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_b, const int* __restrict__ ptr,
                const int* __restrict__ order, const int* __restrict__ hblk,
-               const int* __restrict__ row_order, float* __restrict__ out, int n, int d,
+               const int* __restrict__ row_order, OutT* __restrict__ out, int n, int d,
                int tb, int stages) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const int a_bytes = tb * kRowBytes;
-  constexpr int kBBytes = 3 * N * kRowBytes;
+  constexpr int kBBytes = P * N * kRowBytes;
   const int stage_bytes = a_bytes + kBBytes;
   const uint32_t bars = base + stages * stage_bytes;
   auto full = [&](int s) { return bars + 8 * s; };
@@ -213,7 +253,7 @@ bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
       const uint32_t b0 = base + s * stage_bytes + a_bytes;
       wgmma_fence();
 #pragma unroll
-      for (int pl = 0; pl < 3; ++pl)
+      for (int pl = 0; pl < P; ++pl)
 #pragma unroll
         for (int k = 0; k < kSlabK / 16; ++k)
           // 16 k further on: 32 bytes along a K-major row, 16 rows of an MN-major slab
@@ -238,18 +278,11 @@ bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int half = 0; half < 2; ++half) {
       const int64_t row = (int64_t)r * tb + row_in + half * 8;
       if (row < n) {
-        float* o = out + row * d;
+        OutT* o = out + row * d;
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-          const int col = j * 8 + col0;
-          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-          if (pairs) {
-            if (col < d) *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
-          } else {
-            if (col < d) o[col] = v0;
-            if (col + 1 < d) o[col + 1] = v1;
-          }
-        }
+        for (int j = 0; j < N / 8; ++j)
+          store_pair(o, j * 8 + col0, d, pairs, acc[4 * j + 2 * half],
+                     acc[4 * j + 2 * half + 1]);
       }
     }
   }
@@ -285,17 +318,18 @@ bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* di
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <class OutT>
 struct Args {
   CUtensorMap map_a, map_b;
   const int *ptr, *order, *hblk, *row_order;
-  float* out;
+  OutT* out;
   int n, d, tb, t_blocks, stages, smem;
   cudaStream_t stream;
 };
 
-template <int N, int TA>
-cudaError_t launch(const Args& a) {
-  auto kernel = bsr_mma_kernel<N, TA>;
+template <int N, int TA, int P, class OutT>
+cudaError_t launch(const Args<OutT>& a) {
+  auto kernel = bsr_mma_kernel<N, TA, P, OutT>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return err;
@@ -304,9 +338,9 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t launch(const Args& a, int transpose) {
-  return transpose ? launch<N, 1>(a) : launch<N, 0>(a);
+template <int N, int P, class OutT>
+cudaError_t launch(const Args<OutT>& a, int transpose) {
+  return transpose ? launch<N, 1, P>(a) : launch<N, 0, P>(a);
 }
 
 // The accumulator width for d features: a wgmma N that the kernel is built for.
@@ -314,31 +348,35 @@ int padded_width(int d) {
   return d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : kMaxN;
 }
 
+// HT is h's type and out's: f32 h runs as its three bf16 parts (P = 3), bf16
+// h as itself (P = 1).
+template <class HT>
 cudaError_t contract(const int* ptr, const int* order, const int* hblk, const int* row_order,
-                     const __nv_bfloat16* tiles, const float* h, __nv_bfloat16* planes,
-                     float* out, int n, int d, int tb, int t_blocks, int k_tiles,
+                     const __nv_bfloat16* tiles, const HT* h, __nv_bfloat16* planes,
+                     HT* out, int n, int d, int tb, int t_blocks, int k_tiles,
                      int transpose, cudaStream_t stream) {
+  constexpr int P = sizeof(HT) == 4 ? 3 : 1;
   if (tb % 64 || tb > 64 * kMaxWgs || d > kMaxN || k_tiles < 1) return cudaErrorInvalidValue;
   const int n_pad = padded_width(d);
   const int64_t rows_pad = (int64_t)t_blocks * tb;
-  split_planes_kernel<<<rows_pad / kSplitRows, kSplitThreads, 0, stream>>>(h, planes, n, d,
-                                                                           n_pad, rows_pad);
+  split_planes_kernel<HT, P><<<rows_pad / kSplitRows, kSplitThreads, 0, stream>>>(
+      h, planes, n, d, n_pad, rows_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  Args a;
+  Args<HT> a;
   // the tiles as one [K tb, tb] matrix; a box is tb x 64, or 64 x 64 transposed
   const cuuint64_t a_dims[2] = {(cuuint64_t)tb, (cuuint64_t)k_tiles * tb};
   const cuuint64_t a_strides[1] = {(cuuint64_t)tb * 2};
   const cuuint32_t a_box[2] = {kSlabK, (cuuint32_t)(transpose ? 64 : tb)};
-  // the planes [3][n_pad][rows_pad]; a box is all three planes' [n_pad, 64]
-  const cuuint64_t b_dims[3] = {(cuuint64_t)rows_pad, (cuuint64_t)n_pad, 3};
+  // the planes [P][n_pad][rows_pad]; a box is all P planes' [n_pad, 64]
+  const cuuint64_t b_dims[3] = {(cuuint64_t)rows_pad, (cuuint64_t)n_pad, (cuuint64_t)P};
   const cuuint64_t b_strides[2] = {(cuuint64_t)rows_pad * 2, (cuuint64_t)rows_pad * 2 * n_pad};
-  const cuuint32_t b_box[3] = {kSlabK, (cuuint32_t)n_pad, 3};
+  const cuuint32_t b_box[3] = {kSlabK, (cuuint32_t)n_pad, (cuuint32_t)P};
   if (!bf16_map(&a.map_a, tiles, 2, a_dims, a_strides, a_box) ||
       !bf16_map(&a.map_b, planes, 3, b_dims, b_strides, b_box))
     return cudaErrorInvalidValue;
-  const int stage_bytes = (tb + 3 * n_pad) * kRowBytes;
+  const int stage_bytes = (tb + P * n_pad) * kRowBytes;
   const int barrier_bytes = 2 * kMaxStages * 8;
   a.stages = (kSmemLimit - 1024 - barrier_bytes) / stage_bytes;
   if (a.stages > kMaxStages) a.stages = kMaxStages;
@@ -346,10 +384,10 @@ cudaError_t contract(const int* ptr, const int* order, const int* hblk, const in
   a.ptr = ptr, a.order = order, a.hblk = hblk, a.row_order = row_order, a.out = out;
   a.n = n, a.d = d, a.tb = tb, a.t_blocks = t_blocks, a.stream = stream;
   switch (n_pad) {
-    case 16: return launch<16>(a, transpose);
-    case 32: return launch<32>(a, transpose);
-    case 48: return launch<48>(a, transpose);
-    default: return launch<kMaxN>(a, transpose);
+    case 16: return launch<16, P>(a, transpose);
+    case 32: return launch<32, P>(a, transpose);
+    case 48: return launch<48, P>(a, transpose);
+    default: return launch<kMaxN, P>(a, transpose);
   }
 }
 
@@ -385,6 +423,15 @@ __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& v, int e) {
   return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
+// A tile value for h of type HT: as it is, or rounded to bf16 for bf16 h.
+template <typename HT>
+__device__ __forceinline__ float tile_value(float a) {
+  if constexpr (sizeof(HT) == 2)
+    return __bfloat162float(__float2bfloat16_rn(a));
+  else
+    return a;
+}
+
 template <typename TileT>
 struct Staged {
   static constexpr int kPerVec = 16 / sizeof(TileT);  // elements per 16-byte load
@@ -394,10 +441,10 @@ struct Staged {
 };
 
 // Registers <- the step's [tb, 32] slice of A and [32, 32] slice of h.
-template <typename TileT>
+template <typename TileT, typename HT>
 __device__ __forceinline__ void load_step(Staged<TileT>& st, const TileT* tile,
                                           int64_t hrow0, int j0, int tb, int transpose,
-                                          const float* __restrict__ h, int n, int d,
+                                          const HT* __restrict__ h, int n, int d,
                                           int f0, int t) {
   constexpr int kPerVec = Staged<TileT>::kPerVec;
   const int nvec = tb * kJ / kPerVec;
@@ -422,12 +469,13 @@ __device__ __forceinline__ void load_step(Staged<TileT>& st, const TileT* tile,
     const int jj = e / kFeat, ff = e % kFeat;
     const int64_t row = hrow0 + j0 + jj;
     const int f = f0 + ff;
-    st.h[q] = (row < n && f < d) ? h[row * d + f] : 0.f;
+    st.h[q] = (row < n && f < d) ? to_f32(h[row * d + f]) : 0.f;
   }
 }
 
-// Shared memory <- registers: ts[i][jj] = A[i][j0 + jj] (as f32), hs[jj][ff].
-template <typename TileT>
+// Shared memory <- registers: ts[i][jj] = A[i][j0 + jj] (as f32, rounded to
+// bf16 first for bf16 h), hs[jj][ff].
+template <typename TileT, typename HT>
 __device__ __forceinline__ void store_step(const Staged<TileT>& st, float* ts, float* hs,
                                            int tb, int transpose, int t) {
   constexpr int kPerVec = Staged<TileT>::kPerVec;
@@ -439,11 +487,13 @@ __device__ __forceinline__ void store_step(const Staged<TileT>& st, float* ts, f
       if (!transpose) {
         const int i = v / (kJ / kPerVec), jj0 = (v % (kJ / kPerVec)) * kPerVec;
 #pragma unroll
-        for (int e = 0; e < kPerVec; ++e) ts[i * kTsStride + jj0 + e] = elem<TileT>(st.tile[q], e);
+        for (int e = 0; e < kPerVec; ++e)
+          ts[i * kTsStride + jj0 + e] = tile_value<HT>(elem<TileT>(st.tile[q], e));
       } else {
         const int jj = v / (tb / kPerVec), i0 = (v % (tb / kPerVec)) * kPerVec;
 #pragma unroll
-        for (int e = 0; e < kPerVec; ++e) ts[(i0 + e) * kTsStride + jj] = elem<TileT>(st.tile[q], e);
+        for (int e = 0; e < kPerVec; ++e)
+          ts[(i0 + e) * kTsStride + jj] = tile_value<HT>(elem<TileT>(st.tile[q], e));
       }
     }
   }
@@ -451,11 +501,11 @@ __device__ __forceinline__ void store_step(const Staged<TileT>& st, float* ts, f
   for (int q = 0; q < kHPerThread; ++q) hs[t + q * kThreads] = st.h[q];
 }
 
-template <typename TileT>
+template <typename TileT, typename HT>
 __global__ void __launch_bounds__(kThreads)
 bsr_tile_kernel(const int* __restrict__ ptr, const int* __restrict__ order,
                 const int* __restrict__ hblk, const TileT* __restrict__ tiles,
-                const float* __restrict__ h, float* __restrict__ out, int n,
+                const HT* __restrict__ h, HT* __restrict__ out, int n,
                 int d, int tb, int transpose) {
   __shared__ float ts[kMaxTb * kTsStride];
   __shared__ __align__(16) float hs[kJ * kFeat];
@@ -483,7 +533,7 @@ bsr_tile_kernel(const int* __restrict__ ptr, const int* __restrict__ order,
     load_step(st, tiles + (int64_t)order[beg] * tile_elems, (int64_t)hblk[beg] * tb, 0,
               tb, transpose, h, n, d, f0, t);
   for (int s = 0; s < steps; ++s) {
-    store_step(st, ts, hs, tb, transpose, t);
+    store_step<TileT, HT>(st, ts, hs, tb, transpose, t);
     __syncthreads();
     if (s + 1 < steps) {  // next step's loads fly while this one computes
       const int p = beg + (s + 1) / nj;
@@ -520,7 +570,12 @@ bsr_tile_kernel(const int* __restrict__ ptr, const int* __restrict__ order,
 #pragma unroll
       for (int ff = 0; ff < kFeat; ++ff) {
         const int f = f0 + ff;
-        if (f < d) out[row * d + f] = acc[s][ff];
+        if (f < d) {
+          if constexpr (sizeof(HT) == 2)
+            out[row * d + f] = __float2bfloat16_rn(acc[s][ff]);
+          else
+            out[row * d + f] = acc[s][ff];
+        }
       }
     }
   }
@@ -528,34 +583,56 @@ bsr_tile_kernel(const int* __restrict__ ptr, const int* __restrict__ order,
 
 }  // namespace
 
-// `planes` is the scratch of the tensor-core kernel, 3 * N * t_blocks * tb bf16
-// for N = d rounded up as padded_width does; null takes the FMA kernel.
-// `row_order` (may be null) is the order in which the CTAs take the block rows.
+namespace {
+
+template <class HT>
+cudaError_t contract_as(const int* p, const int* o, const int* hb, const void* row_order,
+                        const void* tiles, int tiles_bf16, const void* h, void* planes,
+                        void* out, int n, int d, int tb, int t_blocks, int k_tiles,
+                        int transpose, cudaStream_t s) {
+  const HT* hh = static_cast<const HT*>(h);
+  HT* oo = static_cast<HT*>(out);
+  if (planes != nullptr) {
+    if (!tiles_bf16) return cudaErrorInvalidValue;
+    return mma::contract<HT>(p, o, hb, static_cast<const int*>(row_order),
+                             static_cast<const __nv_bfloat16*>(tiles), hh,
+                             static_cast<__nv_bfloat16*>(planes), oo, n, d, tb, t_blocks,
+                             k_tiles, transpose, s);
+  }
+  const dim3 grid((d + kFeat - 1) / kFeat, t_blocks);
+  if (tiles_bf16) {
+    bsr_tile_kernel<__nv_bfloat16, HT><<<grid, kThreads, 0, s>>>(
+        p, o, hb, static_cast<const __nv_bfloat16*>(tiles), hh, oo, n, d, tb, transpose);
+  } else {
+    bsr_tile_kernel<float, HT><<<grid, kThreads, 0, s>>>(
+        p, o, hb, static_cast<const float*>(tiles), hh, oo, n, d, tb, transpose);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// `planes` is the scratch of the tensor-core kernel, P * N * t_blocks * tb
+// bf16 for N = d rounded up as padded_width does (P = 3 for f32 h, 1 for bf16
+// h); null takes the FMA kernel. `row_order` (may be null) is the order in
+// which the CTAs take the block rows. `h_dtype` is 0 for f32 h and out, 1 for
+// bf16; another code is refused.
 extern "C" int bsr_tile_contract(const void* ptr, const void* order, const void* hblk,
                                  const void* row_order, const void* tiles, int tiles_bf16,
                                  const void* h, void* planes, void* out, int n, int d,
-                                 int tb, int t_blocks, int k_tiles, int transpose,
+                                 int tb, int t_blocks, int k_tiles, int transpose, int h_dtype,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(ptr);
   const int* o = static_cast<const int*>(order);
   const int* hb = static_cast<const int*>(hblk);
-  const float* hf = static_cast<const float*>(h);
-  float* of = static_cast<float*>(out);
-  if (planes != nullptr) {
-    if (!tiles_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(mma::contract(
-        p, o, hb, static_cast<const int*>(row_order),
-        static_cast<const __nv_bfloat16*>(tiles), hf, static_cast<__nv_bfloat16*>(planes), of,
-        n, d, tb, t_blocks, k_tiles, transpose, s));
-  }
-  const dim3 grid((d + kFeat - 1) / kFeat, t_blocks);
-  if (tiles_bf16) {
-    bsr_tile_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        p, o, hb, static_cast<const __nv_bfloat16*>(tiles), hf, of, n, d, tb, transpose);
-  } else {
-    bsr_tile_kernel<float><<<grid, kThreads, 0, s>>>(
-        p, o, hb, static_cast<const float*>(tiles), hf, of, n, d, tb, transpose);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (h_dtype == 0)
+    return static_cast<int>(contract_as<float>(p, o, hb, row_order, tiles, tiles_bf16, h,
+                                               planes, out, n, d, tb, t_blocks, k_tiles,
+                                               transpose, s));
+  if (h_dtype == 1)
+    return static_cast<int>(contract_as<__nv_bfloat16>(p, o, hb, row_order, tiles, tiles_bf16,
+                                                       h, planes, out, n, d, tb, t_blocks,
+                                                       k_tiles, transpose, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,36 +27,34 @@
 
 namespace {
 
-template <int G, int STEPS, int VEC>
+template <int G, int STEPS, int VEC, class T, class C>
 __global__ void __launch_bounds__(spmm::kWarps * 32, spmm::kCtasPerSm)
 ell_spmm_kernel(const int* __restrict__ work_beg, const int* __restrict__ work_len,
                 const int* __restrict__ work_dst, const int* __restrict__ cols,
-                const float* __restrict__ coef, const float* __restrict__ h,
-                float* __restrict__ out, float* __restrict__ partial, int n_items,
-                int d) {
+                const C* __restrict__ coef, const T* __restrict__ h, T* __restrict__ out,
+                float* __restrict__ partial, int n_items, int d) {
   spmm::run_item<G, STEPS, VEC>(work_beg, work_len, work_dst, cols, coef, h, out, partial,
                                 n_items, d, /*accumulate=*/false);
 }
 
 }  // namespace
 
+// `dtypes` is spmm::by_dtypes's code of h's (and out's) type and coef's;
+// `vec` the features per load that kernels.spmm_vec chose.
 extern "C" int ell_spmm(const void* work_beg, const void* work_len, const void* work_dst,
                         int n_items, const void* split_rows, const void* split_ptr,
                         int n_split, const void* cols, const void* coef, const void* h,
-                        void* out, void* partial, int d, int vec, void* stream) {
+                        void* out, void* partial, int d, int vec, int dtypes, void* stream) {
   const spmm::Args a = spmm::make_args(work_beg, work_len, work_dst, n_items, cols, coef, h,
                                        out, partial, d, /*accumulate=*/0, stream);
-  if (!spmm::vec_fits(a, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_items > 0) {
-    spmm::by_width(d, vec, [&](auto g, auto steps, auto v) {
-      ell_spmm_kernel<decltype(g)::value, decltype(steps)::value, decltype(v)::value>
+  return static_cast<int>(spmm::by_dtypes(dtypes, [&](auto t, auto c) {
+    using T = typename decltype(t)::type;
+    using C = typename decltype(c)::type;
+    return spmm::run<T>(a, vec, split_rows, split_ptr, n_split, [&](auto g, auto steps, auto v) {
+      ell_spmm_kernel<decltype(g)::value, decltype(steps)::value, decltype(v)::value, T, C>
           <<<spmm::blocks_of(a), spmm::kWarps * 32, 0, a.stream>>>(
-              a.beg, a.len, a.dst, a.cols, a.coef, a.h, a.out, a.partial, a.n_items, a.d);
+              a.beg, a.len, a.dst, a.cols, static_cast<const C*>(a.coef),
+              static_cast<const T*>(a.h), static_cast<T*>(a.out), a.partial, a.n_items, a.d);
     });
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(spmm::reduce_partials(
-      static_cast<const int*>(split_rows), static_cast<const int*>(split_ptr), a.partial,
-      a.out, n_split, d, /*accumulate=*/0, a.stream));
+  }));
 }

@@ -17,6 +17,13 @@ Layouts per backend:
   flattened into an ``EllPlan`` for kernel 3 (ops/ell.py); the transpose packing
   only for an asymmetric Â. No residual CSR is built for them.
 
+The edge coefficients of the residual CSR and of the ELL plan are stored in
+bf16 when the activations are (``act_itemsize=2``), as the JAX package stores
+its residual's (cuda_gcn_tpu/data/graph.py:621): half the bytes of every slot's
+value, rounded to nearest even once at build time. The dense ``adj`` stays f32
+and is cast to the activation type where it is used (ops/graphsum.py), as in
+the JAX package.
+
 Not ported: the flat bucketed piece layout ``Blocked2DDev``
 (cuda_gcn_tpu/data/graph.py:114-433). It works around TPU gather and
 segment-sum costs; on the GPU the residual is plain CSR, cut into work items
@@ -57,7 +64,7 @@ class ResidualCSR:
 
     row_ptr: torch.Tensor  # (n+1,) int32
     cols: torch.Tensor     # (m,) int32
-    coef: torch.Tensor     # (m,) float32
+    coef: torch.Tensor     # (m,) float32, or bfloat16 for bf16 activations
     work: WorkList         # kernel 2's work items over the rows (ops/ell.py)
 
     @property
@@ -239,12 +246,13 @@ def _coo_to_csr(rows_sorted: np.ndarray, n: int) -> np.ndarray:
     return indptr
 
 
-def _ell_plan_of(indptr, indices, coef, device) -> EllPlan:
+def _ell_plan_of(indptr, indices, coef, device, coef_dtype) -> EllPlan:
     return ell_plan(build_ell(indptr, indices.astype(np.int32), coef), np.diff(indptr),
-                    device, order=pick_order(indptr, indices))
+                    device, order=pick_order(indptr, indices), coef_dtype=coef_dtype)
 
 
-def _residual_csr(rows, cols, coef, n, device) -> ResidualCSR:
+def _residual_csr(rows, cols, coef, n, device,
+                  coef_dtype=torch.float32) -> ResidualCSR:
     """CSR over edges whose ``rows`` are sorted ascending."""
     row_ptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=n), out=row_ptr[1:])
@@ -253,7 +261,8 @@ def _residual_csr(rows, cols, coef, n, device) -> ResidualCSR:
     return ResidualCSR(
         row_ptr=torch.from_numpy(row_ptr.astype(np.int32)).to(device),
         cols=torch.from_numpy(cols.astype(np.int32)).to(device),
-        coef=torch.from_numpy(np.ascontiguousarray(coef, dtype=np.float32)).to(device),
+        coef=torch.from_numpy(np.ascontiguousarray(coef, dtype=np.float32)).to(
+            device=device, dtype=coef_dtype),
         work=csr_work_list(row_ptr, device))
 
 
@@ -269,7 +278,8 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
     since only the ``ell``/``pallas`` backends read the ELL packing here, and
     ``blocked_*``, whose layout is not ported), plus ``device``.
     ``bsr_budget_bytes=None`` sizes the tile budget from the device's free
-    memory (resolve_tile_budget)."""
+    memory (resolve_tile_budget), counting activations of ``act_itemsize``
+    bytes; ``act_itemsize=2`` also stores the edge coefficients in bf16."""
     device = resolve_device(device)
     n = csr.nrows
     if backend == "auto":
@@ -289,6 +299,7 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
 
     graph = Graph(n_nodes=n, backend=backend, symmetric=symmetric,
                   total_nnz=int(csr.nnz))
+    coef_dtype = torch.bfloat16 if act_itemsize == 2 else torch.float32
     if backend == "dense":
         adj = np.zeros((n, n), dtype=np.float32)
         np.add.at(adj, (src, dst), coef)
@@ -296,11 +307,11 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
         return graph
 
     if backend in ("ell", "pallas"):
-        graph.ell = _ell_plan_of(indptr, dst, coef, device)
+        graph.ell = _ell_plan_of(indptr, dst, coef, device, coef_dtype)
         if not symmetric:
             perm = np.argsort(dst, kind="stable")
             graph.ell_t = _ell_plan_of(_coo_to_csr(dst[perm], n), src[perm], coef[perm],
-                                       device)
+                                       device, coef_dtype)
         return graph
 
     if backend == "bsr":
@@ -336,9 +347,10 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
         keep = ~in_tile
         src, dst, coef = src[keep], dst[keep], coef[keep]
 
-    graph.resid = _residual_csr(src, dst, coef, n, device)
+    graph.resid = _residual_csr(src, dst, coef, n, device, coef_dtype)
     if not symmetric:
         # Âᵀ as CSR: the same edges ordered by column, stably
         perm = np.argsort(dst, kind="stable")
-        graph.resid_t = _residual_csr(dst[perm], src[perm], coef[perm], n, device)
+        graph.resid_t = _residual_csr(dst[perm], src[perm], coef[perm], n, device,
+                                      coef_dtype)
     return graph

@@ -6,8 +6,10 @@ they raise; they never carry on on the CPU.
 
 Resolving a device also turns TF32 off for float32 matrix products and
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32``): f32 parity with the JAX package, which
-multiplies in full f32, depends on it.
+``torch.backends.cudnn.allow_tf32``), and reduced-precision reductions off for
+bf16 products (``allow_bf16_reduced_precision_reduction``): f32 parity with
+the JAX package, which multiplies in full f32 and sums bf16 products in f32,
+depends on it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -18,6 +18,11 @@ A launch of a small kernel is bound by this path, so it does once what can be
 done once: each C function is bound with its argtypes when its library is
 loaded, devices are compared by index, and a refusal is worded only when
 there is one.
+
+Kernels 1-3 take f32 or bf16 activations (``ACT_DTYPES``): each C entry gets a
+dtype code (``dtype_code``, ``spmm_code``) and runs the variant built for it,
+with f32 sums and the output in h's type. A type that has no variant is
+refused here, and by the C entry; nothing is cast to reach another variant.
 """
 
 from __future__ import annotations
@@ -43,11 +48,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # cudaError_t.
 _ENTRY = {
     "bsr_tile": ("bsr_tile", "bsr_tile_contract",
-                 [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                 [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "csr_spmm": ("csr_spmm", "csr_spmm",
-                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "ell_spmm": ("ell_spmm", "ell_spmm",
-                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+                 [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "gather_probe": ("gather_probe", "gather_probe", [_P, _P, _P, _P, _L, _I, _I, _P]),
     "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "taa_rows": ("taa_probe", "taa_rows",
@@ -192,20 +197,54 @@ def _stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+# The activation types of kernels 1-3, by the code their C entries take.
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def dtype_code(dtype) -> int:
+    """0 for f32, 1 for bf16: the code of an activation (or coefficient) type."""
+    return ACT_DTYPES.index(dtype)
+
+
+# Kernels 2 and 3 are built for these (h, coef) pairs, by code 2 * h + coef: f32
+# rows with f32 or bf16 coefficients (an f32 layer on a graph built for bf16
+# activations: sparse features at f32 weights) and bf16 rows with bf16 ones.
+SPMM_VARIANTS = {(torch.float32, torch.float32): 0, (torch.float32, torch.bfloat16): 1,
+                 (torch.bfloat16, torch.bfloat16): 3}
+
+
+def spmm_code(h_dtype, coef_dtype) -> int:
+    """The code of kernels 2 and 3 for rows of ``h_dtype`` and coefficients of
+    ``coef_dtype``; a pair without a variant is refused."""
+    code = SPMM_VARIANTS.get((h_dtype, coef_dtype))
+    if code is None:
+        raise TypeError(f"kernels 2 and 3 have no variant for h of {h_dtype} with coef of "
+                        f"{coef_dtype} (built: {sorted(SPMM_VARIANTS.values())}); a graph "
+                        f"for bf16 activations is built with act_itemsize=2")
+    return code
+
+
 # Kernel 1 (csrc/bsr_tile.cu). The tensor-core kernel takes bf16 tiles whose
 # size is a multiple of 64 up to 256, at most 88 features wide; its
-# accumulators are BSR_MMA_WIDTHS wide. The FMA kernel's CTA covers a block row
-# of at most 256 rows (2 per thread), walking the tile in 32-column steps.
+# accumulators are BSR_MMA_WIDTHS wide, and it reads h as BSR_PLANES bf16
+# planes: the three bf16 parts of f32 h, or bf16 h itself. The FMA kernel's CTA
+# covers a block row of at most 256 rows (2 per thread), walking the tile in
+# 32-column steps.
 BSR_MAX_TB = 256
 BSR_TB_MULTIPLE = 32
 BSR_MMA_TB_MULTIPLE = 64
 BSR_MMA_WIDTHS = (16, 32, 48, 88)
+BSR_PLANES = {torch.float32: 3, torch.bfloat16: 1}
 
 
-def bsr_mma_width(tiles_dtype, tb: int, k: int, d: int) -> int | None:
+def bsr_mma_width(tiles_dtype, tb: int, k: int, d: int,
+                  h_dtype=torch.float32) -> int | None:
     """The accumulator width of the tensor-core kernel for this call, or None
-    where the FMA kernel takes it: f32 tiles, a tile size that is no multiple of
-    64, more than 88 features, or no tile at all."""
+    where the FMA kernel takes it: f32 tiles (for bf16 h too: the kernel rounds
+    them to bf16 as it reads them), a tile size that is no multiple of 64, more
+    than 88 features, or no tile at all. ``h_dtype`` is f32 or bf16."""
+    if h_dtype not in BSR_PLANES:
+        raise TypeError(f"kernel 1 takes f32 or bf16 h, got {h_dtype}")
     if tiles_dtype != torch.bfloat16 or tb % BSR_MMA_TB_MULTIPLE or k == 0 \
             or d > BSR_MMA_WIDTHS[-1]:
         return None
@@ -214,17 +253,21 @@ def bsr_mma_width(tiles_dtype, tb: int, k: int, d: int) -> int | None:
 
 def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int, transpose: bool,
              row_order=None) -> torch.Tensor:
-    """Launch kernel 1: returns the dense-tile part [n, d] in f32.
+    """Launch kernel 1: returns the dense-tile part [n, d] in h's type (f32 or
+    bf16), summed in f32.
 
     Which of the source's two kernels runs is decided here, by what
     ``bsr_mma_width`` reads (tile dtype, tile size, width), never by a failed
-    build or launch: bf16 tiles go to the tensor-core kernel (bf16x3 parts of h,
-    f32 accumulators; one launch counts its pre-pass and the contraction as
-    one), everything else to the f32 FMA kernel. ``row_order`` (``TilePlan.
-    by_load``, optional) is the order in which CTAs take the block rows."""
+    build or launch: bf16 tiles go to the tensor-core kernel (f32 h as its
+    three bf16 parts, bf16 h as it is; f32 accumulators; one launch counts its
+    pre-pass and the contraction as one), everything else to the FMA kernel.
+    ``row_order`` (``TilePlan.by_load``, optional) is the order in which CTAs
+    take the block rows."""
     dev = _on_cuda(h, "bsr_tile")
     h = h.contiguous()
-    _check(h, "h", torch.float32, dev)
+    if h.dtype not in ACT_DTYPES:
+        raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
+    _check(h, "h", h.dtype, dev)
     if tiles.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"tiles must be bfloat16 or float32, got {tiles.dtype}")
     _check(tiles, "tiles", tiles.dtype, dev)
@@ -248,48 +291,58 @@ def bsr_tile(tiles, ptr, order, hblk, h, n: int, t_blocks: int, transpose: bool,
         _check(row_order, "row_order", torch.int32, dev)
         if row_order.numel() != t_blocks:
             raise ValueError(f"row_order must hold {t_blocks} block rows")
-    out = torch.empty(n, d, dtype=torch.float32, device=h.device)
+    out = torch.empty(n, d, dtype=h.dtype, device=h.device)
     if n == 0 or d == 0:
         return out
-    width = bsr_mma_width(tiles.dtype, tb, k, d)
+    width = bsr_mma_width(tiles.dtype, tb, k, d, h.dtype)
     planes = None if width is None else torch.empty(
-        3 * width * t_blocks * tb, dtype=torch.bfloat16, device=h.device)
+        BSR_PLANES[h.dtype] * width * t_blocks * tb, dtype=torch.bfloat16, device=h.device)
     _call("bsr_tile", ptr.data_ptr(), order.data_ptr(), hblk.data_ptr(),
           None if row_order is None else row_order.data_ptr(), tiles_ptr,
           int(tiles.dtype is torch.bfloat16), h.data_ptr(),
           None if planes is None else planes.data_ptr(), out.data_ptr(), n, d, tb,
-          t_blocks, k, int(transpose), _stream(dev))
+          t_blocks, k, int(transpose), dtype_code(h.dtype), _stream(dev))
     return out
 
 
-def spmm_vec(d: int, *bases: int) -> int:
-    """How many f32 features a lane of kernels 2 and 3 loads and stores at once
-    (csrc/spmm_common.cuh): 4 or 2 where the width ``d`` is a multiple of it and
-    every base address (h, out, the partials; rows are d floats apart) is
-    aligned to that many floats, else 1."""
-    for vec in (4, 2):
-        if d % vec == 0 and not any(b % (4 * vec) for b in bases):
+def spmm_vec(d: int, *bases: int, itemsize: int = 4) -> int:
+    """How many features a lane of kernels 2 and 3 loads and stores at once
+    (csrc/spmm_common.cuh), reasoned in bytes: the widest load of 16, 8 or 4
+    bytes whose features (``itemsize`` bytes each: 4 of f32, 8 of bf16 in 16
+    bytes) divide the width ``d`` and whose size aligns the first two bases (h
+    and out, rows d features apart); the further bases are the f32 partial
+    sums, aligned to the f32 store of the same features (16 bytes at most).
+    Else one feature: 4 bytes of f32, 2 of bf16. So a bf16 row at d = 16 or 32
+    takes 16-byte loads, at d = 82 (164 bytes) 4-byte ones and at d = 41 (82
+    bytes) 2-byte ones."""
+    for nbytes in (16, 8, 4):
+        vec = nbytes // itemsize
+        if vec > 1 and d % vec == 0 and not any(b % nbytes for b in bases[:2]) \
+                and not any(b % min(4 * vec, 16) for b in bases[2:]):
             return vec
     return 1
 
 
 def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
     """Launch kernel 2 over the work list ``work`` of a CSR's rows (ops/ell.py
-    ``WorkList``): Σ_e coef·h[col] per row in f32, added in place to ``out``
-    when given, else written to a new [n, d] tensor. ``n`` is the number of CSR
-    rows; ``cols`` index the rows of h, of which there may be any number (n for
-    an adjacency, F for a feature matrix times [F, d]). When adding to ``out``
-    only the items that have edges are launched."""
+    ``WorkList``): Σ_e coef·h[col] per row, summed in f32, added in place to
+    ``out`` when given (read, added in f32, stored once), else written to a new
+    [n, d] tensor, in h's type. ``h`` and ``coef`` are a pair of
+    ``SPMM_VARIANTS``. ``n`` is the number of CSR rows; ``cols`` index the rows
+    of h, of which there may be any number (n for an adjacency, F for a feature
+    matrix times [F, d]). When adding to ``out`` only the items that have edges
+    are launched."""
     dev = _on_cuda(h, "csr_spmm")
     h = h.contiguous()
-    _check(h, "h", torch.float32, dev)
+    code = spmm_code(h.dtype, coef.dtype)
+    _check(h, "h", h.dtype, dev)
     _check(work.beg, "work.beg", torch.int32, dev)
     _check(work.len, "work.len", torch.int32, dev)
     _check(work.dst, "work.dst", torch.int32, dev)
     _check(work.split_rows, "work.split_rows", torch.int32, dev)
     _check(work.split_ptr, "work.split_ptr", torch.int32, dev)
     _check(cols, "cols", torch.int32, dev)
-    _check(coef, "coef", torch.float32, dev)
+    _check(coef, "coef", coef.dtype, dev)
     n_items, n_split = work.beg.numel(), work.split_rows.numel()
     if n < 0 or h.dim() != 2 or cols.numel() != coef.numel() \
             or work.len.numel() != n_items or work.dst.numel() != n_items \
@@ -298,9 +351,9 @@ def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
     d = h.shape[1]
     accumulate = out is not None
     if out is None:
-        out = torch.empty(n, d, dtype=torch.float32, device=h.device)
+        out = torch.empty(n, d, dtype=h.dtype, device=h.device)
     else:
-        _check(out, "out", torch.float32, dev)
+        _check(out, "out", h.dtype, dev)
         if out.dim() != 2 or out.shape[0] != n or out.shape[1] != d:
             raise ValueError(f"out must be [{n}, {d}], got {tuple(out.shape)}")
     if n == 0 or d == 0:
@@ -310,32 +363,35 @@ def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
     _call("csr_spmm", work.beg.data_ptr(), work.len.data_ptr(), work.dst.data_ptr(),
           work.n_nonempty if accumulate else n_items, work.split_rows.data_ptr(),
           work.split_ptr.data_ptr(), n_split, cols.data_ptr(), coef.data_ptr(),
-          h_ptr, out_ptr, partial_ptr, d, spmm_vec(d, h_ptr, out_ptr, partial_ptr),
-          int(accumulate), _stream(dev))
+          h_ptr, out_ptr, partial_ptr, d,
+          spmm_vec(d, h_ptr, out_ptr, partial_ptr, itemsize=h.element_size()),
+          int(accumulate), code, _stream(dev))
     return out
 
 
 def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
              n: int, n_partials: int) -> torch.Tensor:
     """Launch kernel 3 over a work list (ops/ell.py ``WorkList``): returns the
-    [n, d] product in f32 as a new tensor. ``n`` is the number of output rows;
-    ``cols`` index the rows of h, of which there may be any number."""
+    [n, d] product, summed in f32, as a new tensor of h's type. ``h`` and
+    ``coef`` are a pair of ``SPMM_VARIANTS``. ``n`` is the number of output
+    rows; ``cols`` index the rows of h, of which there may be any number."""
     dev = _on_cuda(h, "ell_spmm")
     h = h.contiguous()
-    _check(h, "h", torch.float32, dev)
+    code = spmm_code(h.dtype, coef.dtype)
+    _check(h, "h", h.dtype, dev)
     _check(work_beg, "work_beg", torch.int32, dev)
     _check(work_len, "work_len", torch.int32, dev)
     _check(work_dst, "work_dst", torch.int32, dev)
     _check(split_rows, "split_rows", torch.int32, dev)
     _check(split_ptr, "split_ptr", torch.int32, dev)
     _check(cols, "cols", torch.int32, dev)
-    _check(coef, "coef", torch.float32, dev)
+    _check(coef, "coef", coef.dtype, dev)
     n_items, n_split = work_beg.numel(), split_rows.numel()
     if h.dim() != 2 or work_len.numel() != n_items or work_dst.numel() != n_items \
             or split_ptr.numel() != n_split + 1 or cols.numel() != coef.numel():
         raise ValueError("ell_spmm: inconsistent shapes")
     d = h.shape[1]
-    out = torch.empty(n, d, dtype=torch.float32, device=h.device)
+    out = torch.empty(n, d, dtype=h.dtype, device=h.device)
     if n == 0 or d == 0:
         return out
     partial = torch.empty(n_partials, d, dtype=torch.float32, device=h.device)
@@ -343,7 +399,8 @@ def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
     _call("ell_spmm", work_beg.data_ptr(), work_len.data_ptr(), work_dst.data_ptr(),
           n_items, split_rows.data_ptr(), split_ptr.data_ptr(), n_split, cols.data_ptr(),
           coef.data_ptr(), h_ptr, out_ptr, partial_ptr, d,
-          spmm_vec(d, h_ptr, out_ptr, partial_ptr), _stream(dev))
+          spmm_vec(d, h_ptr, out_ptr, partial_ptr, itemsize=h.element_size()), code,
+          _stream(dev))
     return out
 
 

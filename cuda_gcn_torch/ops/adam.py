@@ -9,7 +9,9 @@ src/seq/optim.cpp:24-37):
 ``torch.optim.Adam`` puts eps inside the bias correction, so it is not used.
 Weight decay enters only through the L2 term of the loss (ops/loss.py). The
 parameters and moments are updated in place, and the step counter stays on the
-device, so a step never waits for the host.
+device, so a step never waits for the host. The moments are f32 whatever the
+parameters' type, and a step is taken in f32 and rounded once to the
+parameter's type (cuda_gcn_tpu/ops/adam.py:61-69).
 """
 
 from __future__ import annotations
@@ -53,4 +55,4 @@ def step(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
         m, v = state.m[k], state.v[k]
         m.mul_(hp.beta1).add_((1.0 - hp.beta1) * g)
         v.mul_(hp.beta2).add_((1.0 - hp.beta2) * g * g)
-        p.sub_((step_size * m / (torch.sqrt(v) + hp.eps)).to(p.dtype))
+        p.copy_(p.float() - step_size * m / (torch.sqrt(v) + hp.eps))

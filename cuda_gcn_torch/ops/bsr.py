@@ -14,7 +14,10 @@ still gives the f32 result: an f32 number is exactly the sum of three bf16
 numbers (24 = 8 + 8 + 8 mantissa bits, ``split_bf16x3``), a bf16 x bf16 product
 is exact in f32, so A·h = A·hi + A·mid + A·lo with f32 accumulators differs from
 the f32 product only in the order of the additions.
-``bsr_tile_contract_split_plain`` restates that arithmetic in PyTorch.
+``bsr_tile_contract_split_plain`` restates that arithmetic in PyTorch. bf16 h
+(compute_dtype='bfloat16') is its own one bf16 part, and the result is
+rounded to bf16 once; f32 tiles are rounded to bf16 for bf16 h, as the TPU
+kernel casts its tiles to h's type (cuda_gcn_tpu/ops/pallas_bsr.py:79).
 
 A tensor on the CPU takes the plain PyTorch version below; a CUDA tensor
 launches the kernel (cuda_gcn_torch.kernels) or raises.
@@ -69,10 +72,17 @@ def split_bf16x3(h: torch.Tensor):
     return hi, mid, lo
 
 
+def _tiles_f32(tiles, h_dtype) -> torch.Tensor:
+    """The tiles in f32 as the kernel multiplies them: rounded to h's type
+    first when h is bf16."""
+    return (tiles.to(h_dtype) if h_dtype == torch.bfloat16 else tiles).to(torch.float32)
+
+
 def bsr_tile_contract_plain(tiles, rows, cols, h, n: int, t_blocks: int,
                             transpose: bool = False) -> torch.Tensor:
     """Plain version: gather the h blocks, batched product in f32 (tiles
-    upcast), ``index_add_`` into block rows that no tile visits stay zero."""
+    upcast), ``index_add_`` into block rows that no tile visits stay zero,
+    one cast to h's type at the end."""
     k, tb = int(tiles.shape[0]), int(tiles.shape[1])
     d = h.shape[1]
     if k == 0:
@@ -80,7 +90,7 @@ def bsr_tile_contract_plain(tiles, rows, cols, h, n: int, t_blocks: int,
     hp = torch.zeros(t_blocks * tb, d, dtype=torch.float32, device=h.device)
     hp[:n] = h
     gathered = hp.view(t_blocks, tb, d)[cols.long()]   # [K, tb, d]
-    a = tiles.to(torch.float32)
+    a = _tiles_f32(tiles, h.dtype)
     if transpose:
         a = a.transpose(1, 2)
     prod = torch.bmm(a, gathered)                      # [K, tb, d]
@@ -115,9 +125,9 @@ def bsr_tile_contract_split_plain(tiles, rows, cols, h, n: int, t_blocks: int,
 def bsr_tile_contract(tiles, rows, cols, h, n: int, t_blocks: int,
                       transpose: bool = False,
                       plan: TilePlan | None = None) -> torch.Tensor:
-    """Dense-tile contribution [n, d] in f32. ``plan`` is ``tile_plan(rows,
-    cols, t_blocks)``, precomputed by build_graph; it is built here when
-    absent."""
+    """Dense-tile contribution [n, d] in h's type (f32 or bf16), summed in
+    f32. ``plan`` is ``tile_plan(rows, cols, t_blocks)``, precomputed by
+    build_graph; it is built here when absent."""
     if h.device.type == "cpu":
         return bsr_tile_contract_plain(tiles, rows, cols, h, n, t_blocks, transpose)
     if plan is None:

@@ -59,7 +59,7 @@ class EllPlan:
     n_nodes: int
     nnz: int                  # real (unpadded) slots
     cols: torch.Tensor        # (S,) int32: each bucket's [R_b, W_b] block, row-major
-    coef: torch.Tensor        # (S,) float32, same layout
+    coef: torch.Tensor        # (S,) float32 (bfloat16 for bf16 activations), same layout
     rows: torch.Tensor        # (n,) int32: node of each ELL row, buckets in order
     offsets: tuple[int, ...]     # first slot of each bucket, then S
     row_starts: tuple[int, ...]  # first ELL row of each bucket, then n
@@ -92,8 +92,9 @@ class EllPlan:
         """The buckets as host numpy arrays, in the layout of the JAX build."""
         out = []
         for b, w in enumerate(self.widths):
-            rows, cols, coef = (t.cpu().numpy() for t in self.bucket(b))
-            out.append(EllBucket(rows=rows, cols=cols, coef=coef, width=w))
+            rows, cols, coef = self.bucket(b)
+            out.append(EllBucket(rows=rows.cpu().numpy(), cols=cols.cpu().numpy(),
+                                 coef=coef.float().cpu().numpy(), width=w))
         return out
 
 
@@ -209,9 +210,10 @@ def with_order(plan: EllPlan, order: str) -> EllPlan:
 
 
 def ell_plan(buckets: list[EllBucket], degrees: np.ndarray, device: torch.device,
-             order: str = "longest") -> EllPlan:
+             order: str = "longest", coef_dtype: torch.dtype = torch.float32) -> EllPlan:
     """Flatten ``buckets`` onto ``device`` and build the work list, its items
-    in ``order``. ``degrees[i]`` is the number of real slots of node i's row."""
+    in ``order``. ``degrees[i]`` is the number of real slots of node i's row;
+    the coefficients are stored as ``coef_dtype``."""
     n = len(degrees)
     widths = tuple(int(b.width) for b in buckets)
     counts = [len(b.rows) for b in buckets]
@@ -238,7 +240,7 @@ def ell_plan(buckets: list[EllBucket], degrees: np.ndarray, device: torch.device
     work = work_list(start_p, deg_p, rows, device, order)
     return EllPlan(
         n_nodes=n, nnz=int(deg_p.sum()), cols=_dev(cols, device),
-        coef=_dev(coef, device, torch.float32), rows=_dev(rows, device), offsets=offsets,
+        coef=_dev(coef, device, torch.float32).to(coef_dtype), rows=_dev(rows, device), offsets=offsets,
         row_starts=row_starts, widths=widths, row_start=start_p, row_len=deg_p, order=order,
         **_work_fields(work))
 
@@ -246,8 +248,8 @@ def ell_plan(buckets: list[EllBucket], degrees: np.ndarray, device: torch.device
 def ell_spmm_plain(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:
     """Plain version: per bucket, gather h[cols] [R, W, d], scale by coef and
     sum over the W slots in f32 (row blocks bound the transient), written to
-    out[rows]."""
-    d = h.shape[1]
+    out[rows]; one cast to h's type at the end."""
+    d, dtype = h.shape[1], h.dtype
     h = h.float()
     out = torch.zeros(plan.n_nodes, d, dtype=torch.float32, device=h.device)
     for b, w in enumerate(plan.widths):
@@ -255,12 +257,12 @@ def ell_spmm_plain(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:
         step = max(1, _PLAIN_BLOCK_ELEMS // max(w * d, 1))
         for a in range(0, rows.shape[0], step):
             g = h[cols[a:a + step].long()]
-            out[rows[a:a + step].long()] = (g * coef[a:a + step, :, None]).sum(1)
-    return out
+            out[rows[a:a + step].long()] = (g * coef[a:a + step, :, None].float()).sum(1)
+    return out.to(dtype)
 
 
 def ell_spmm(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:
-    """Â·h over the ELL plan, [n, d] in f32."""
+    """Â·h over the ELL plan, [n, d] in h's type, summed in f32."""
     if h.device.type == "cpu":
         return ell_spmm_plain(plan, h)
     return kernels.ell_spmm(plan.work_beg, plan.work_len, plan.work_dst,

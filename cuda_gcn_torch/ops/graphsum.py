@@ -8,8 +8,12 @@ Dispatch by backend:
 * ``ell``, ``pallas`` — kernel 3 (ops/ell.py) over the ELL plan. The JAX
   package runs ``pallas`` through its Pallas kernel only when h fits VMEM and
   ``ell`` through XLA (:312-331); on the card both launch kernel 3 at any size;
-* ``dense``   — ``torch.mm`` on the dense Â, as the JAX package leaves it to XLA
-  (:326-327).
+* ``dense``   — ``torch.mm`` on the dense Â cast to h's type, as the JAX
+  package leaves it to XLA (:326-327).
+
+Every backend returns h's type (f32 or bf16) and sums in f32, as the JAX
+package's graphsum does (:99,154,247); the bsr pass stores the tile part in
+h's type and kernel 2 adds the residual to it in f32 (:303).
 
 A symmetric graph routes the backward through the forward structures
 (:335-352); an asymmetric one runs over the transposed tile plan and the
@@ -49,7 +53,8 @@ def _apply(h: torch.Tensor, graph: Graph, transpose: bool) -> torch.Tensor:
     if graph.backend in ("ell", "pallas"):
         return ell_spmm(graph.ell_t if transpose else graph.ell, h)
     if graph.backend == "dense":
-        return torch.mm(graph.adj.t() if transpose else graph.adj, h)
+        adj = graph.adj if graph.adj.dtype == h.dtype else graph.adj.to(h.dtype)
+        return torch.mm(adj.t() if transpose else adj, h)
     return _residual(h, graph.resid_t if transpose else graph.resid)
 
 

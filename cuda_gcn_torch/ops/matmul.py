@@ -2,12 +2,21 @@
 sparse over the CSR feature matrix as the reference program does
 (``SparseMatmul``, src/seq/module.cpp:47-77).
 
-``dense_matmul`` is a plain f32 product outside any TPU kernel, so it stays a
-library call; device.resolve_device turns TF32 off so it runs in full f32.
+``dense_matmul`` is a plain product outside any TPU kernel, so it stays a
+library call; device.resolve_device turns TF32 and reduced-precision bf16
+reductions off, so f32 runs in full f32 and bf16 sums in f32. Its result is in
+x's type (cuda_gcn_tpu/ops/matmul.py:52). Where the JAX package multiplies
+bf16 x by f32 W (compute bf16, param f32), it promotes inside the dot to an f32
+product of bf16 x and rounds it to bf16; here W is rounded to bf16 instead and
+the product is one bf16 GEMM with f32 sums: it reads bf16 x once, with no
+[N, F] f32 copy of it (561 MB on synth-reddit), and differs from JAX's by
+about one rounding of W.
 
 ``csr_matmul`` keeps X as CSR values: out[i] = Σ_{nnz j in row i} values[j] ·
 W[cols[j]]. In the JAX package it is XLA (a gather and a sorted segment sum);
-on the card it is the work the hand-written SpMM kernels already do, so:
+on the card it is the work the hand-written SpMM kernels already do, so
+(with ``values`` cast to W's type, as the JAX package does, and the result in
+W's type; f32 sums):
 
 * forward, [n_rows, d]: kernel 2 (csrc/csr_spmm.cu) over the work list of X's
   rows, W as the gathered operand;
@@ -44,8 +53,8 @@ BANDED_FEATURES_MIN_ROWS = 1 << 19
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[N, F] @ [F, H] in f32."""
-    return torch.matmul(x, w)
+    """[N, F] @ [F, H] in x's type, summed in f32: W is cast to x's type."""
+    return torch.matmul(x, w if w.dtype == x.dtype else w.to(x.dtype))
 
 
 @dataclasses.dataclass
@@ -56,7 +65,7 @@ class SparseFeatures:
     what the kernels read, built once by ``from_csr``. Dropout applies to
     ``values`` (the reference's layer-0 dropout on nnz values, gcn.cpp:23)."""
 
-    values: torch.Tensor   # (nnz,) float32
+    values: torch.Tensor   # (nnz,) float32, or bfloat16 for bf16 activations
     rows: torch.Tensor     # (nnz,) int32, sorted (CSR expansion)
     cols: torch.Tensor     # (nnz,) int32
     n_rows: int
@@ -74,7 +83,10 @@ class SparseFeatures:
 
     @classmethod
     def from_csr(cls, indptr: np.ndarray, indices: np.ndarray, values: np.ndarray,
-                 n_cols: int, device: str | torch.device) -> "SparseFeatures":
+                 n_cols: int, device: str | torch.device,
+                 dtype: torch.dtype = torch.float32) -> "SparseFeatures":
+        """The feature CSR on ``device``, its values in ``dtype`` (rounded to
+        nearest even for bf16)."""
         device = torch.device(device)
         indptr = np.asarray(indptr, np.int64)
         cols = np.asarray(indices, np.int64)
@@ -89,23 +101,25 @@ class SparseFeatures:
         def dev(a, dtype=torch.int32):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
-        return cls(values=dev(np.asarray(values, np.float32), torch.float32), rows=dev(rows),
+        return cls(values=dev(np.asarray(values, np.float32), torch.float32).to(dtype),
+                   rows=dev(rows),
                    cols=dev(cols), n_rows=n_rows, n_cols=n_cols, row_ptr=dev(indptr),
                    t_ptr=dev(t_ptr), t_rows=dev(rows[t_perm]), t_perm=dev(t_perm, torch.int64),
                    t_work=csr_work_list(t_ptr, device), work=csr_work_list(indptr, device))
 
 
 def csr_matmul_plain(values, rows, cols, w, n_rows: int) -> torch.Tensor:
-    """Plain version (the JAX package's signature): index, scale and
-    ``index_add_`` in f32; differentiable in ``values`` and ``w``."""
-    gathered = w[cols.long()] * values[:, None].to(w.dtype)
-    return torch.zeros(n_rows, w.shape[1], dtype=w.dtype, device=w.device).index_add_(
-        0, rows.long(), gathered)
+    """Plain version (the JAX package's signature): values cast to W's type,
+    index, scale and ``index_add_`` in f32, one cast to W's type;
+    differentiable in ``values`` and ``w``."""
+    gathered = w[cols.long()].float() * values.to(w.dtype).float()[:, None]
+    return torch.zeros(n_rows, w.shape[1], dtype=torch.float32, device=w.device).index_add_(
+        0, rows.long(), gathered).to(w.dtype)
 
 
 def csr_matmul_dw(x: SparseFeatures, values, g) -> torch.Tensor:
-    """dW = Xᵀ·g, [F, d], with ``values`` in X's order: kernel 3 over the work
-    list of Xᵀ on the card."""
+    """dW = Xᵀ·g, [F, d] in g's type, with ``values`` in X's order and of g's
+    type: kernel 3 over the work list of Xᵀ on the card."""
     t_values = values.detach()[x.t_perm]
     if g.device.type == "cpu":
         return csr_matmul_plain(t_values, x.cols[x.t_perm], x.t_rows, g, x.n_cols)
@@ -119,7 +133,8 @@ class _CsrMatmul(torch.autograd.Function):
     def forward(ctx, values, w, x: SparseFeatures):
         ctx.x = x
         ctx.save_for_backward(values, w)
-        return kernels.csr_spmm(x.work, x.cols, values.detach(), w.detach(), x.n_rows)
+        return kernels.csr_spmm(x.work, x.cols, values.detach().to(w.dtype), w.detach(),
+                                x.n_rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -128,14 +143,14 @@ class _CsrMatmul(torch.autograd.Function):
         g = g.contiguous()
         d_values = d_w = None
         if ctx.needs_input_grad[0]:
-            d_values = (w[x.cols.long()] * g[x.rows.long()]).sum(1)
+            d_values = (w[x.cols.long()] * g[x.rows.long()]).sum(1).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            d_w = csr_matmul_dw(x, values, g)
+            d_w = csr_matmul_dw(x, values.to(w.dtype), g)
         return d_values, d_w, None
 
 
 def csr_matmul(values: torch.Tensor, x: SparseFeatures, w: torch.Tensor) -> torch.Tensor:
-    """X·W for X = (``values`` at ``x``'s positions), [n_rows, d] in f32.
+    """X·W for X = (``values`` at ``x``'s positions), [n_rows, d] in W's type.
     ``values`` may differ from ``x.values`` (dropout); the pattern is ``x``'s."""
     if w.device.type == "cpu":
         return csr_matmul_plain(values, x.rows, x.cols, w, x.n_rows)

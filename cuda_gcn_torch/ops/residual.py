@@ -21,22 +21,24 @@ from cuda_gcn_torch.ops.ell import WorkList
 
 
 def residual_spmm_plain(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
-    """Plain version: gather, scale and ``index_add_`` in f32. With ``out`` the
-    sum is added to it in place (out + Σ, as dense_part + resid in JAX)."""
+    """Plain version: gather, scale and ``index_add_`` in f32, one cast to h's
+    type. With ``out`` the f32 sum is added to it in place (out + Σ, as
+    dense_part + resid in JAX), rounded once to out's type."""
     n, d = h.shape
     rows = torch.repeat_interleave(torch.arange(n, device=h.device),
                                    torch.diff(row_ptr.long()))
     resid = torch.zeros(n, d, dtype=torch.float32, device=h.device)
-    resid.index_add_(0, rows, h[cols.long()].float() * coef[:, None])
+    resid.index_add_(0, rows, h[cols.long()].float() * coef.float()[:, None])
     if out is None:
-        return resid
+        return resid.to(h.dtype)
     return out.add_(resid)
 
 
 def residual_spmm(row_ptr, cols, coef, h, out=None,
                   work: WorkList | None = None) -> torch.Tensor:
-    """Σ over the CSR rows of coef · h[col], in f32; added in place to ``out``
-    when it is given (the kernel writes each row once, no atomics). ``work`` is
+    """Σ over the CSR rows of coef · h[col], summed in f32, in h's type; added
+    in place to ``out`` when it is given (the kernel writes each row once, no
+    atomics). ``work`` is
     ``csr_work_list(row_ptr)``, built once with the CSR (``ResidualCSR.work``);
     the kernel needs it, the plain version does not."""
     if h.device.type == "cpu":

@@ -254,3 +254,84 @@ def test_probe_cases_work_their_layout_out_once(monkeypatch):
                                                      dg.BISECT_STEPS)
     monkeypatch.setattr(dg, "_layout", lambda *a: pytest.fail("laid out again"))
     np.testing.assert_array_equal(case.run().numpy(), case.plain().numpy())
+
+
+@pytest.mark.parametrize("d,bases,vec", [
+    (16, (0, 0, 0), 8), (32, (0, 0, 0), 8), (24, (0, 0, 0), 8), (12, (0, 0, 0), 4),
+    (82, (0, 0, 0), 2), (41, (0, 0, 0), 1),
+    (16, (0, 8, 0), 4),     # out is 8-byte aligned only
+    (16, (0, 4, 0), 2),     # out is 4-byte aligned only
+    (16, (0, 0, 8), 2),     # the f32 partials are 8-byte aligned only
+    (16, (2, 0, 0), 1)])    # h is 2-byte aligned only
+def test_spmm_load_width_of_bf16_rows_in_bytes(d, bases, vec):
+    """bf16 rows: 16-byte loads are 8 features; a row of 164 bytes (d = 82)
+    takes 4-byte loads and one of 82 bytes (d = 41) 2-byte loads; the f32
+    partials are aligned to the f32 store of the same features."""
+    assert kernels.spmm_vec(d, *bases, itemsize=2) == vec
+
+
+def _as(args, dtype, *names):
+    for name in names:
+        args[name] = args[name].to(dtype).as_subclass(FakeCuda)
+    return args
+
+
+@pytest.mark.parametrize("name", ["bsr_tile", "csr_spmm", "ell_spmm"])
+def test_bf16_activations_reach_the_bf16_variant(recorder, name):
+    """bf16 h (and out, and the coefficients of kernels 2 and 3) reach the C
+    entry with the bf16 code and, for kernels 2 and 3, 16-byte loads of 8
+    features; the output is bf16."""
+    fn, args = _valid()[name]
+    args = _as(args, torch.bfloat16, *{"bsr_tile": ("h",), "csr_spmm": ("h", "coef", "out"),
+                                       "ell_spmm": ("h", "coef")}[name])
+    out = fn(**args)
+    assert [c[0] for c in recorder] == [name] and out.dtype == torch.bfloat16
+    call = recorder[0][1]
+    if name == "bsr_tile":
+        assert call[-2] == kernels.dtype_code(torch.bfloat16) == 1
+    else:
+        assert call[12:14] == (16, 8) and call[-2] == kernels.spmm_code(torch.bfloat16,
+                                                                         torch.bfloat16) == 3
+
+
+@pytest.mark.parametrize("name", ["csr_spmm", "ell_spmm"])
+def test_f32_rows_with_bf16_coefficients_have_their_own_variant(recorder, name):
+    fn, args = _valid()[name]
+    out = fn(**_as(args, torch.bfloat16, "coef"))
+    assert out.dtype == torch.float32
+    assert recorder[0][1][12:14] == (16, 4) and recorder[0][1][-2] == 1
+
+
+def test_f32_calls_carry_the_f32_code(recorder):
+    for name in ("bsr_tile", "csr_spmm", "ell_spmm"):
+        fn, args = _valid()[name]
+        fn(**args)
+    assert [c[1][-2] for c in recorder] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype) for name in ("bsr_tile", "csr_spmm", "ell_spmm")
+    for dtype in (torch.float16, torch.float64)
+] + [("csr_spmm", "bf16 h with f32 coef"), ("ell_spmm", "bf16 h with f32 coef")])
+def test_a_type_without_a_variant_is_refused(recorder, name, dtype):
+    """No cast to reach another variant and no plain fallback: f16 or f64
+    activations, and bf16 rows with f32 coefficients, raise before the C call."""
+    fn, args = _valid()[name]
+    if dtype == "bf16 h with f32 coef":
+        args = _as(args, torch.bfloat16, "h", *(("out",) if name == "csr_spmm" else ()))
+    else:
+        args = _as(args, dtype, "h")
+    with pytest.raises(TypeError):
+        fn(**args)
+    assert recorder == [] and all(v == 0 for v in kernels.launches.values())
+
+
+def test_kernel_1_planes_follow_the_type_of_h():
+    """f32 h is read as three bf16 planes, bf16 h as one; the tile rules of
+    the tensor-core kernel are the same for both, and other types are refused."""
+    assert kernels.BSR_PLANES == {torch.float32: 3, torch.bfloat16: 1}
+    for h_dtype in (torch.float32, torch.bfloat16):
+        assert kernels.bsr_mma_width(torch.bfloat16, 256, 9, 41, h_dtype) == 48
+        assert kernels.bsr_mma_width(torch.float32, 256, 9, 41, h_dtype) is None
+    with pytest.raises(TypeError):
+        kernels.bsr_mma_width(torch.bfloat16, 256, 9, 41, torch.float16)

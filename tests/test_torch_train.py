@@ -309,9 +309,11 @@ def test_sparse_features_on_a_huge_graph_name_the_banded_layout(tiny_dataset, mo
     with pytest.raises(NotImplementedError, match="banded layout"):
         _sparse_prepared(tiny_dataset, "sparse")
     _sparse_prepared(tiny_dataset, "dense")  # dense features are not limited
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ttrain.prepare(GCNConfig(compute_dtype="bfloat16"), to_torch_dataset(tiny_dataset),
-                       "cpu")
+    _, graph, x, _ = ttrain.prepare(GCNConfig(compute_dtype="bfloat16", graphsum_backend="bsr"),
+                                    to_torch_dataset(tiny_dataset), "cpu")
+    assert x.dtype == torch.bfloat16 and graph.resid.coef.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        GCNConfig(compute_dtype="float16")
     with pytest.raises(ValueError, match="feature_matmul"):
         ttrain.prepare(GCNConfig(feature_matmul="banded"), to_torch_dataset(tiny_dataset),
                        "cpu")
