@@ -14,7 +14,8 @@ Phases, each of which raises (exit code not 0) when it fails:
     f32 tiles (the FMA kernel), tile sizes 64 and 128, the widths 60 and 100
     that the main path does not reach (100 falls to the FMA kernel), each with
     f32 and with bf16 h, and a case built so that every output needs the third
-    bf16 part of h;
+    bf16 part of h; and on block rows of 24, 89 and 178 random tiles against
+    an f64 sum (the kernel's error must not grow with a row's length);
 (c) the main path: ``train.run`` trains the 602-16-41 GCN on the bsr backend
     with dropout 0.5; losses must be finite, the train loss must fall, and
     each kernel must have launched on every adjacency pass (4 per epoch, 2
@@ -78,13 +79,31 @@ Phases, each of which raises (exit code not 0) when it fails:
     with their profiles and ``train.run``s that count the kernels' launches;
     synth-pubmed at bf16, card against CPU (loss rtol 5e-3, accuracy within 2
     nodes); and ``cli.main(["synth-cora", "--seed", "3", "--epochs", "3"])``,
-    which must generate the dataset.
+    which must generate the dataset;
+(n) synth-reddit4x (931,860 nodes, 602-16-41, run last): generated with seed 0
+    by ``data/synthetic.py``, relabelled by LPA and built as the bsr graph,
+    each step's host seconds and peak host memory printed with the tile and
+    residual edge counts; kernels 1 and 2 against their plain versions at d
+    16/32/41/82 (kernel 1's plain version over 32,768 tiles at a time) and
+    bitwise repeatable, timed beside their bounds and the library as in (d);
+    the dense-feature fused loop, 5 epochs after 2 warm-up ones, with its
+    profile, its peak device memory and its launch counts; sparse features:
+    X·W (kernel 2) and dW (kernel 3) as in (k), 3 fused epochs at dropout 0
+    against dense features within rtol 1e-4 / atol 1e-5, and the steady
+    sparse loop with its launch counts; then the dense loop on the same graph
+    built for the ``segment`` backend (every edge on kernel 2);
+(o) the CLI's extras (run after (l)): ``cli.main`` on synth-pubmed at dropout
+    0.5, 4 epochs against 2 saved with ``--save-checkpoint`` and 2 more from
+    ``--load-checkpoint``: epochs 3-4 and the final checkpoints equal bit for
+    bit; ``--metrics-csv``/``--metrics-jsonl`` parse; ``--timing`` prints all
+    13 phases, each finite and above 0, with the launches that the resumed run
+    and the per-op timing should make; ``--build-kernels`` exits 0.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
 call) and the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
-``csr_spmm_bf16``, ``ell_spmm_bf16``), and last ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits 1 and prints no result.
+``csr_spmm_bf16``, ``ell_spmm_bf16``; kernels 1-3 carry their (n) numbers
+under ``synth_reddit4x``), and last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -228,19 +247,34 @@ def phase_build():
             log(f"  {name}: spills in {len(spilled)} kernels: {', '.join(spilled)}")
 
 
-def phase_kernels(dataset, device):
+PLAIN_TILE_CHUNK = 32768  # tiles per call of kernel 1's plain version (f32 copies)
+
+
+def _bsr_plain(graph, rows, cols, h, transpose: bool):
+    """Kernel 1's plain version over ``PLAIN_TILE_CHUNK`` tiles at a time,
+    the parts added in f32: on synth-reddit4x an f32 copy of all tiles would
+    be 23 GB. One call below that many tiles."""
     import torch
 
-    from cuda_gcn_torch.data.graph import build_graph
-    from cuda_gcn_torch.ops.bsr import (bsr_tile_contract, bsr_tile_contract_plain,
-                                        tile_plan)
-    from cuda_gcn_torch.ops.residual import residual_spmm, residual_spmm_plain
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract_plain
 
-    t0 = time.perf_counter()
-    graph = build_graph(dataset.graph, backend="bsr", device=device)
-    torch.cuda.synchronize()
+    k = graph.num_tiles
+    if k <= PLAIN_TILE_CHUNK:
+        return bsr_tile_contract_plain(graph.tiles, rows, cols, h, graph.n_nodes,
+                                       graph.t_blocks, transpose=transpose)
+    out = torch.zeros(graph.n_nodes, h.shape[1], device=h.device)
+    for a in range(0, k, PLAIN_TILE_CHUNK):
+        b = slice(a, a + PLAIN_TILE_CHUNK)
+        out += bsr_tile_contract_plain(graph.tiles[b], rows[b], cols[b], h, graph.n_nodes,
+                                       graph.t_blocks, transpose=transpose).float()
+    return out.to(h.dtype)
+
+
+def _describe_graph(graph, label: str, seconds: float) -> None:
+    import torch
+
     covered = graph.total_nnz - graph.resid_nnz
-    log(f"(b) graph built in {time.perf_counter() - t0:.1f} s: n={graph.n_nodes} "
+    log(f"{label} graph built in {seconds:.1f} s: n={graph.n_nodes} "
         f"nnz={graph.total_nnz} K={graph.num_tiles} T={graph.t_blocks} "
         f"tb={graph.tb} residual nnz={graph.resid_nnz} "
         f"tile coverage={covered / graph.total_nnz:.4f} symmetric={graph.symmetric}")
@@ -252,12 +286,35 @@ def phase_kernels(dataset, device):
         f"work items {work.beg.numel()} ({work.n_nonempty} with edges, {work.n_partials} "
         f"chunks of {work.split_rows.numel()} long rows); tiles per block row: mean "
         f"{per_row.mean():.2f} p99 {per_row.quantile(0.99):.0f} max {per_row.max():.0f}")
-    plan_t = tile_plan(graph.tile_cols, graph.tile_rows, graph.t_blocks)
-    gen = torch.Generator(device=device).manual_seed(0)
+
+
+def phase_kernels(dataset, device):
+    import torch
+
+    from cuda_gcn_torch.data.graph import build_graph
+
+    t0 = time.perf_counter()
+    graph = build_graph(dataset.graph, backend="bsr", device=device)
+    torch.cuda.synchronize()
+    _describe_graph(graph, "(b)", time.perf_counter() - t0)
     errs = {"bsr_tile": 0.0, "csr_spmm": 0.0}
+    check_kernels_1_2(graph, errs)
+    return graph, errs
+
+
+def check_kernels_1_2(graph, errs, label: str = ""):
+    """Kernels 1 (both orientations) and 2 (both forms) against their plain
+    versions at the main path's widths, and bitwise equal across two runs."""
+    import torch
+
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, tile_plan
+    from cuda_gcn_torch.ops.residual import residual_spmm, residual_spmm_plain
+
+    plan_t = tile_plan(graph.tile_cols, graph.tile_rows, graph.t_blocks)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     r = graph.resid
     for d in WIDTHS:
-        h = torch.randn(graph.n_nodes, d, generator=gen, device=device)
+        h = torch.randn(graph.n_nodes, d, generator=gen, device="cuda")
         for transpose in (False, True):
             rows, cols, plan = ((graph.tile_cols, graph.tile_rows, plan_t) if transpose
                                 else (graph.tile_rows, graph.tile_cols, graph.plan))
@@ -267,27 +324,26 @@ def phase_kernels(dataset, device):
                                          graph.t_blocks, transpose=transpose, plan=plan)
 
             got = tile_part()
-            want = bsr_tile_contract_plain(graph.tiles, rows, cols, h, graph.n_nodes,
-                                           graph.t_blocks, transpose=transpose)
+            want = _bsr_plain(graph, rows, cols, h, transpose)
             errs["bsr_tile"] = max(errs["bsr_tile"], check(
-                f"bsr_tile d={d} transpose={transpose}", got, want))
+                f"bsr_tile{label} d={d} transpose={transpose}", got, want))
             if not torch.equal(got, tile_part()):
                 raise AssertionError(f"bsr_tile d={d} differs between two runs")
+            del got, want
         got = residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work)
         want = residual_spmm_plain(r.row_ptr, r.cols, r.coef, h)
-        errs["csr_spmm"] = max(errs["csr_spmm"], check(f"csr_spmm d={d}", got, want))
-        base = torch.randn(graph.n_nodes, d, generator=gen, device=device)
+        errs["csr_spmm"] = max(errs["csr_spmm"], check(f"csr_spmm{label} d={d}", got, want))
+        base = torch.randn(graph.n_nodes, d, generator=gen, device="cuda")
         got2 = residual_spmm(r.row_ptr, r.cols, r.coef, h, out=base.clone(), work=r.work)
         want = residual_spmm_plain(r.row_ptr, r.cols, r.coef, h, out=base.clone())
         errs["csr_spmm"] = max(errs["csr_spmm"], check(
-            f"csr_spmm d={d} accumulate", got2, want))
+            f"csr_spmm{label} d={d} accumulate", got2, want))
         if not torch.equal(got, residual_spmm(r.row_ptr, r.cols, r.coef, h, work=r.work)) \
                 or not torch.equal(got2, residual_spmm(r.row_ptr, r.cols, r.coef, h,
                                                        out=base.clone(), work=r.work)):
             raise AssertionError(f"csr_spmm d={d} differs between two runs")
     torch.cuda.synchronize()
-    log("  kernels 1 and 2: bitwise equal across two runs at every width")
-    return graph, errs
+    log(f"  kernels 1 and 2{label}: bitwise equal across two runs at every width")
 
 
 def phase_tile_cases(errs):
@@ -382,6 +438,49 @@ def phase_third_part():
     torch.cuda.synchronize()
 
 
+DEEP_ROW_TILES = (24, 89, 178)  # synth-reddit's mean; synth-reddit4x's mean and most
+
+
+def phase_deep_rows(errs):
+    """(b), last: kernel 1 on block rows of many tiles, against an f64 sum.
+    16 block rows of 24, 89 or 178 random tiles (5% of entries set, values in
+    [0, 0.02)), random h: each output within ATOL/RTOL of the exact sum, with
+    the plain f32 version's own distance from it printed beside. The tensor
+    cores round a running sum at every wgmma; the kernel adds each tile's sums
+    into f32 registers, so the error must not grow with the row's length."""
+    import torch
+
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, bsr_tile_contract_plain, tile_plan
+
+    t_blocks, tb = 16, 256
+    n = t_blocks * tb
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for per_row in DEEP_ROW_TILES:
+        k = t_blocks * per_row
+        keep = torch.rand(k, tb, tb, generator=gen, device="cuda") < 0.05
+        tiles = (torch.rand(k, tb, tb, generator=gen, device="cuda") * 0.02 * keep).to(
+            torch.bfloat16)
+        del keep
+        rows = torch.arange(t_blocks, device="cuda").repeat_interleave(per_row).int()
+        cols = torch.randint(0, t_blocks, (k,), generator=gen, device="cuda").int()
+        plan = tile_plan(rows, cols, t_blocks)
+        for d in (16, 82):
+            h = torch.randn(n, d, generator=gen, device="cuda")
+            exact = torch.zeros(t_blocks, tb, d, dtype=torch.float64, device="cuda")
+            exact.index_add_(0, rows.long(), torch.bmm(tiles.double(), h.double().view(
+                t_blocks, tb, d)[cols.long()]))
+            exact = exact.view(n, d)
+            got = bsr_tile_contract(tiles, rows, cols, h, n, t_blocks, plan=plan)
+            plain = bsr_tile_contract_plain(tiles, rows, cols, h, n, t_blocks)
+            p_err, p_ratio = max_errors(plain.double(), exact)
+            log(f"  bsr_tile, block rows of {per_row} tiles, d={d}, against the f64 sum "
+                f"(the plain f32 version: max_abs_err={p_err:.3e} max_err/tol={p_ratio:.3f}):")
+            errs["bsr_tile"] = max(errs["bsr_tile"], check(
+                f"bsr_tile {per_row} tiles a block row d={d}", got.double(), exact))
+        del tiles
+    torch.cuda.synchronize()
+
+
 def phase_main_path(dataset):
     import math
 
@@ -446,7 +545,10 @@ def _fused_inputs(dataset, sparse: bool = False, **dtypes):
     return cfg, x, truths, kw
 
 
-def phase_steady(graph, dataset, label: str = "", sparse: bool = False, **dtypes) -> float:
+def phase_steady(graph, dataset, label: str = "", sparse: bool = False,
+                 epochs: int = EPOCHS, **dtypes) -> float:
+    """ms per fused epoch over ``epochs`` after 2 warm-up epochs (two
+    ``run_epochs`` calls, each with its trailing eval)."""
     import torch
 
     from cuda_gcn_torch import train
@@ -456,9 +558,9 @@ def phase_steady(graph, dataset, label: str = "", sparse: bool = False, **dtypes
     state = train.create_state(cfg, "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    train.run_epochs(state, graph, x, *truths, epochs=EPOCHS, **kw).cpu()
-    ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
-    log(f"  steady fused loop{label}: {ms:.2f} ms/epoch over {EPOCHS} epochs "
+    train.run_epochs(state, graph, x, *truths, epochs=epochs, **kw).cpu()
+    ms = (time.perf_counter() - t0) * 1e3 / epochs
+    log(f"  steady fused loop{label}: {ms:.2f} ms/epoch over {epochs} epochs "
         f"(incl. the trailing eval)")
     return ms
 
@@ -562,13 +664,13 @@ def _library_ms(make, iters):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
 
 
-def phase_timing(graph, launches, errs):
+def phase_timing(graph, launches, errs, label: str = "(d)"):
     import dataclasses
 
     import torch
 
     from cuda_gcn_torch import kernels
-    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, bsr_tile_contract_plain
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract
     from cuda_gcn_torch.ops.residual import residual_spmm, residual_spmm_plain
 
     n, k, tb, t_blocks = graph.n_nodes, graph.num_tiles, graph.tb, graph.t_blocks
@@ -578,7 +680,7 @@ def phase_timing(graph, launches, errs):
     csr = torch.sparse_csr_tensor(r.row_ptr.long(), r.cols.long(), r.coef, size=(n, n))
     tile_bytes = graph.tiles.numel() * graph.tiles.element_size()
     by_width = {"bsr_tile": {}, "csr_spmm": {}}
-    log("(d) timing at the main path's shapes (CUDA events, warm, mean of iters); bounds: "
+    log(f"{label} timing at the main path's shapes (CUDA events, warm, mean of iters); bounds: "
         "each input read once and each output written once over 3.35 TB/s, against kernel "
         "1's three bf16 passes at its accumulator width N over 989 TFLOP/s and kernel 2's "
         "f32 FMAs over 67 TFLOP/s")
@@ -586,8 +688,7 @@ def phase_timing(graph, launches, errs):
         h = torch.randn(n, d, generator=gen, device="cuda")
         t1 = cuda_ms(lambda: bsr_tile_contract(graph.tiles, graph.tile_rows, graph.tile_cols,
                                                h, n, t_blocks, plan=graph.plan), 20)
-        p1 = cuda_ms(lambda: bsr_tile_contract_plain(graph.tiles, graph.tile_rows,
-                                                     graph.tile_cols, h, n, t_blocks), 3)
+        p1 = cuda_ms(lambda: _bsr_plain(graph, graph.tile_rows, graph.tile_cols, h, False), 3)
         out = torch.zeros(n, d, device="cuda")
         t2 = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, out=out,
                                            work=r.work), 20)
@@ -1176,7 +1277,7 @@ def _mass_check(name, got, want, mass):
     return err
 
 
-def phase_sparse_kernels(dataset):
+def phase_sparse_kernels(dataset, label: str = "(k)"):
     """(k), first half: the layer-0 products on synth-reddit's features."""
     import torch
 
@@ -1188,7 +1289,7 @@ def phase_sparse_kernels(dataset):
     torch.cuda.synchronize()
     n, f, nnz = x.n_rows, x.n_cols, x.nnz
     per_col = torch.diff(x.t_ptr.long()).float()
-    log(f"(k) sparse layer-0: features [{n}, {f}] nnz={nnz} ({nnz / n:.1f} per row; per "
+    log(f"{label} sparse layer-0: features [{n}, {f}] nnz={nnz} ({nnz / n:.1f} per row; per "
         f"column mean {per_col.mean():.0f} max {per_col.max():.0f}) on the card in "
         f"{time.perf_counter() - t0:.2f} s; dW work list {x.t_work.beg.numel()} items, "
         f"{x.t_work.n_partials} partials")
@@ -1478,8 +1579,7 @@ def _bf16_kernels(graph, plan, ell_csr, errs):
         # each output written once, h and out at 2 bytes a value
         t1 = cuda_ms(lambda: bsr_tile_contract(graph.tiles, graph.tile_rows, graph.tile_cols,
                                                h, n, t_blocks, plan=graph.plan), 20)
-        p1 = cuda_ms(lambda: bsr_tile_contract_plain(graph.tiles, graph.tile_rows,
-                                                     graph.tile_cols, h, n, t_blocks), 3)
+        p1 = cuda_ms(lambda: _bsr_plain(graph, graph.tile_rows, graph.tile_cols, h, False), 3)
         acc = torch.zeros(n, d, device="cuda", dtype=bf16)
         t2 = cuda_ms(lambda: residual_spmm(r.row_ptr, r.cols, r.coef, h, out=acc,
                                            work=r.work), 20)
@@ -1719,6 +1819,228 @@ def _bf16_kernel_lines(m) -> list[dict]:
     return rows
 
 
+# (n) synth-reddit4x at full width, and (o) the CLI's extras
+
+REDDIT4X_EPOCHS = 5
+EPOCH_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX package's, tests/test_model.py:126-157
+
+
+def _host_gb() -> float:
+    """The process's peak resident host memory so far, GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _counted(label: str, fn, expected: dict) -> dict:
+    """Run ``fn`` with every launch count set to 0 first; the counts must be
+    ``expected`` (0 for a kernel not named)."""
+    from cuda_gcn_torch import kernels
+
+    kernels.reset_launches()
+    fn()
+    launches = dict(kernels.launches)
+    log(f"  launches {launches}; expected {expected}, 0 for the others")
+    if any(v != expected.get(k, 0) for k, v in launches.items()):
+        raise AssertionError(f"{label}: the launch counts are not what the code should make")
+    return launches
+
+
+def phase_reddit4x(errs):
+    """(n) synth-reddit4x (931,860 nodes, 602-16-41): the dataset generated by
+    the port with seed 0, relabelled by LPA, built as the bsr graph, each
+    step's host seconds and peak host memory; kernels 1 and 2 against their
+    plain versions and timed at d 16/32/41/82 beside their bounds and the
+    library; the dense-feature fused loop (steady ms/epoch, profile, peak
+    device memory, launches); sparse features: kernels 2 (X·W) and 3 (dW)
+    against their plain versions and timed, 3 epochs at dropout 0 against
+    dense features within rtol 1e-4 / atol 1e-5, the steady sparse loop; the
+    dense loop on the graph built for the ``segment`` backend."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.graph import build_graph
+    from cuda_gcn_torch.data.reorder import locality_permutation, reorder_dataset
+    from cuda_gcn_torch.data.synthetic import make_synthetic
+
+    name = "synth-reddit4x"
+    setup = {}
+    t0 = time.perf_counter()
+    ds = make_synthetic(name, seed=0)
+    setup["generate_s"] = time.perf_counter() - t0
+    log(f"(n) {name}: generated in {setup['generate_s']:.1f} s (host peak {_host_gb():.1f} GB): "
+        f"{ds.num_nodes} nodes, {ds.graph.nnz} edges with self-loops, "
+        f"{len(ds.feature_value)} feature nnz, {ds.input_dim}-16-{ds.output_dim}")
+    t0 = time.perf_counter()
+    perm = locality_permutation(ds.graph)
+    setup["lpa_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = reorder_dataset(ds, perm)
+    setup["relabel_s"] = time.perf_counter() - t0
+    del perm
+    log(f"  locality permutation (LPA) {setup['lpa_s']:.1f} s, relabelling "
+        f"{setup['relabel_s']:.1f} s (host peak {_host_gb():.1f} GB)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graph = build_graph(ds.graph, backend="bsr", aux_bytes=ds.num_nodes * ds.input_dim * 4,
+                        device="cuda")
+    torch.cuda.synchronize()
+    setup["graph_build_s"] = time.perf_counter() - t0
+    _describe_graph(graph, f"  {name}", setup["graph_build_s"])
+    log(f"  host peak {_host_gb():.1f} GB; the graph holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    check_kernels_1_2(graph, errs, f" {name}")
+    torch.cuda.empty_cache()
+    timing = phase_timing(graph, {"bsr_tile": 0, "csr_spmm": 0}, errs, label=f"  {name}")
+    torch.cuda.empty_cache()
+
+    e = REDDIT4X_EPOCHS
+    torch.cuda.reset_peak_memory_stats()
+    steady = {}
+    # two run_epochs calls (2 warm-up epochs and e timed), each with its trailing eval
+    _counted(f"{name} dense", lambda: steady.__setitem__("dense", phase_steady(
+        graph, ds, f" {name}, dense f32 features", epochs=e)),
+        {"bsr_tile": 4 * (2 + e) + 4, "csr_spmm": 4 * (2 + e) + 4})
+    peak_dense = torch.cuda.max_memory_allocated()
+    prof = phase_profile(graph, ds, label=f"  {name}")
+    torch.cuda.empty_cache()
+
+    layer0 = phase_sparse_kernels(ds, label=f"  {name}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    xs = _features(ds, sparse=True)
+    setup["sparse_features_s"] = time.perf_counter() - t0
+    cfg, xd, truths, kw = _fused_inputs(ds)
+    zero = dict(kw, dropout_rate=0.0)
+    a, b = (train.run_epochs(train.create_state(cfg, "cuda"), graph, x, *truths, epochs=3,
+                             **zero).cpu().numpy() for x in (xs, xd))
+    ok = np.allclose(a, b, **EPOCH_TOL)
+    log(f"  sparse ({setup['sparse_features_s']:.1f} s to build on the card) vs dense "
+        f"features, 3 fused epochs at dropout 0, same weights: max metric diff "
+        f"{float(np.abs(a - b).max()):.3e} (rtol 1e-4, atol 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok or not np.isfinite(a).all():
+        raise AssertionError(f"sparse and dense features disagree on {name}:\n{a}\n{b}")
+    del xs, xd
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counted(f"{name} sparse", lambda: steady.__setitem__("sparse", phase_steady(
+        graph, ds, f" {name}, sparse features", sparse=True, epochs=e)),
+        {"bsr_tile": 4 * (2 + e) + 4, "csr_spmm": 6 * (2 + e) + 6, "ell_spmm": 2 + e})
+    peak_sparse = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  peak device memory of the fused loop: dense features {peak_dense / 1e9:.2f} GB, "
+        f"sparse {peak_sparse / 1e9:.2f} GB, of {total / 1e9:.1f} GB; host set-up "
+        + ", ".join(f"{k} {v:.1f}" for k, v in setup.items()))
+    result = dict(nodes=ds.num_nodes, edges=ds.graph.nnz, feature_nnz=len(ds.feature_value),
+                  tiles=graph.num_tiles, residual_edges=graph.resid_nnz,
+                  tile_gb=graph.tiles.numel() * graph.tiles.element_size() / 1e9,
+                  epoch_ms=steady, busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+                  peak_device_gb={"dense": peak_dense / 1e9, "sparse": peak_sparse / 1e9},
+                  device_gb=total / 1e9, host_setup_s=setup,
+                  kernels={line["name"]: line for line in timing}, layer0=layer0)
+    del graph
+    torch.cuda.empty_cache()
+    # the same graph with every edge on kernel 2 (backend 'segment'): where the
+    # TPU-calibrated tile break-even leaves the bsr epoch on the card
+    t0 = time.perf_counter()
+    graph = build_graph(ds.graph, backend="segment", device="cuda")
+    torch.cuda.synchronize()
+    setup["segment_build_s"] = time.perf_counter() - t0
+    _counted(f"{name} segment", lambda: steady.__setitem__("segment dense", phase_steady(
+        graph, ds, f" {name}, backend segment, dense f32 features", epochs=e)),
+        {"csr_spmm": 4 * (2 + e) + 4})
+    result["host_peak_gb"] = _host_gb()
+    del graph, ds
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_cli_extras():
+    """(o) the CLI's extras on the card (cli.main, synth-pubmed, dropout 0.5):
+    4 epochs against 2 saved and 2 resumed from the checkpoint, epochs 3-4 and
+    the final checkpoints (weights, moments, step, the Philox seed and offset)
+    equal bit for bit; the history files parse; --timing prints all 13 phases,
+    each finite and above 0; --build-kernels exits 0."""
+    import contextlib
+    import csv
+    import io
+    import json
+    import math
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from cuda_gcn_torch import cli
+    from cuda_gcn_torch.utils import timer as T
+
+    def main(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["synth-pubmed", *argv])
+        if rc != 0:
+            raise AssertionError(f"cli.main{argv} exited {rc}:\n{buf.getvalue()}")
+        return buf.getvalue()
+
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = {k: os.path.join(tmp, k) for k in ("full.npz", "half.npz", "end.npz",
+                                                  "full.jsonl", "end.jsonl", "end.csv")}
+        main("--epochs", "4", "--metrics-jsonl", path["full.jsonl"],
+             "--save-checkpoint", path["full.npz"])
+        main("--epochs", "2", "--save-checkpoint", path["half.npz"])
+        T.timers.reset()
+        printed_out = []
+        # bsr on synth-pubmed: kernels 1 and 2 once a pass. 2 epochs (4 passes each),
+        # the trailing and the test eval (2 each); then --timing: 2 forward passes,
+        # and graphsum_fw and _bw each 50 times after one warm-up
+        passes = 4 * 2 + 2 + 2 + 2 + 2 * 51
+        _counted("(o) resumed run", lambda: printed_out.append(main(
+            "--epochs", "2", "--load-checkpoint", path["half.npz"], "--save-checkpoint",
+            path["end.npz"], "--metrics-jsonl", path["end.jsonl"], "--metrics-csv",
+            path["end.csv"], "--timing")), {"bsr_tile": passes, "csr_spmm": passes})
+        out = printed_out[0]
+        full = [json.loads(line) for line in open(path["full.jsonl"])]
+        end = [json.loads(line) for line in open(path["end.jsonl"])]
+        rows = list(csv.DictReader(open(path["end.csv"])))
+        with np.load(path["full.npz"]) as z4, np.load(path["end.npz"]) as z22:
+            same_leaves = sorted(z4.files) == sorted(z22.files) and all(
+                z4[f].dtype == z22[f].dtype
+                and z4[f].tobytes() == z22[f].tobytes()
+                for f in z4.files)
+            key = [int(v) for v in z22["leaf_7"]]
+    same_rows = [[r[k] for k in keys] for r in end[1:]] == [[r[k] for k in keys]
+                                                             for r in full[3:]]
+    log(f"(o) cli.main synth-pubmed, dropout 0.5: 4 epochs against 2 + 2 resumed from the "
+        f"checkpoint: epochs 3-4 equal bit for bit {same_rows}; final checkpoints equal bit "
+        f"for bit (8 leaves, Philox seed {key[0]} offset {key[1]}) {same_leaves}")
+    for line in out.strip().splitlines():
+        log("  | " + line)
+    if not same_rows or not same_leaves:
+        raise AssertionError("a resumed run differs from the uninterrupted one")
+    if end[0]["meta"]["platform"] != "CUDA" or [r["epoch"] for r in rows] != ["1", "2"] \
+            or [float(r["val_loss"]) for r in rows] != [r["val_loss"] for r in end[1:]]:
+        raise AssertionError("the history files do not hold the run")
+    printed = dict(re.findall(r"^(\w+) average time: (\d+\.\d{3})ms$", out, re.M))
+    phases = [getattr(T, n) for n in dir(T) if n.startswith("TMR_")]
+    avg = {name: T.timers.average_ms(name) for name in phases}
+    if sorted(printed) != sorted(phases) or not all(
+            math.isfinite(v) and v > 0 for v in avg.values()):
+        raise AssertionError(f"--timing did not time every phase: {printed} {avg}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["synth-pubmed", "--build-kernels"])
+    log(f"  --build-kernels: rc {rc}, {buf.getvalue().strip()}")
+    if rc != 0:
+        raise AssertionError("--build-kernels failed")
+    return avg
+
+
 def main() -> int:
     import torch
 
@@ -1742,6 +2064,7 @@ def main() -> int:
     graph, errs = phase_kernels(dataset, device)
     phase_tile_cases(errs)
     phase_third_part()
+    phase_deep_rows(errs)
     launches = phase_main_path(dataset)
     dense_ms = phase_steady(graph, dataset)
     kernels_line = phase_timing(graph, launches, errs)
@@ -1763,6 +2086,9 @@ def main() -> int:
     probe_rows = phase_probes(errs)
     taa_rows = phase_taa_probes(errs)
     text_launches = phase_text_entry()
+    cli_timers = phase_cli_extras()
+    errs4x = {"bsr_tile": 0.0, "csr_spmm": 0.0}
+    reddit4x = phase_reddit4x(errs4x)
     for line in kernels_line:  # kernels 1 and 2: the launches of the sparse-feature run too
         line["launches_sparse_run"] = sparse_launches[line["name"]]
         if line["name"] == "csr_spmm":
@@ -1814,11 +2140,32 @@ def main() -> int:
                              "source": "cuda_gcn_torch/csrc/taa_probe.cu",
                              "replaces": replaces[name], **line})
     kernels_line += _bf16_kernel_lines(bf16)
+    for line in kernels_line:  # kernels 1-3 at synth-reddit4x: checked, timed, bounded
+        name = line["name"]
+        if name in reddit4x["kernels"]:
+            at4x = {k: v for k, v in reddit4x["kernels"][name].items()
+                    if k not in ("name", "route", "source", "replaces", "launches")}
+            line["synth_reddit4x"] = dict(at4x, max_abs_err=errs4x[name])
+        elif name == "ell_spmm":
+            line["synth_reddit4x"] = {"layer0_dw": reddit4x["layer0"]["dw"]}
+        if name == "csr_spmm":
+            line["synth_reddit4x"]["layer0_forward"] = reddit4x["layer0"]["forward"]
     log(f"steady fused epoch on synth-reddit in this call: bsr {dense_ms:.2f} ms (sparse "
         f"features {sparse_ms:.2f}), ell {reddit['as loaded']['epoch_ms']:.2f} ms as loaded and "
         f"{reddit['relabelled']['epoch_ms']:.2f} ms relabelled; at compute bf16: bsr "
         f"{bf16['epoch_ms']['bsr']:.2f} ms (param bf16 too: {bf16['epoch_ms']['bsr, param bf16']:.2f}), "
         f"ell {bf16['epoch_ms']['ell']:.2f} ms as loaded")
+    log(f"synth-reddit4x: {reddit4x['nodes']} nodes, {reddit4x['edges']} edges, K="
+        f"{reddit4x['tiles']} tiles, {reddit4x['residual_edges']} residual edges; steady "
+        f"fused epoch dense {reddit4x['epoch_ms']['dense']:.2f} ms (busy share "
+        f"{reddit4x['busy_share']:.3f}), sparse {reddit4x['epoch_ms']['sparse']:.2f} ms, "
+        f"backend segment {reddit4x['epoch_ms']['segment dense']:.2f} ms; peak "
+        f"device memory {reddit4x['peak_device_gb']['dense']:.2f} / "
+        f"{reddit4x['peak_device_gb']['sparse']:.2f} GB of {reddit4x['device_gb']:.1f}; host "
+        f"set-up s {json.dumps({k: round(v, 1) for k, v in reddit4x['host_setup_s'].items()})}"
+        f", host peak {reddit4x['host_peak_gb']:.1f} GB")
+    log("--timing phases on synth-pubmed (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in cli_timers.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -1,9 +1,19 @@
-"""Command-line entry point of the port.
+"""Command-line entry point of the port, with the flags of cuda_gcn_tpu.cli.
 
-    python -m cuda_gcn_torch.cli <name> --epochs 5 [--device cpu] [--data-dir data]
-                                 [--backend auto|bsr|segment|ell|pallas|dense]
-                                 [--feature-matmul dense|sparse] [--early-stopping N]
-                                 [--seed S] [--compute-dtype float32|bfloat16]
+    python -m cuda_gcn_torch.cli <name> [num_nodes input_dim hidden_dim output_dim dropout
+                                         learning_rate weight_decay epochs early_stopping]
+        [--num-nodes N ... --early-stopping N]  (each override as a flag; the flag wins)
+        [--device cpu] [--data-dir data] [--seed S]
+        [--backend auto|bsr|segment|ell|pallas|dense] [--feature-matmul dense|sparse]
+        [--compute-dtype float32|bfloat16]
+        [--save-checkpoint PATH] [--load-checkpoint PATH]
+        [--metrics-csv PATH] [--metrics-jsonl PATH] [--timing] [--build-kernels]
+
+The nine hyperparameter overrides are those of the reference's usage string
+(src/main.cpp:15-49), positional or as flags, as cuda_gcn_tpu.cli takes them
+(:24-27,75-103). ``num_nodes``, ``input_dim`` and ``output_dim`` come from the
+dataset: passing them prints a note and changes nothing; a value that does
+not parse exits with its message.
 
 A name of ``data.synthetic.PROFILES`` or ``VARIANTS`` (``synth-cora`` ...
 ``synth-reddit32x``, ``synth-reddit-slope``) is generated with the run's seed,
@@ -17,17 +27,35 @@ backend relabels the dataset with the cached locality permutation
 ``.cache/<name>.perm.npy`` only when the dataset is that cached seed-0 graph,
 and computes the permutation (LPA, data/reorder.py) for any other.
 ``--feature-matmul sparse`` keeps the layer-0 features in CSR, as the reference
-program does; ``--compute-dtype bfloat16`` runs the activations in bf16. It runs
-on the card unless ``--device cpu`` is given.
+program does; ``--compute-dtype bfloat16`` runs the activations in bf16.
+
+``--save-checkpoint``/``--load-checkpoint`` write and read the JAX package's
+npz layout (utils/checkpoint.py); ``--metrics-csv``/``--metrics-jsonl`` dump
+the per-epoch history (utils/logging.py); ``--timing`` prints every phase
+timer's average, the per-op phases measured after the run
+(utils/profiling.py). ``--build-kernels`` builds the CUDA kernels and exits:
+the card's counterpart of the JAX CLI's ``--prime-cache``. The JAX CLI's
+``--mesh`` and ``--halo-dtype`` belong to the sharded trainer, which is not
+ported; ``--platform`` and ``--compilation-cache`` have no use here (the port
+has ``--device`` and no XLA cache).
+
+It runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
+import time
 
 from cuda_gcn_torch.config import GCNConfig
+
+_POSITIONAL = ["num_nodes", "input_dim", "hidden_dim", "output_dim", "dropout",
+               "learning_rate", "weight_decay", "epochs", "early_stopping"]
+_PARSER_INFERRED = {"num_nodes", "input_dim", "output_dim"}
+_FLOAT_FIELDS = {"dropout", "learning_rate", "weight_decay"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -35,24 +63,69 @@ def build_argparser() -> argparse.ArgumentParser:
                                 description="Full-batch GCN training on an NVIDIA GPU.")
     p.add_argument("graph_name", help="dataset name under --data-dir, or a synthetic "
                                       "profile, e.g. synth-reddit")
+    p.add_argument("overrides", nargs="*", metavar="HP",
+                   help=f"positional hyperparameter overrides, in order: {' '.join(_POSITIONAL)}")
     p.add_argument("--data-dir", default="data")
-    p.add_argument("--epochs", type=int, default=GCNConfig.epochs)
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "segment", "ell", "pallas", "dense", "bsr"])
+    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--feature-matmul", default="dense", choices=["dense", "sparse"],
                    help="layer-0 feature transform: densified X, or the CSR values "
                         "(reference SparseMatmul)")
-    p.add_argument("--early-stopping", type=int, default=GCNConfig.early_stopping,
-                   metavar="N", help="stop when the val loss exceeds the mean of the "
-                                     "last N (0: off)")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--save-checkpoint", default=None, metavar="PATH",
+                   help="save the final train state to PATH (npz, the JAX package's layout)")
+    p.add_argument("--load-checkpoint", default=None, metavar="PATH",
+                   help="initialize the train state from PATH before training")
+    p.add_argument("--metrics-csv", default=None, metavar="PATH",
+                   help="write the per-epoch history as CSV")
+    p.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                   help="write the per-epoch history as JSONL (with run metadata)")
+    p.add_argument("--timing", action="store_true",
+                   help="print the phase-timer averages after the run, the per-op "
+                        "phases measured on the device (the reference's "
+                        "PRINT_TIMER_AVERAGE, src/common/timer.h:26)")
+    p.add_argument("--build-kernels", action="store_true",
+                   help="build the CUDA kernels, print the seconds and exit")
+    for name in _POSITIONAL:
+        typ = float if name in _FLOAT_FIELDS else int
+        p.add_argument(f"--{name.replace('_', '-')}", type=typ, default=None)
     return p
+
+
+def config_from_args(args: argparse.Namespace) -> GCNConfig:
+    """The run's config: the flags, then the positional overrides, each
+    ``--flag`` form winning over its positional (cuda_gcn_tpu/cli.py:82-103)."""
+    cfg = GCNConfig(seed=args.seed, graphsum_backend=args.backend,
+                    compute_dtype=args.compute_dtype, feature_matmul=args.feature_matmul)
+    updates: dict = {}
+    for name, value in zip(_POSITIONAL, args.overrides):
+        typ = float if name in _FLOAT_FIELDS else int
+        try:
+            updates[name] = typ(value)
+        except ValueError:
+            raise SystemExit(f"invalid value for {name}: {value!r} (expected {typ.__name__})")
+    for name in _POSITIONAL:
+        flag_val = getattr(args, name)
+        if flag_val is not None:
+            updates[name] = flag_val
+    ignored = sorted(_PARSER_INFERRED & updates.keys())
+    if ignored:
+        print(f"note: {', '.join(ignored)} are inferred from the dataset; override ignored",
+              file=sys.stderr)
+        for name in ignored:
+            updates.pop(name)
+    return dataclasses.replace(cfg, **updates)
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_argparser().parse_args(argv)
+    if len(args.overrides) > len(_POSITIONAL):
+        print(f"too many positional overrides (max {len(_POSITIONAL)})", file=sys.stderr)
+        return 1
+    cfg = config_from_args(args)
+
     from cuda_gcn_torch import train
     from cuda_gcn_torch.data.dataset import (CACHE_DIR, cached_permutation_path,
                                              load_cached, reorder_cached)
@@ -61,14 +134,24 @@ def main(argv: list[str] | None = None) -> int:
     from cuda_gcn_torch.data.synthetic import PROFILES, VARIANTS, make_synthetic
     from cuda_gcn_torch.device import resolve_device
 
+    if args.build_kernels:
+        from cuda_gcn_torch import kernels
+
+        resolve_device("cuda")  # the kernels are the card's: raises without one
+        t0 = time.perf_counter()
+        built = kernels.build()
+        print(f"built {len(built)} kernel sources ({', '.join(sorted(built)) or 'all cached'}) "
+              f"in {time.perf_counter() - t0:.1f}s")
+        return 0
+
     device = resolve_device(args.device)
     name = args.graph_name
-    backend = args.backend
+    backend = cfg.graphsum_backend
     reorder = "auto"
     cached = False
     if name in PROFILES or name in VARIANTS:
-        cached = args.seed == 0 and os.path.exists(os.path.join(CACHE_DIR, f"{name}.npz"))
-        dataset = load_cached(name) if cached else make_synthetic(name, seed=args.seed)
+        cached = cfg.seed == 0 and os.path.exists(os.path.join(CACHE_DIR, f"{name}.npz"))
+        dataset = load_cached(name) if cached else make_synthetic(name, seed=cfg.seed)
         print(f"Generated synthetic dataset {name}.")
     else:
         try:
@@ -83,11 +166,39 @@ def main(argv: list[str] | None = None) -> int:
         backend = "dense" if dataset.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
     if backend == "bsr" and cached and os.path.exists(cached_permutation_path(name)):
         dataset, reorder = reorder_cached(dataset, name), "none"
-    print(f"RUNNING ON {device.type.upper()}")
-    cfg = GCNConfig(epochs=args.epochs, seed=args.seed, graphsum_backend=backend,
-                    reorder=reorder, early_stopping=args.early_stopping,
-                    feature_matmul=args.feature_matmul, compute_dtype=args.compute_dtype)
-    train.run(cfg, dataset, device=device, verbose=True)
+    platform = device.type.upper()
+    print(f"RUNNING ON {platform}")
+    run_cfg = dataclasses.replace(cfg, graphsum_backend=backend, reorder=reorder)
+
+    initial_state = None
+    if args.load_checkpoint:
+        from cuda_gcn_torch.utils.checkpoint import restore_state
+
+        template = train.create_state(dataset.apply_config(run_cfg), device)
+        initial_state = restore_state(args.load_checkpoint, like=template)
+        print(f"restored checkpoint from {args.load_checkpoint}")
+    result = train.run(run_cfg, dataset, device=device, verbose=True,
+                       initial_state=initial_state, time_ops=args.timing)
+
+    if args.save_checkpoint:
+        from cuda_gcn_torch.utils.checkpoint import save_state
+
+        save_state(args.save_checkpoint, result.state)
+        print(f"checkpoint saved to {args.save_checkpoint}")
+    if args.metrics_csv or args.metrics_jsonl:
+        from cuda_gcn_torch.utils.logging import write_history_csv, write_history_jsonl
+
+        if args.metrics_csv:
+            write_history_csv(args.metrics_csv, result.history)
+        if args.metrics_jsonl:
+            meta = dict(dataset=name, seed=cfg.seed, backend=cfg.graphsum_backend,
+                        platform=platform, test_loss=result.test_loss,
+                        test_acc=result.test_acc, total_train_time=result.total_train_time)
+            write_history_jsonl(args.metrics_jsonl, result.history, run_meta=meta)
+    if args.timing:
+        from cuda_gcn_torch.utils.timer import timers
+
+        print(timers.report())
     return 0
 
 

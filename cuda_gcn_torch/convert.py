@@ -7,7 +7,9 @@ as numpy arrays, these functions build the port's state, so that both packages
 compute the same thing from the same weights. Every array keeps its type: f32
 stays f32, and a bf16 array (``param_dtype='bfloat16'``), which JAX hands over
 as an ``ml_dtypes.bfloat16`` numpy array, comes across bit for bit through a
-16-bit integer view, so the port needs no ``ml_dtypes``.
+16-bit integer view, so the port needs no ``ml_dtypes``. An npz file keeps
+such an array as raw 2-byte records (``|V2``), which are read the same way,
+and ``tensor_to_jax`` writes a bf16 tensor in that form.
 """
 
 from __future__ import annotations
@@ -17,13 +19,25 @@ import torch
 
 from cuda_gcn_torch.ops.adam import AdamState
 
+# how an npz file holds a bf16 array of the JAX package (ml_dtypes' bfloat16)
+_RAW_BF16 = np.dtype("V2")
+
 
 def tensor_from_jax(a, device: str | torch.device) -> torch.Tensor:
     """One array of the JAX package as a tensor of the same type and bits."""
     a = np.array(a)  # a copy: the tensor owns its memory
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == _RAW_BF16:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def tensor_to_jax(t: torch.Tensor) -> np.ndarray:
+    """A tensor as the numpy array ``np.savez`` gets from the JAX package: its
+    type kept, bf16 as raw 2-byte records of the same bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_RAW_BF16)
+    return t.numpy()
 
 
 def params_from_jax(params: dict[str, np.ndarray],

@@ -49,6 +49,15 @@
 //   operands from shared memory: 4 k-steps x 3 planes per stage. One group of
 //   wgmma stays in flight while the next stage is waited for; a stage is handed
 //   back to the producer when the group that read it has retired.
+// * Accuracy. The tensor cores round the running f32 sum at every wgmma, so
+//   one accumulator across a whole block row drifts with the row's length
+//   (synth-reddit4x has rows of 89 tiles on average and 178 at most, where
+//   the drift passed the checks' tolerance; PERF.md §6). Each tile's sums
+//   therefore go into a second register set with IEEE adds when its last
+//   stage retires, and the next tile starts from zero. The fold drains the
+//   wgmma pipeline once a tile; at N = 88 the second set spills about 100
+//   bytes under the 96-register cap. chip_smoke.py (b) holds the kernel to
+//   an f64 sum on rows of 178 tiles.
 // * The transpose orientation is the same kernel with the tile slab taken as
 //   [64, tb] (64 tile rows = k, tb columns = m) and read MN-major by wgmma.
 // * Each accumulator is written once; rows past n and columns past d are
@@ -241,11 +250,11 @@ bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
   } else {
     // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the block row
     const int wg = warp / 4;
-    float acc[N / 2];
+    float acc[N / 2], total[N / 2];
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) acc[i] = total[i] = 0.f;
     const int steps = (end - beg) * nk;
-    int s = 0, prev = 0;
+    int s = 0, prev = -1;  // prev: the stage of a group that may still be in flight
     uint32_t phase = 0;
     for (int it = 0; it < steps; ++it) {
       mbar_wait(full(s), phase);
@@ -260,14 +269,26 @@ bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
           Wgmma<N, TA>::run(acc, wgmma_desc(a0 + (TA ? k * 16 * kRowBytes : k * 32)),
                             wgmma_desc(b0 + pl * N * kRowBytes + k * 32));
       wgmma_commit();
-      if (it > 0) {  // the group before this one has read its stage: hand it back
-        wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(empty(prev));
+      if ((it + 1) % nk == 0) {
+        // a tile's last stage: its sums go into total with IEEE adds and the
+        // next tile starts from zero (see "Accuracy" above)
+        wgmma_wait<0>();
+        if (lane == 0) {
+          if (prev >= 0) mbar_arrive(empty(prev));
+          mbar_arrive(empty(s));
+        }
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) total[i] += acc[i], acc[i] = 0.f;
+        prev = -1;
+      } else {
+        if (prev >= 0) {  // the group before this one has read its stage: hand it back
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty(prev));
+        }
+        prev = s;
       }
-      prev = s;
       if (++s == stages) s = 0, phase ^= 1;
     }
-    wgmma_wait<0>();
 
     // accumulator fragment: warp w4 of the warpgroup holds rows 16 w4 + lane / 4
     // and + 8; acc[4 j + 2 half + {0, 1}] are columns 8 j + 2 (lane % 4) + {0, 1}
@@ -281,8 +302,8 @@ bsr_mma_kernel(const __grid_constant__ CUtensorMap map_a,
         OutT* o = out + row * d;
 #pragma unroll
         for (int j = 0; j < N / 8; ++j)
-          store_pair(o, j * 8 + col0, d, pairs, acc[4 * j + 2 * half],
-                     acc[4 * j + 2 * half + 1]);
+          store_pair(o, j * 8 + col0, d, pairs, total[4 * j + 2 * half],
+                     total[4 * j + 2 * half + 1]);
       }
     }
   }

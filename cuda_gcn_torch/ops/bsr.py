@@ -13,7 +13,9 @@ Numerics on the card. For bf16 tiles the kernel runs on the tensor cores and
 still gives the f32 result: an f32 number is exactly the sum of three bf16
 numbers (24 = 8 + 8 + 8 mantissa bits, ``split_bf16x3``), a bf16 x bf16 product
 is exact in f32, so A·h = A·hi + A·mid + A·lo with f32 accumulators differs from
-the f32 product only in the order of the additions.
+the f32 product only in the order and rounding of the additions; the kernel
+adds each tile's sums into f32 registers, so that the tensor cores' rounding
+of a running sum does not grow with a block row's length.
 ``bsr_tile_contract_split_plain`` restates that arithmetic in PyTorch. bf16 h
 (compute_dtype='bfloat16') is its own one bf16 part, and the result is
 rounded to bf16 once; f32 tiles are rounded to bf16 for bf16 h, as the TPU

@@ -32,6 +32,13 @@ W's type; f32 sums):
 * the gradient for ``values``, ⟨W[cols], g[rows]⟩, only when asked for, in
   plain tensor operations; training never asks.
 
+Neither product has an [nnz, d] temporary or an N-row scatter, so the CSR
+layout serves every node count. The JAX package switches to row bands
+(``BandedFeatures``) from 2^19 rows on, to bound XLA's segment-sum output and
+its gathered intermediate (cuda_gcn_tpu/ops/matmul.py:67-83); the port has no
+such costs and keeps ``SparseFeatures`` at any size, with the JAX banded
+result on the same input.
+
 A tensor on the CPU takes ``csr_matmul_plain``; a CUDA tensor launches the
 kernels or raises.
 """
@@ -45,12 +52,6 @@ import torch
 
 from cuda_gcn_torch import kernels
 from cuda_gcn_torch.ops.ell import WorkList, csr_work_list
-
-# From this many rows on, the JAX package lays sparse features out in row
-# bands (cuda_gcn_tpu/ops/matmul.py:83 and ``BandedFeatures``); the port has no
-# banded layout yet and train.prepare refuses such a graph.
-BANDED_FEATURES_MIN_ROWS = 1 << 19
-
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[N, F] @ [F, H] in x's type, summed in f32: W is cast to x's type."""

@@ -44,7 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 19  # every module was imported
+    assert int(res.stdout.split()[0]) >= 24  # every module was imported
 
 
 def test_the_synthetic_generator_and_the_cli_import_no_jax():
@@ -54,6 +54,20 @@ def test_the_synthetic_generator_and_the_cli_import_no_jax():
             "cuda_gcn_torch.convert; bad = sorted(m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'ml_dtypes', 'cuda_gcn_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("module", ["timer", "logging", "checkpoint", "profiling"])
+def test_the_utilities_import_no_jax(module):
+    """Each utility of the port stands alone, the checkpoint reader (which
+    reads the JAX package's bf16 records) included: importing it pulls in
+    neither jax, ml_dtypes nor the JAX package."""
+    code = (f"import sys; import cuda_gcn_torch.utils.{module}; bad = sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'cuda_gcn_tpu')); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)

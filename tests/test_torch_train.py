@@ -303,12 +303,14 @@ def test_sparse_dropout_acts_on_the_values(tiny_dataset):
 
 
 def test_sparse_features_on_a_huge_graph_name_the_banded_layout(tiny_dataset, monkeypatch):
+    """The port has no band threshold: sparse features stay CSR at any node
+    count (tests/test_torch_large_features.py holds them against the JAX
+    package's bands at 2^19 nodes), and 'banded' is no feature_matmul."""
     from cuda_gcn_torch.ops import matmul as tmm
 
-    monkeypatch.setattr(tmm, "BANDED_FEATURES_MIN_ROWS", tiny_dataset.num_nodes)
-    with pytest.raises(NotImplementedError, match="banded layout"):
-        _sparse_prepared(tiny_dataset, "sparse")
-    _sparse_prepared(tiny_dataset, "dense")  # dense features are not limited
+    assert not hasattr(tmm, "BANDED_FEATURES_MIN_ROWS")
+    assert isinstance(_sparse_prepared(tiny_dataset, "sparse")[2], tmm.SparseFeatures)
+    _sparse_prepared(tiny_dataset, "dense")
     _, graph, x, _ = ttrain.prepare(GCNConfig(compute_dtype="bfloat16", graphsum_backend="bsr"),
                                     to_torch_dataset(tiny_dataset), "cpu")
     assert x.dtype == torch.bfloat16 and graph.resid.coef.dtype == torch.bfloat16
