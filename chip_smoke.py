@@ -99,11 +99,28 @@ Phases, each of which raises (exit code not 0) when it fails:
     13 phases, each finite and above 0, with the launches that the resumed run
     and the per-op timing should make; ``--build-kernels`` exits 0.
 
+(p) the sharded trainer (run after (o)): synth-reddit at full width, bsr
+    interiors, relabelled and cut by ``reorder.partition_layout`` for P = 1, 2,
+    4; world size 1 over NCCL (10 epochs against ``train.run`` on the same
+    relabelled dataset within rtol 1e-4 / atol 1e-5, and 4 epochs against 2 +
+    a checkpoint + 2 at dropout 0.5, bit for bit); 2 and 4 spawned ranks
+    sharing the card over gloo, payloads staged through pinned host memory (5
+    epochs at dropout 0 at f32 and bf16 halo, within loss rtol 5e-3 / accuracy
+    atol 5e-3 of the single-device run: their parts hold other bf16 tiles); each
+    run's launches of kernels 1 and 2 per rank, counted from 0, ms per fused
+    epoch per rank, the halo rows and bytes a rank ships an epoch, the
+    boundary edge fraction and rank 0's busy share; kernels 1 and 2 against
+    their plain versions on rank 0's operators of P=2 (the interior in both
+    orientations, the boundary with n_in = halo_space in both), timed beside
+    their bounds and the library; ``cli.main synth-pubmed --mesh 1`` against
+    the single-device CLI run.
+
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
 call) and the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
 ``csr_spmm_bf16``, ``ell_spmm_bf16``; kernels 1-3 carry their (n) numbers
-under ``synth_reddit4x``), and last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and prints no result.
+under ``synth_reddit4x``, kernels 1 and 2 their (p) numbers under ``sharded``), and
+last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -2041,6 +2058,436 @@ def phase_cli_extras():
     return avg
 
 
+SHARDED_EPOCHS = 10       # world size 1 over NCCL
+SHARED_EPOCHS = 5         # 2 and 4 ranks sharing the card over gloo
+SHARDED_WARM = 2          # warm-up epochs before a timed fused loop
+PROFILED_EPOCHS = 3
+BF16_HALO_TOL = dict(loss_rtol=5e-3, acc_atol=5e-3)  # the JAX package's bf16 loss
+# tolerance (tests/test_parallel.py:582-586); accuracy within half a percent
+# float32 halo, P > 1 (_compare_runs): the losses' relative limit and the
+# accuracy flips allowed per split, between the sound readings (losses up to
+# 6.2e-7, up to 2 nodes) and the bf16-halo control's (losses from 1.3e-6,
+# from 3 nodes; PERF.md §6)
+F32_PARTS_LOSS_RTOL = 1e-6
+F32_PARTS_ACC_NODES = 2
+
+
+def _busy(fn) -> tuple[float, float]:
+    """(device busy ms, wall ms) of ``fn()`` under torch.profiler: the self
+    device time of every kernel this process launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+            busy += dev_us / 1e3
+    return busy, wall
+
+
+def _sharded_rank(rank, world, init_method, cfg, backend, epochs, halos, resume, shard):
+    """(p), one rank: NCCL on cuda:<rank> or gloo on cuda:0. Per halo type:
+    ``sharded.run_epochs`` of ``epochs`` with every launch count set to 0
+    just before and read just after, the test eval; then a timed fused loop
+    after a warm-up (ms per epoch, halo rows and bytes this rank shipped),
+    and rank 0's busy share under the profiler. With ``resume`` (dropout
+    0.5): 4 epochs against 2, a checkpoint, and 2 more, bit for bit."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.parallel import multihost, sharded
+    from cuda_gcn_torch.utils.checkpoint import restore_state, save_state
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    t0 = time.perf_counter()
+    multihost.initialize(init_method, world, rank, backend=backend, device=device)
+    torch.cuda.set_device(device)
+    kernels.build()
+    inputs, truths = sharded.shard_inputs(cfg, shard, device)
+    torch.cuda.synchronize()
+    out = dict(setup_s=time.perf_counter() - t0, stage_host=inputs.exchange.stage_host,
+               block=inputs.block, halo_space=inputs.boundary.n_in,
+               tiles=inputs.interior.square.num_tiles,
+               interior_edges=inputs.interior.square.resid_nnz,
+               boundary_edges=inputs.boundary.resid.nnz, runs={})
+    ex = inputs.exchange
+    for halo in halos:
+        c = dataclasses.replace(cfg, halo_dtype=halo)
+        state = sharded.create_state(c, device, rank)
+        kernels.reset_launches()
+        m = sharded.run_epochs(state, inputs, truths[1], truths[2], c, epochs)
+        test = torch.stack(sharded.eval_step(state.model, inputs, truths[3], c))
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        run = dict(metrics=m.cpu().numpy(), test=test.cpu().numpy(), launches=launches)
+        st = sharded.create_state(c, device, rank)
+        sharded.run_epochs(st, inputs, truths[1], truths[2], c, SHARDED_WARM)
+        rows0, bytes0 = ex.sent_rows, ex.sent_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded.run_epochs(st, inputs, truths[1], truths[2], c, epochs).cpu()
+        run["epoch_ms"] = (time.perf_counter() - t0) * 1e3 / epochs
+        run["halo_rows"] = (ex.sent_rows - rows0) / epochs
+        run["halo_bytes"] = (ex.sent_bytes - bytes0) / epochs
+
+        def profiled():
+            sharded.run_epochs(st, inputs, truths[1], truths[2], c, PROFILED_EPOCHS).cpu()
+
+        if rank == 0:
+            busy, wall = _busy(profiled)
+            run.update(busy_ms=busy / PROFILED_EPOCHS, wall_ms=wall / PROFILED_EPOCHS,
+                       busy_share=busy / wall)
+        else:
+            profiled()
+        out["runs"][halo] = run
+    if resume:
+        c = dataclasses.replace(cfg, dropout=0.5)
+        full = sharded.create_state(c, device, rank)
+        m4 = sharded.run_epochs(full, inputs, truths[1], truths[2], c, 4).cpu()
+        half = sharded.create_state(c, device, rank)
+        sharded.run_epochs(half, inputs, truths[1], truths[2], c, 2)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "half.npz")
+            save_state(path, half)
+            back = sharded.create_state(c, device, rank, restore_state(
+                path, like=train.create_state(c, device)))
+        m2 = sharded.run_epochs(back, inputs, truths[1], truths[2], c, 2).cpu()
+        same_params = all(torch.equal(a, b) for a, b in zip(full.model.parameters(),
+                                                              back.model.parameters()))
+        out["resume"] = dict(rows_equal=bool(torch.equal(m4[2:], m2)),
+                             params_equal=same_params,
+                             generator=[back.generator.initial_seed(),
+                                        back.generator.get_offset()])
+    return out
+
+
+def _compare_runs(label, got, want, counts, halo: str, world: int):
+    """Metric rows (and the test row) of a sharded run against the
+    single-device run, read as the largest loss difference relative to the
+    loss and the largest accuracy difference in nodes of its split
+    (``counts``: train and val for an epoch row, test for the test row).
+    A float32 halo is held to EPOCH_TOL at world size 1, and at P > 1 to
+    ``F32_PARTS_LOSS_RTOL`` on the losses and ``F32_PARTS_ACC_NODES`` nodes on
+    the accuracies: the parts' interiors hold other tiles than the whole
+    graph (a boundary edge is in no tile and keeps its f32 coefficient where
+    a tile rounds it to bf16), so that a prediction at a near tie may flip. A bfloat16 halo is held to
+    BF16_HALO_TOL. Returns (max |diff|, loss reading, accuracy reading,
+    whether the float32 limits hold)."""
+    import numpy as np
+
+    diff = np.abs(got - want)
+    loss_rel = float((diff[:, 0::2] / np.maximum(np.abs(want[:, 0::2]), 1e-30)).max())
+    n = np.zeros_like(got)
+    n[:-1, 1], n[:-1, 3], n[-1, 1] = counts[1], counts[2], counts[3]
+    acc_nodes = int(np.rint(diff[:, 1::2] * n[:, 1::2]).max())
+    if world == 1:
+        f32_ok = np.allclose(got, want, **EPOCH_TOL)
+    else:
+        f32_ok = loss_rel <= F32_PARTS_LOSS_RTOL and acc_nodes <= F32_PARTS_ACC_NODES
+    if halo == "float32":
+        ok = f32_ok
+        tol = ("rtol 1e-4, atol 1e-5" if world == 1 else
+               f"losses rtol {F32_PARTS_LOSS_RTOL:g}, accuracies {F32_PARTS_ACC_NODES} nodes")
+    else:
+        ok = (np.allclose(got[:, 0::2], want[:, 0::2], rtol=BF16_HALO_TOL["loss_rtol"])
+              and np.allclose(got[:, 1::2], want[:, 1::2], rtol=0,
+                              atol=BF16_HALO_TOL["acc_atol"]))
+        tol = ("loss rtol 5e-3, accuracy atol 5e-3; the float32 limits "
+               + ("hold" if f32_ok else "do not hold"))
+    log(f"  {label}: against the single-device run, max |diff| {float(diff.max()):.3e}, "
+        f"loss {loss_rel:.3e} relative, accuracy {acc_nodes} node(s) ({tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok or not np.isfinite(got).all():
+        raise AssertionError(f"{label} disagrees with the single-device run:\n{got}\n{want}")
+    return float(diff.max()), loss_rel, acc_nodes, bool(f32_ok)
+
+
+def _rank_kernels(part, x, errs):
+    """Kernels 1 and 2 on one rank's operators at the main path's widths:
+    the square interior (tiles and residual) in both orientations and the
+    rectangular boundary (n_in = halo_space) in both, against their plain
+    versions; then timed beside the bound (bytes) and the library's call."""
+    import torch
+
+    from cuda_gcn_torch.ops.bsr import bsr_tile_contract, bsr_tile_contract_plain
+    from cuda_gcn_torch.ops.residual import residual_spmm, residual_spmm_plain
+    from cuda_gcn_torch.parallel import sharded
+
+    inputs = sharded.make_sharded_inputs(part, x, "cuda", sharded.HaloExchange(
+        part.rank, part.n_parts, part.hmax_k))
+    g = inputs.interior.square
+    b = inputs.boundary
+    n, hs, k, tb, tbl = g.n_nodes, b.n_in, g.num_tiles, g.tb, g.t_blocks
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    log(f"  kernels 1 and 2 on rank 0's operators: block {n}, halo_space {hs}, K={k} tiles, "
+        f"interior residual {g.resid_nnz} edges, boundary {b.resid.nnz} edges")
+
+    def resid(csr, h, out=None):
+        return residual_spmm(csr.row_ptr, csr.cols, csr.coef, h, out, work=csr.work)
+
+    def resid_plain(csr, h, out=None):
+        return residual_spmm_plain(csr.row_ptr, csr.cols, csr.coef, h, out)
+
+    cases = {  # name: (kernel, its plain version, rows of h)
+        "interior bsr_tile": (
+            lambda h: bsr_tile_contract(g.tiles, g.tile_rows, g.tile_cols, h, n, tbl,
+                                        plan=g.plan),
+            lambda h: bsr_tile_contract_plain(g.tiles, g.tile_rows, g.tile_cols, h, n, tbl), n),
+        "interior bsr_tile transposed": (
+            lambda h: bsr_tile_contract(g.tiles, g.tile_cols, g.tile_rows, h, n, tbl,
+                                        transpose=True, plan=g.plan_t),
+            lambda h: bsr_tile_contract_plain(g.tiles, g.tile_cols, g.tile_rows, h, n, tbl,
+                                              transpose=True), n),
+        "interior csr_spmm": (lambda h: resid(g.resid, h), lambda h: resid_plain(g.resid, h), n),
+        "interior csr_spmm transposed": (lambda h: resid(g.resid_t, h),
+                                         lambda h: resid_plain(g.resid_t, h), n),
+        "boundary csr_spmm": (lambda h: resid(b.resid, h), lambda h: resid_plain(b.resid, h),
+                              hs),
+        "boundary csr_spmm transposed": (lambda h: resid(b.resid_t, h),
+                                         lambda h: resid_plain(b.resid_t, h), n),
+    }
+    timing = {"bsr_tile": {}, "csr_spmm interior": {}, "csr_spmm boundary": {}}
+    tile_bytes = g.tiles.numel() * g.tiles.element_size()
+    for d in WIDTHS:
+        for name, (fn, plain, rows) in cases.items():
+            h = torch.randn(rows, d, generator=gen, device="cuda")
+            got = fn(h)
+            errs[name.split()[1]] = max(errs[name.split()[1]],
+                                        check(f"{name} d={d}", got, plain(h)))
+            if not torch.equal(got, fn(h)):
+                raise AssertionError(f"{name} d={d} is not bitwise repeatable")
+        h = torch.randn(n, d, generator=gen, device="cuda")
+        hh = torch.randn(hs, d, generator=gen, device="cuda")
+        out = torch.zeros(n, d, device="cuda")
+        for key, fn, plain, nbytes, lib in (
+                ("bsr_tile", cases["interior bsr_tile"][0], cases["interior bsr_tile"][1],
+                 tile_bytes + 4 * (2 * k + 2 * tbl + 1) + 8 * n * d, None),
+                ("csr_spmm interior", lambda hv: resid(g.resid, hv, out),
+                 lambda hv: resid_plain(g.resid, hv, out),
+                 12 * g.resid.work.beg.numel() + 8 * g.resid_nnz + 12 * n * d, g.resid),
+                ("csr_spmm boundary", lambda hv: resid(b.resid, hv, out),
+                 lambda hv: resid_plain(b.resid, hv, out),
+                 12 * b.resid.work.beg.numel() + 8 * b.resid.nnz + 4 * hs * d + 8 * n * d,
+                 b.resid)):
+            hv = hh if key == "csr_spmm boundary" else h
+            lib_ms = None
+            if lib is not None:
+                a = torch.sparse_csr_tensor(lib.row_ptr.long(), lib.cols.long(), lib.coef,
+                                            size=(n, hv.shape[0]))
+                lib_ms, _ = _library_ms(lambda: (lambda: out.addmm_(a, hv)), 20)
+            bound, by, _, _ = _bound_at(nbytes, 0.0)
+            timing[key][str(d)] = dict(ms=cuda_ms(lambda: fn(hv), 20),
+                                       plain_ms=cuda_ms(lambda: plain(hv), 3),
+                                       bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    d = WIDTHS[-1]
+    h = torch.randn(n, d, generator=gen, device="cuda")
+
+    def bsr_lib():
+        a = torch.sparse_bsr_tensor(g.plan.ptr.long(), g.tile_cols.long(), g.tiles.float(),
+                                    size=(tbl * tb, tbl * tb))
+        hp = torch.zeros(tbl * tb, d, device="cuda")
+        hp[:n] = h
+        return lambda: a @ hp
+
+    timing["bsr_tile"][str(d)]["library_ms"], _ = _library_ms(bsr_lib, 3)
+    for key, by_d in timing.items():
+        log(f"  {key} on rank 0 by width: " + "; ".join(
+            f"d={w} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} "
+            f"by {r['bound_by']}, library {_fmt_ms(r['library_ms'])})" for w, r in by_d.items()))
+    return dict(block=n, halo_space=hs, tiles=k, interior_residual_edges=g.resid_nnz,
+                boundary_edges=b.resid.nnz, timing=timing)
+
+
+def _single_device(cfg, dataset):
+    """The single-device bsr run on ``dataset`` at ``cfg``'s dropout, one
+    graph for all: the metric rows and test row of ``train.run_epochs`` over
+    ``SHARDED_EPOCHS`` and ``SHARED_EPOCHS`` epochs, and its ms per fused
+    epoch over ``SHARDED_EPOCHS`` after ``SHARDED_WARM``, timed as a rank of
+    (p) times its loop."""
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import train
+    from cuda_gcn_torch.data.graph import build_graph
+
+    graph = build_graph(dataset.graph, backend="bsr", device="cuda")
+    x = torch.from_numpy(dataset.dense_features(np.float32)).cuda()
+    truths = [train.make_truth(dataset.split, dataset.label, s, "cuda") for s in (1, 2, 3)]
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    ref = {}
+    for e in (SHARDED_EPOCHS, SHARED_EPOCHS):
+        state = train.create_state(cfg, "cuda")
+        m = train.run_epochs(state, graph, x, *truths[:2], epochs=e, **kw).cpu().numpy()
+        test = torch.stack(train.eval_step(state.model, graph, x, truths[2],
+                                           weight_decay=cfg.weight_decay)).cpu().numpy()
+        ref[e] = np.concatenate([m, [[*test, 0, 0]]])
+    state = train.create_state(cfg, "cuda")
+    train.run_epochs(state, graph, x, *truths[:2], epochs=SHARDED_WARM, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train.run_epochs(state, graph, x, *truths[:2], epochs=SHARDED_EPOCHS, **kw).cpu()
+    return ref, (time.perf_counter() - t0) * 1e3 / SHARDED_EPOCHS
+
+
+def _expected_launches(epochs: int, world: int) -> dict:
+    """One rank's launches in run_epochs(epochs) and a test eval: 4
+    aggregations an epoch, 2 for the trailing eval and 2 for the test eval,
+    each one interior tile pass (kernel 1) and one interior residual pass
+    (kernel 2), plus a boundary pass (kernel 2) where there is a halo."""
+    passes = 4 * epochs + 2 + 2
+    return {"bsr_tile": passes, "csr_spmm": passes * (2 if world > 1 else 1)}
+
+
+def phase_sharded():
+    """(p) the sharded trainer on synth-reddit at full width (602-16-41, bsr
+    interiors), relabelled and cut by ``partition_layout``: world size 1 over
+    NCCL (10 epochs against the single-device run on the same relabelled
+    dataset; resumption at dropout 0.5), 2 and 4 ranks sharing the card over
+    gloo (5 epochs at dropout 0 at both halo types against the single-device
+    run, ``_compare_runs``), kernels 1 and 2 on one rank's operators, and
+    synth-pubmed through ``cli.main --mesh 1``."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from cuda_gcn_torch import cli
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached, reorder_dataset
+    from cuda_gcn_torch.data.reorder import label_propagation, partition_layout
+    from cuda_gcn_torch.parallel import multihost, sharded
+
+    t_phase = time.perf_counter()
+    ds = load_cached("synth-reddit")
+    t0 = time.perf_counter()
+    labels = label_propagation(ds.graph.indptr, ds.graph.indices)
+    deg = np.diff(ds.graph.indptr.astype(np.int64))
+    log(f"(p) sharded trainer on synth-reddit ({ds.num_nodes} nodes, {ds.graph.nnz} edges, "
+        f"{ds.input_dim}-16-{ds.output_dim}, bsr interiors); LPA {time.perf_counter() - t0:.1f} s")
+    cfg = ds.apply_config(GCNConfig(graphsum_backend="bsr", dropout=0.0, seed=0,
+                                    reorder="none"))
+    errs = {"bsr_tile": 0.0, "csr_spmm": 0.0}
+    result = {"errs": errs, "worlds": {}}
+    for world in (1, 2, 4):
+        t0 = time.perf_counter()
+        perm, cuts = partition_layout(ds.graph.indptr, ds.graph.indices, labels, world,
+                                      weights=deg)
+        dsw = reorder_dataset(ds, perm)
+        # the ranks share the one card and its tile budget
+        _, shards, pg = sharded.prepare_sharded(cfg, dsw, world, cuts=cuts, device="cuda")
+        boundary = sum(s.boundary_edges for s in shards) / ds.graph.nnz
+        log(f"  P={world}: relabelled and partitioned in {time.perf_counter() - t0:.1f} s: "
+            f"block {pg.block}, halo_space {pg.halo_space} (hmax_k {pg.hmax_k}), tiles per "
+            f"part {pg.i_tile_counts.tolist()}, boundary edge fraction {boundary:.4f}")
+        if world == 1:
+            t0 = time.perf_counter()
+            ref, result["single_epoch_ms"] = _single_device(cfg, dsw)
+            log(f"  single-device references on the P=1 layout (bsr graph, run_epochs, dropout "
+                f"0, 10 and 5 epochs) in {time.perf_counter() - t0:.1f} s; its fused loop "
+                f"{result['single_epoch_ms']:.2f} ms/epoch over {SHARDED_EPOCHS} epochs after "
+                f"{SHARDED_WARM} (the yardstick of P=1 below, same call)")
+        if world == 2:
+            result["rank_kernels"] = _rank_kernels(shards[0].part, shards[0].x, errs)
+        backend = "nccl" if world == 1 else "gloo"
+        epochs = SHARDED_EPOCHS if world == 1 else SHARED_EPOCHS
+        halos = ("float32",) if world == 1 else ("float32", "bfloat16")
+        t0 = time.perf_counter()
+        ranks = multihost.run_ranks(_sharded_rank, world,
+                                    (cfg, backend, epochs, halos, world == 1),
+                                    rank_args=[(s,) for s in shards], timeout=600)
+        r0 = ranks[0]
+        log(f"  P={world} over {backend}{' (ranks sharing one card)' if world > 1 else ''}: "
+            f"{world} ranks ran in {time.perf_counter() - t0:.1f} s (rank 0 set-up "
+            f"{r0['setup_s']:.1f} s); transport: " + (
+                "CUDA payloads staged through pinned host buffers (gloo sends and receives "
+                "host memory)" if r0["stage_host"] else
+                (f"{backend} on the payloads as they are" if world > 1
+                 else "no exchange (one part)")))
+        want = _expected_launches(epochs, world)
+        info = dict(backend=backend, block=pg.block, halo_space=pg.halo_space,
+                    boundary_fraction=boundary, stage_host=r0["stage_host"], runs={})
+        for halo in halos:
+            rows = [r["runs"][halo] for r in ranks]
+            got = np.concatenate([rows[0]["metrics"], [[*rows[0]["test"], 0, 0]]])
+            diff, loss_rel, acc_nodes, f32_ok = _compare_runs(
+                f"P={world} {halo} halo, {epochs} epochs", got, ref[epochs],
+                shards[0].counts, halo, world)
+            for r, row in enumerate(rows):
+                if row["launches"] != {**{k: 0 for k in row["launches"]}, **want}:
+                    raise AssertionError(f"P={world} rank {r}: launches {row['launches']}, "
+                                         f"expected {want}")
+            log(f"  P={world} {halo} halo: " + "; ".join(
+                f"rank {r}: {row['epoch_ms']:.2f} ms/fused epoch"
+                f"{' (ranks sharing one card)' if world > 1 else ''}, halo {row['halo_rows']:.0f} "
+                f"rows / {row['halo_bytes'] / 1e6:.3f} MB shipped an epoch"
+                for r, row in enumerate(rows))
+                + f"; launches per rank {rows[0]['launches']['bsr_tile']} bsr_tile, "
+                f"{rows[0]['launches']['csr_spmm']} csr_spmm (expected {want}); rank 0 busy "
+                f"{rows[0]['busy_ms']:.2f} of {rows[0]['wall_ms']:.2f} ms an epoch "
+                f"(busy share {rows[0]['busy_share']:.3f})")
+            info["runs"][halo] = dict(
+                max_metric_diff=diff, loss_rel_diff=loss_rel, acc_diff_nodes=acc_nodes,
+                f32_limits_hold=f32_ok, epoch_ms=[row["epoch_ms"] for row in rows],
+                halo_rows=[row["halo_rows"] for row in rows],
+                halo_bytes=[row["halo_bytes"] for row in rows],
+                busy_share=rows[0]["busy_share"], launches=rows[0]["launches"])
+        if world > 1:  # the wire type: a bf16 halo ships half the bytes of the f32 one
+            f32, bf16 = ([(row["halo_rows"], row["halo_bytes"]) for row in
+                          (r["runs"][h] for r in ranks)] for h in halos)
+            wire_ok = all(a[0] == b[0] > 0 and a[1] == 2 * b[1] for a, b in zip(f32, bf16))
+            log(f"  P={world} wire: float32 halo {f32[0][1] / f32[0][0]:.1f} bytes a row, "
+                f"bfloat16 {bf16[0][1] / bf16[0][0]:.1f}, same rows on every rank "
+                f"{'ok' if wire_ok else 'FAIL'}")
+            if not wire_ok:
+                raise AssertionError(f"P={world}: halo rows/bytes {f32} (f32) {bf16} (bf16)")
+        if world == 1:
+            res = r0["resume"]
+            log(f"  P=1 dropout 0.5: 4 epochs against 2 + a checkpoint + 2: rows 3-4 equal bit "
+                f"for bit {res['rows_equal']}, final weights {res['params_equal']} (Philox "
+                f"seed {res['generator'][0]}, offset {res['generator'][1]})")
+            if not (res["rows_equal"] and res["params_equal"]):
+                raise AssertionError("a resumed sharded run differs from the uninterrupted one")
+        result["worlds"][world] = info
+        del shards, pg, dsw
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.jsonl") for k in ("mesh", "single")}
+        flags = ["--epochs", "3", "--dropout", "0", "--halo-dtype", "float32"]
+        sys.stdout.flush()
+        t0 = time.perf_counter()
+        rc = cli.main(["synth-pubmed", "--mesh", "1", *flags, "--metrics-jsonl", paths["mesh"]])
+        mesh_s = time.perf_counter() - t0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_single = cli.main(["synth-pubmed", *flags, "--metrics-jsonl", paths["single"]])
+        rows = {k: [json.loads(line) for line in open(p)][1:] for k, p in paths.items()}
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    a, b = (np.array([[r[k] for k in keys] for r in rows[k]]) for k in ("mesh", "single"))
+    ok = rc == rc_single == 0 and a.shape == b.shape == (3, 4) and np.allclose(a, b, **EPOCH_TOL)
+    log(f"  cli.main synth-pubmed --mesh 1 (NCCL, {mesh_s:.1f} s): rc {rc}, 3 epochs against "
+        f"the single-device CLI run, max metric diff {float(np.abs(a - b).max()):.3e} "
+        f"(rtol 1e-4, atol 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"cli --mesh 1 disagrees with the single-device CLI:\n{a}\n{b}")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase (p) took {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2087,6 +2534,7 @@ def main() -> int:
     taa_rows = phase_taa_probes(errs)
     text_launches = phase_text_entry()
     cli_timers = phase_cli_extras()
+    shard = phase_sharded()
     errs4x = {"bsr_tile": 0.0, "csr_spmm": 0.0}
     reddit4x = phase_reddit4x(errs4x)
     for line in kernels_line:  # kernels 1 and 2: the launches of the sparse-feature run too
@@ -2150,6 +2598,17 @@ def main() -> int:
             line["synth_reddit4x"] = {"layer0_dw": reddit4x["layer0"]["dw"]}
         if name == "csr_spmm":
             line["synth_reddit4x"]["layer0_forward"] = reddit4x["layer0"]["forward"]
+        if name in shard["errs"]:  # kernels 1 and 2 in the sharded trainer (p)
+            rk = shard["rank_kernels"]
+            t = rk["timing"]
+            line["sharded"] = dict(
+                max_abs_err=shard["errs"][name],
+                launches_per_rank={f"P={w}": info["runs"]["float32"]["launches"][name]
+                                   for w, info in shard["worlds"].items()},
+                rank0_of_P2={k: v for k, v in rk.items() if k != "timing"},
+                by_width=(t["bsr_tile"] if name == "bsr_tile" else
+                          {"interior": t["csr_spmm interior"],
+                           "boundary": t["csr_spmm boundary"]}))
     log(f"steady fused epoch on synth-reddit in this call: bsr {dense_ms:.2f} ms (sparse "
         f"features {sparse_ms:.2f}), ell {reddit['as loaded']['epoch_ms']:.2f} ms as loaded and "
         f"{reddit['relabelled']['epoch_ms']:.2f} ms relabelled; at compute bf16: bsr "
@@ -2164,6 +2623,12 @@ def main() -> int:
         f"{reddit4x['peak_device_gb']['sparse']:.2f} GB of {reddit4x['device_gb']:.1f}; host "
         f"set-up s {json.dumps({k: round(v, 1) for k, v in reddit4x['host_setup_s'].items()})}"
         f", host peak {reddit4x['host_peak_gb']:.1f} GB")
+    log(f"sharded synth-reddit (p): single device {shard['single_epoch_ms']:.2f} ms/fused "
+        "epoch; " + "; ".join(
+        f"P={w} {info['backend']}: ms/fused epoch per rank "
+        + ", ".join(f"{h} {[round(v, 2) for v in r['epoch_ms']]}" for h, r in info["runs"].items())
+        + f", boundary edge fraction {info['boundary_fraction']:.4f}"
+        for w, info in shard["worlds"].items()) + " (ranks of P=2 and 4 share one card)")
     log("--timing phases on synth-pubmed (ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in cli_timers.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

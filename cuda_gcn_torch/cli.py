@@ -5,7 +5,7 @@
         [--num-nodes N ... --early-stopping N]  (each override as a flag; the flag wins)
         [--device cpu] [--data-dir data] [--seed S]
         [--backend auto|bsr|segment|ell|pallas|dense] [--feature-matmul dense|sparse]
-        [--compute-dtype float32|bfloat16]
+        [--compute-dtype float32|bfloat16] [--mesh N] [--halo-dtype bfloat16|float32]
         [--save-checkpoint PATH] [--load-checkpoint PATH]
         [--metrics-csv PATH] [--metrics-jsonl PATH] [--timing] [--build-kernels]
 
@@ -34,10 +34,16 @@ npz layout (utils/checkpoint.py); ``--metrics-csv``/``--metrics-jsonl`` dump
 the per-epoch history (utils/logging.py); ``--timing`` prints every phase
 timer's average, the per-op phases measured after the run
 (utils/profiling.py). ``--build-kernels`` builds the CUDA kernels and exits:
-the card's counterpart of the JAX CLI's ``--prime-cache``. The JAX CLI's
-``--mesh`` and ``--halo-dtype`` belong to the sharded trainer, which is not
-ported; ``--platform`` and ``--compilation-cache`` have no use here (the port
-has ``--device`` and no XLA cache).
+the card's counterpart of the JAX CLI's ``--prime-cache``. ``--platform``
+and ``--compilation-cache`` have no use here (the port has ``--device`` and
+no XLA cache).
+
+``--mesh N`` trains sharded (parallel/sharded.py): the dataset is partitioned
+once here, and N local ranks are started with ``torch.multiprocessing``'s
+``spawn`` method, rank r on ``cuda:r`` over NCCL, or with ``--device cpu`` N
+gloo ranks on the CPU. With fewer cards than N it exits with the JAX CLI's
+message (cuda_gcn_tpu/cli.py:166-170). Rank 0 alone prints, saves and
+writes the history; ``--halo-dtype`` is the wire type of the halo rows.
 
 It runs on the card unless ``--device cpu`` is given.
 """
@@ -71,6 +77,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="auto",
                    choices=["auto", "segment", "ell", "pallas", "dense", "bsr"])
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--halo-dtype", default="bfloat16", choices=["float32", "bfloat16"],
+                   help="wire type of --mesh halo rows (bf16 halves the bytes of "
+                        "every exchange; float32 for the single-device result)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="train sharded over N local ranks (graph partition + halo "
+                        "exchange over torch.distributed): rank r on cuda:r over NCCL, "
+                        "or gloo ranks on the CPU with --device cpu")
     p.add_argument("--feature-matmul", default="dense", choices=["dense", "sparse"],
                    help="layer-0 feature transform: densified X, or the CSR values "
                         "(reference SparseMatmul)")
@@ -98,7 +111,8 @@ def config_from_args(args: argparse.Namespace) -> GCNConfig:
     """The run's config: the flags, then the positional overrides, each
     ``--flag`` form winning over its positional (cuda_gcn_tpu/cli.py:82-103)."""
     cfg = GCNConfig(seed=args.seed, graphsum_backend=args.backend,
-                    compute_dtype=args.compute_dtype, feature_matmul=args.feature_matmul)
+                    compute_dtype=args.compute_dtype, halo_dtype=args.halo_dtype,
+                    feature_matmul=args.feature_matmul)
     updates: dict = {}
     for name, value in zip(_POSITIONAL, args.overrides):
         typ = float if name in _FLOAT_FIELDS else int
@@ -162,11 +176,14 @@ def main(argv: list[str] | None = None) -> int:
         print("Parse Graph Succeeded.")
         print("Parse Node Succeeded.")
         print("Parse Split Succeeded.")
+    platform = device.type.upper()
+    if args.mesh:
+        print(f"RUNNING ON {platform}")
+        return _run_mesh(args, cfg, dataset, device, platform)
     if backend == "auto":
         backend = "dense" if dataset.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
     if backend == "bsr" and cached and os.path.exists(cached_permutation_path(name)):
         dataset, reorder = reorder_cached(dataset, name), "none"
-    platform = device.type.upper()
     print(f"RUNNING ON {platform}")
     run_cfg = dataclasses.replace(cfg, graphsum_backend=backend, reorder=reorder)
 
@@ -179,7 +196,12 @@ def main(argv: list[str] | None = None) -> int:
         print(f"restored checkpoint from {args.load_checkpoint}")
     result = train.run(run_cfg, dataset, device=device, verbose=True,
                        initial_state=initial_state, time_ops=args.timing)
+    _write_outputs(args, cfg, result, platform)
+    return 0
 
+
+def _write_outputs(args, cfg: GCNConfig, result, platform: str) -> None:
+    """The checkpoint, the history files and the timers' report a run asks for."""
     if args.save_checkpoint:
         from cuda_gcn_torch.utils.checkpoint import save_state
 
@@ -191,7 +213,7 @@ def main(argv: list[str] | None = None) -> int:
         if args.metrics_csv:
             write_history_csv(args.metrics_csv, result.history)
         if args.metrics_jsonl:
-            meta = dict(dataset=name, seed=cfg.seed, backend=cfg.graphsum_backend,
+            meta = dict(dataset=args.graph_name, seed=cfg.seed, backend=cfg.graphsum_backend,
                         platform=platform, test_loss=result.test_loss,
                         test_acc=result.test_acc, total_train_time=result.total_train_time)
             write_history_jsonl(args.metrics_jsonl, result.history, run_meta=meta)
@@ -199,7 +221,54 @@ def main(argv: list[str] | None = None) -> int:
         from cuda_gcn_torch.utils.timer import timers
 
         print(timers.report())
+
+
+def _run_mesh(args, cfg: GCNConfig, dataset, device, platform: str) -> int:
+    """Partition here, train on ``args.mesh`` spawned ranks (``_mesh_rank``)."""
+    import torch
+
+    from cuda_gcn_torch.parallel import multihost, sharded
+
+    if device.type == "cuda" and args.mesh > torch.cuda.device_count():
+        print(f"--mesh {args.mesh} needs {args.mesh} devices, have "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    if args.timing:
+        print("note: --timing reports only train/test phases with --mesh "
+              "(per-op timers are single-chip)", file=sys.stderr)
+    cfg, shards, _ = sharded.prepare_sharded(cfg, dataset, args.mesh, device=device)
+    print(f"SHARDED over {args.mesh} devices (graph partition + halo exchange)", flush=True)
+    multihost.run_ranks(_mesh_rank, args.mesh, (args, cfg, device.type, platform),
+                        rank_args=[(s,) for s in shards])
     return 0
+
+
+def _mesh_rank(rank: int, world_size: int, init_method: str, args, cfg: GCNConfig,
+               device_type: str, platform: str, shard) -> None:
+    """One rank of ``--mesh``: NCCL on cuda:<rank>, or gloo on the CPU (the
+    host's cores split among the ranks); rank 0 prints and writes."""
+    import torch
+
+    from cuda_gcn_torch import train
+    from cuda_gcn_torch.parallel import multihost, sharded
+
+    device = torch.device(f"cuda:{rank}" if device_type == "cuda" else "cpu")
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    multihost.initialize(init_method, world_size, rank, device=device)
+    initial_state = None
+    if args.load_checkpoint:
+        from cuda_gcn_torch.utils.checkpoint import restore_state
+
+        initial_state = restore_state(args.load_checkpoint,
+                                      like=train.create_state(cfg, device))
+        if multihost.is_primary():
+            print(f"restored checkpoint from {args.load_checkpoint}")
+    result = sharded.run_sharded(cfg, shard, device=device, verbose=True,
+                                 initial_state=initial_state)
+    if multihost.is_primary():
+        _write_outputs(args, cfg, result, platform)
+    sys.stdout.flush()
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ A copy of ``GCNConfig`` from the JAX package (cuda_gcn_tpu/config.py:19-57) with
 the same fields and defaults, so the same config means the same run in both
 packages. The port keeps its own copy because it imports nothing of the JAX
 package. ``feature_matmul`` selects dense or sparse (CSR) layer-0 features.
-``compute_dtype`` (activations and features) and ``param_dtype`` (weights) are
-each 'float32' or 'bfloat16'; another value is refused here, by name.
-``halo_dtype`` belongs to the sharded trainer, which is not ported yet.
+``compute_dtype`` (activations and features), ``param_dtype`` (weights) and
+``halo_dtype`` (the wire type of the sharded trainer's halo rows,
+parallel/sharded.py) are each 'float32' or 'bfloat16'; another value is
+refused here, by name.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class GCNConfig:
     bsr_budget_gb: float | None = None
 
     def __post_init__(self):
-        for field in ("compute_dtype", "param_dtype"):
+        for field in ("compute_dtype", "param_dtype", "halo_dtype"):
             if getattr(self, field) not in DTYPES:
                 raise ValueError(f"{field} must be one of {DTYPES}, got "
                                  f"{getattr(self, field)!r}")

@@ -18,9 +18,18 @@ h's type and kernel 2 adds the residual to it in f32 (:303).
 A symmetric graph routes the backward through the forward structures
 (:335-352); an asymmetric one runs over the transposed tile plan and the
 transposed residual CSR, or the transposed ELL plan.
+
+``RectGraph``/``rect_graphsum`` (:357-445) are the sharded trainer's
+operators out[n_out, d] = A·h[n_in, d]: a part's square interior, which is a
+``Graph`` on ``bsr`` (kernel 1 tiles and the kernel 2 residual, both
+orientations built) or on ``segment``, so that ``_apply`` serves it as it
+is; and the rectangular boundary, a residual CSR of ``n_out`` rows over
+``n_in`` halo rows with its transpose (kernel 2 both ways).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -106,3 +115,43 @@ def graphsum_pair(zt: torch.Tensor, ze: torch.Tensor, graph: Graph):
     is detached."""
     out_t, out_e = _GraphSumPair.apply(zt, ze.detach(), graph)
     return out_t, out_e.detach()
+
+
+@dataclasses.dataclass
+class RectGraph:
+    """out[n_out, d] = A · h[n_in, d]: ``square`` (a Graph, n_out == n_in),
+    or the residual CSR ``resid`` of n_out rows over n_in columns with its
+    transpose ``resid_t`` of n_in rows."""
+
+    n_out: int
+    n_in: int
+    square: Graph | None = None
+    resid: ResidualCSR | None = None
+    resid_t: ResidualCSR | None = None
+
+
+def rect_apply(h: torch.Tensor, rg: RectGraph, transpose: bool,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """A·h, or Aᵀ·h with ``transpose`` (h of n_out rows then), in h's type; a
+    rectangular operator adds in place to ``out`` when it is given."""
+    h = h.contiguous()
+    if rg.square is not None:
+        res = _apply(h, rg.square, transpose)
+        return res if out is None else out.add_(res)
+    return _residual(h, rg.resid_t if transpose else rg.resid, out)
+
+
+class _RectGraphSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, rg):
+        ctx.rg = rg
+        return rect_apply(h, rg, transpose=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rect_apply(g, ctx.rg, transpose=True), None
+
+
+def rect_graphsum(h: torch.Tensor, rg: RectGraph) -> torch.Tensor:
+    """out[n_out, d] = A · h for h of shape [n_in, d]; the backward is Aᵀ·g."""
+    return _RectGraphSum.apply(h, rg)

@@ -41,6 +41,13 @@ result on the same input.
 
 A tensor on the CPU takes ``csr_matmul_plain``; a CUDA tensor launches the
 kernels or raises.
+
+The sharded trainer gives each part its own ``SparseFeatures``
+(``make_sparse_features_parts``, cuda_gcn_tpu/ops/matmul.py:200-293): the
+part's feature rows, re-based to row 0 and padded to the part's ``block``
+rows, so that the layer-0 product emits the part's [block, d] slab. The JAX
+package's banded form of the same (``make_banded_features_parts``, :214) is
+this CSR layout here, as for one device.
 """
 
 from __future__ import annotations
@@ -107,6 +114,27 @@ class SparseFeatures:
                    cols=dev(cols), n_rows=n_rows, n_cols=n_cols, row_ptr=dev(indptr),
                    t_ptr=dev(t_ptr), t_rows=dev(rows[t_perm]), t_perm=dev(t_perm, torch.int64),
                    t_work=csr_work_list(t_ptr, device), work=csr_work_list(indptr, device))
+
+
+def slice_feature_rows(indptr, indices, values, lo: int, hi: int, block: int):
+    """One part's feature-CSR rows [lo, hi), re-based to row 0 and padded to
+    ``block`` rows of no nnz (cuda_gcn_tpu/ops/matmul.py:200-211): (indptr,
+    indices, values)."""
+    sub_ptr = indptr[lo:hi + 1].astype(np.int64) - np.int64(indptr[lo])
+    if block > hi - lo:
+        sub_ptr = np.concatenate([sub_ptr, np.full(block - (hi - lo), sub_ptr[-1], np.int64)])
+    sl = slice(int(indptr[lo]), int(indptr[hi]))
+    return sub_ptr, indices[sl], values[sl]
+
+
+def make_sparse_features_parts(indptr, indices, values, bounds, block: int, n_cols: int,
+                               dtype: torch.dtype, device) -> list[SparseFeatures]:
+    """One ``SparseFeatures`` of ``block`` rows per part of ``bounds`` (the
+    P+1 part boundaries) on ``device``, values in ``dtype``."""
+    bounds = np.asarray(bounds, dtype=np.int64)
+    return [SparseFeatures.from_csr(
+        *slice_feature_rows(indptr, indices, values, int(bounds[p]), int(bounds[p + 1]),
+                            block), n_cols, device, dtype) for p in range(len(bounds) - 1)]
 
 
 def csr_matmul_plain(values, rows, cols, w, n_rows: int) -> torch.Tensor:

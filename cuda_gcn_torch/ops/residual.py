@@ -23,8 +23,10 @@ from cuda_gcn_torch.ops.ell import WorkList
 def residual_spmm_plain(row_ptr, cols, coef, h, out=None) -> torch.Tensor:
     """Plain version: gather, scale and ``index_add_`` in f32, one cast to h's
     type. With ``out`` the f32 sum is added to it in place (out + Σ, as
-    dense_part + resid in JAX), rounded once to out's type."""
-    n, d = h.shape
+    dense_part + resid in JAX), rounded once to out's type. The CSR has
+    ``row_ptr.numel() - 1`` rows and its ``cols`` index the rows of h, of
+    which there may be another number (a rectangular operator)."""
+    n, d = row_ptr.numel() - 1, h.shape[1]
     rows = torch.repeat_interleave(torch.arange(n, device=h.device),
                                    torch.diff(row_ptr.long()))
     resid = torch.zeros(n, d, dtype=torch.float32, device=h.device)

@@ -2,11 +2,12 @@
 
 The same argv gives the same ``GCNConfig`` (the nine positional overrides and
 their ``--flag`` forms, the flag winning, the "inferred from the dataset"
-note, the exit on a value that does not parse); every flag of the JAX CLI is
-accepted but those of the sharded trainer (``--mesh``, ``--halo-dtype``) and
-of XLA (``--platform``, ``--compilation-cache``, ``--prime-cache``, whose
-counterpart is ``--build-kernels``). Checkpoints, history files and
-``--timing`` run end to end on synth-cora with ``--device cpu``.
+note, the exit on a value that does not parse, ``--halo-dtype``); every flag
+of the JAX CLI is accepted but those of XLA (``--platform``,
+``--compilation-cache``, ``--prime-cache``, whose counterpart is
+``--build-kernels``). Checkpoints, history files and ``--timing`` run end to
+end on synth-cora with ``--device cpu``; ``--mesh`` runs in
+tests/test_torch_sharded.py.
 """
 
 import csv
@@ -30,6 +31,7 @@ ARGVS = [
     ["synth-cora", "1", "2", "64", "--hidden-dim", "8", "--seed", "3", "--backend", "ell",
      "--feature-matmul", "sparse", "--compute-dtype", "bfloat16"],
     ["synth-pubmed", "5", "6", "16", "9", "--num-nodes", "4", "--output-dim", "2"],
+    ["synth-cora", "--mesh", "2", "--halo-dtype", "float32", "--epochs", "3"],
 ]
 
 
@@ -38,12 +40,14 @@ def _options(parser) -> set[str]:
 
 
 def test_every_jax_flag_but_the_sharded_and_xla_ones():
-    left_out = {"--mesh", "--halo-dtype", "--platform", "--compilation-cache",
-                "--prime-cache"}
+    """Since the sharded trainer was ported, only XLA's flags are left out:
+    ``--mesh`` and ``--halo-dtype`` are the port's too."""
+    left_out = {"--platform", "--compilation-cache", "--prime-cache"}
     jax_opts = _options(jcli.build_argparser())
     port_opts = _options(tcli.build_argparser())
     assert left_out <= jax_opts
     assert jax_opts - left_out <= port_opts
+    assert {"--mesh", "--halo-dtype"} <= port_opts
     assert port_opts - jax_opts == {"--device", "--build-kernels"}
 
 

@@ -20,6 +20,7 @@ from cuda_gcn_torch.ops import ell as tell
 from cuda_gcn_torch.ops import graphsum as tgs
 from cuda_gcn_torch.ops import matmul as tmm
 from cuda_gcn_torch.ops import residual as tres
+from cuda_gcn_torch.parallel import multihost, sharded
 from cuda_gcn_torch.probes import dyngather as tdyn
 from cuda_gcn_torch.probes import gather as tprobe
 from cuda_gcn_torch.probes import taa as ttaa
@@ -44,7 +45,7 @@ def test_port_and_chip_smoke_import_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 24  # every module was imported
+    assert int(res.stdout.split()[0]) >= 37  # every module was imported
 
 
 def test_the_synthetic_generator_and_the_cli_import_no_jax():
@@ -74,11 +75,30 @@ def test_the_utilities_import_no_jax(module):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("module", ["partition", "multihost", "sharded"])
+def test_the_sharded_trainer_imports_no_jax(module):
+    """Each module of cuda_gcn_torch.parallel stands alone: importing it pulls
+    in neither jax, ml_dtypes nor the JAX package."""
+    code = (f"import sys; import cuda_gcn_torch.parallel.{module}; bad = sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'cuda_gcn_tpu')); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _one_shard(ds):
+    cfg, shards, _ = sharded.prepare_sharded(GCNConfig(reorder="none"), ds, 1)
+    return cfg, shards[0]
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "build_graph", "create_state",
-                                   "run"])
+                                   "run", "run_sharded", "initialize"])
 def test_entry_points_default_to_cuda_and_raise_without_it(tiny_dataset, entry,
-                                                           monkeypatch):
+                                                           monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     calls = {
         "resolve_device": lambda: resolve_device(),
         "build_graph": lambda: tgraph.build_graph(
@@ -86,6 +106,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tiny_dataset, entry,
                 tiny_dataset.graph.indptr, tiny_dataset.graph.indices)),
         "create_state": lambda: train.create_state(GCNConfig()),
         "run": lambda: train.run(GCNConfig(epochs=1, reorder="none"), tiny_dataset),
+        # the sharded trainer: a rank's run, and its process group (NCCL by default)
+        "run_sharded": lambda: sharded.run_sharded(*_one_shard(tiny_dataset)),
+        "initialize": lambda: multihost.initialize(f"file://{tmp_path}/store", 1, 0),
     }
     with pytest.raises(RuntimeError, match="CUDA device"):
         calls[entry]()

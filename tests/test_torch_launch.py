@@ -227,6 +227,24 @@ def test_h_is_made_contiguous_for_the_graph_kernels(recorder):
     assert len(recorder) == 1 and recorder[0][1][12] == 16
 
 
+@pytest.mark.parametrize("h_rows", [7, 300])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_csr_spmm_takes_h_of_another_row_count(recorder, h_rows, accumulate):
+    """A rectangular operator (the sharded trainer's boundary and its
+    transpose): the CSR has n = 60 rows, h has 7 (the halo rows) or 300. The
+    output has n rows, and h reaches the C call as it is."""
+    fn, args = _valid()["csr_spmm"]
+    args["h"] = fake(h_rows, 16)
+    if not accumulate:
+        args["out"] = None
+    out = fn(**args)
+    assert [c[0] for c in recorder] == ["csr_spmm"]
+    call = recorder[0][1]
+    assert tuple(out.shape) == (60, 16)
+    assert call[9] == args["h"].data_ptr() and call[10] == out.data_ptr()
+    assert call[12:15] == (16, 4, int(accumulate))
+
+
 def test_the_real_call_counts_a_launch_in_one_place(monkeypatch):
     """``_call`` binds the C function once and counts where it launches."""
     seen = []
