@@ -66,7 +66,7 @@ Phases, each of which raises (exit code not 0) when it fails:
     code should make; sparse against dense features at dropout 0 within 1e-4;
     synth-pubmed sparse, card against CPU, within 1e-4;
 (l) the text entry point: synth-cora written as cora-text.{graph,split,svmlight},
-    parsed back array for array, and trained from the files by ``cli.main``
+    parsed back by the native parser array for array, and trained from the files by ``cli.main``
     with ``--feature-matmul sparse`` in the reference's output format;
 (m) bf16 activations and weights (run after (e)): on synth-reddit built for
     bf16 activations (bf16 edge coefficients), kernels 1 (both orientations),
@@ -81,8 +81,10 @@ Phases, each of which raises (exit code not 0) when it fails:
     nodes); and ``cli.main(["synth-cora", "--seed", "3", "--epochs", "3"])``,
     which must generate the dataset;
 (n) synth-reddit4x (931,860 nodes, 602-16-41, run last): generated with seed 0
-    by ``data/synthetic.py``, relabelled by LPA and built as the bsr graph,
-    each step's host seconds and peak host memory printed with the tile and
+    by ``data/synthetic.py``, relabelled by the native LPA (numpy's beside it:
+    seconds, labels bit for bit) and built as the bsr graph by numpy's build
+    steps (timed, then dropped) and by the native ones, each step's host seconds
+    and peak host memory printed with the host's cores and the tile and
     residual edge counts; kernels 1 and 2 against their plain versions at d
     16/32/41/82 (kernel 1's plain version over 32,768 tiles at a time) and
     bitwise repeatable, timed beside their bounds and the library as in (d);
@@ -114,6 +116,14 @@ Phases, each of which raises (exit code not 0) when it fails:
     orientations, the boundary with n_in = halo_space in both), timed beside
     their bounds and the library; ``cli.main synth-pubmed --mesh 1`` against
     the single-device CLI run.
+(q) the native host code (run after (a)): g++ builds the three libraries of
+    ``cuda_gcn_torch/csrc/host`` (seconds printed); native LPA against numpy's
+    on synth-reddit as loaded (labels bit for bit); the main path's bsr graph
+    built natively against the numpy build (tiles, tile ids and residual CSR bit
+    for bit); synth-pubmed as text through both parsers; ``python -m
+    cuda_gcn_torch.data.reddit`` on generated GraphSAGE dumps, then 3 epochs of
+    ``cli.main --backend segment`` on its output with kernel 2's launches
+    counted. Each time beside the host's core count.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
@@ -1865,8 +1875,10 @@ def _counted(label: str, fn, expected: dict) -> dict:
 
 def phase_reddit4x(errs):
     """(n) synth-reddit4x (931,860 nodes, 602-16-41): the dataset generated by
-    the port with seed 0, relabelled by LPA, built as the bsr graph, each
-    step's host seconds and peak host memory; kernels 1 and 2 against their
+    the port with seed 0, relabelled by the native LPA (numpy's LPA run beside
+    it in the same call: time, labels bit for bit), built as the bsr graph by
+    numpy's build steps (timed, dropped) and then the native ones, each step's
+    host seconds and peak host memory; kernels 1 and 2 against their
     plain versions and timed at d 16/32/41/82 beside their bounds and the
     library; the dense-feature fused loop (steady ms/epoch, profile, peak
     device memory, launches); sparse features: kernels 2 (X·W) and 3 (dW)
@@ -1880,8 +1892,9 @@ def phase_reddit4x(errs):
 
     from cuda_gcn_torch import train
     from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data import graph as graph_mod
     from cuda_gcn_torch.data.graph import build_graph
-    from cuda_gcn_torch.data.reorder import locality_permutation, reorder_dataset
+    from cuda_gcn_torch.data.reorder import cluster_order, label_propagation, reorder_dataset
     from cuda_gcn_torch.data.synthetic import make_synthetic
 
     name = "synth-reddit4x"
@@ -1892,22 +1905,54 @@ def phase_reddit4x(errs):
     log(f"(n) {name}: generated in {setup['generate_s']:.1f} s (host peak {_host_gb():.1f} GB): "
         f"{ds.num_nodes} nodes, {ds.graph.nnz} edges with self-loops, "
         f"{len(ds.feature_value)} feature nnz, {ds.input_dim}-16-{ds.output_dim}")
+    g = ds.graph
     t0 = time.perf_counter()
-    perm = locality_permutation(ds.graph)
+    labels_np = label_propagation(g.indptr, g.indices, prefer_native=False)
+    lpa_numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = label_propagation(g.indptr, g.indices)
     setup["lpa_s"] = time.perf_counter() - t0
+    same = labels.dtype == labels_np.dtype and np.array_equal(labels, labels_np)
+    log(f"  LPA (4 rounds, collapse guard): native {setup['lpa_s']:.2f} s, numpy "
+        f"{lpa_numpy_s:.2f} s in this call ({_cores()}); {len(np.unique(labels))} labels, "
+        f"equal bit for bit {'ok' if same else 'FAIL'} (host peak {_host_gb():.1f} GB)")
+    if not same:
+        raise AssertionError(f"native LPA labels differ from numpy's on {name}")
+    del labels_np
     t0 = time.perf_counter()
+    perm = cluster_order(labels)
     ds = reorder_dataset(ds, perm)
     setup["relabel_s"] = time.perf_counter() - t0
-    del perm
-    log(f"  locality permutation (LPA) {setup['lpa_s']:.1f} s, relabelling "
-        f"{setup['relabel_s']:.1f} s (host peak {_host_gb():.1f} GB)")
+    del perm, labels, g
+    log(f"  cluster order and relabelling {setup['relabel_s']:.1f} s (host peak "
+        f"{_host_gb():.1f} GB)")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    graph = build_graph(ds.graph, backend="bsr", aux_bytes=ds.num_nodes * ds.input_dim * 4,
-                        device="cuda")
-    torch.cuda.synchronize()
-    setup["graph_build_s"] = time.perf_counter() - t0
-    _describe_graph(graph, f"  {name}", setup["graph_build_s"])
+    result_build = {}
+    for way in ("numpy", "native"):  # numpy's build first, timed and dropped
+        saved = graph_mod.NATIVE_BUILD_MIN_NNZ
+        if way == "numpy":
+            graph_mod.NATIVE_BUILD_MIN_NNZ = 1 << 62
+        try:
+            t0 = time.perf_counter()
+            graph = graph_mod.build_graph(ds.graph, backend="bsr", device="cuda",
+                                          aux_bytes=ds.num_nodes * ds.input_dim * 4)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            graph_mod.NATIVE_BUILD_MIN_NNZ = saved
+        result_build[way] = dict(graph.build_s, total=seconds)
+        log(f"  bsr build, {way} steps (host s): {seconds:.2f} s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in graph.build_s.items())
+            + f" (K={graph.num_tiles}, host peak {_host_gb():.1f} GB)")
+        if way == "numpy":
+            numpy_ids = (graph.num_tiles, graph.resid_nnz)
+            del graph
+            torch.cuda.empty_cache()
+    setup["graph_build_s"] = seconds
+    _describe_graph(graph, f"  {name}", seconds)
+    if (graph.num_tiles, graph.resid_nnz) != numpy_ids:
+        raise AssertionError(f"native and numpy builds of {name} differ: "
+                             f"{(graph.num_tiles, graph.resid_nnz)} against {numpy_ids}")
     log(f"  host peak {_host_gb():.1f} GB; the graph holds "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
     check_kernels_1_2(graph, errs, f" {name}")
@@ -1957,7 +2002,8 @@ def phase_reddit4x(errs):
                   tile_gb=graph.tiles.numel() * graph.tiles.element_size() / 1e9,
                   epoch_ms=steady, busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
                   peak_device_gb={"dense": peak_dense / 1e9, "sparse": peak_sparse / 1e9},
-                  device_gb=total / 1e9, host_setup_s=setup,
+                  device_gb=total / 1e9, host_setup_s=setup, build_steps_s=result_build,
+                  lpa_numpy_s=lpa_numpy_s,
                   kernels={line["name"]: line for line in timing}, layer0=layer0)
     del graph
     torch.cuda.empty_cache()
@@ -1974,6 +2020,210 @@ def phase_reddit4x(errs):
     del graph, ds
     torch.cuda.empty_cache()
     return result
+
+
+def _cores() -> str:
+    import os
+
+    return (f"{os.cpu_count()} cores, {len(os.sched_getaffinity(0))} in this process's "
+            "affinity")
+
+
+def _graph_tensors(graph) -> dict:
+    """The build's output tensors: tiles, tile ids, the residual CSR(s)."""
+    out = {"tiles": graph.tiles, "tile_rows": graph.tile_rows, "tile_cols": graph.tile_cols}
+    for name in ("resid", "resid_t"):
+        r = getattr(graph, name)
+        if r is not None:
+            out.update({f"{name}.row_ptr": r.row_ptr, f"{name}.cols": r.cols,
+                        f"{name}.coef": r.coef})
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def _graphsage_dumps(path: str, n: int, feats: int, classes: int, seed: int) -> None:
+    """GraphSAGE reddit-format dumps (reddit-G.json, -feats.npy, -id_map.json,
+    -class_map.json) of a random graph of ``n`` nodes, about 10 links each;
+    every 50th node lacks its val/test annotations (the converter drops it)."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    role = rng.integers(0, 10, n)
+    nodes = [{"id": f"r{i}"} if i % 50 == 49 else
+             {"id": f"r{i}", "val": bool(role[i] == 8), "test": bool(role[i] == 9)}
+             for i in range(n)]
+    community = rng.integers(0, classes, n)
+    pairs = rng.integers(0, n, (10 * n, 2))
+    near = rng.random(len(pairs)) < 0.8  # most links inside a node's class
+    for c in range(classes):
+        members = np.flatnonzero(community == c)
+        sel = near & (community[pairs[:, 0]] == c)
+        pairs[sel, 1] = rng.choice(members, int(sel.sum()))
+    links = [{"source": f"r{a}", "target": f"r{b}"} for a, b in pairs if a != b]
+    with open(os.path.join(path, "reddit-G.json"), "w") as f:
+        json.dump({"nodes": nodes, "links": links}, f)
+    x = rng.normal(size=(n, feats)) + community[:, None] * 0.3
+    np.save(os.path.join(path, "reddit-feats.npy"), x)
+    with open(os.path.join(path, "reddit-id_map.json"), "w") as f:
+        json.dump({f"r{i}": i for i in range(n)}, f)
+    with open(os.path.join(path, "reddit-class_map.json"), "w") as f:
+        json.dump({f"r{i}": int(community[i]) for i in range(n)}, f)
+
+
+NATIVE_CLI_EPOCHS = 3
+
+
+def phase_native(dataset, device: str = "cuda") -> dict:
+    """(q) the native host code on the card's host: g++ builds the three
+    libraries; on synth-reddit as loaded, native LPA against numpy's (labels
+    bit for bit); on the main path's relabelled synth-reddit, the bsr graph
+    built natively against the numpy build (tiles, tile ids, residual CSR bit
+    for bit); synth-pubmed round-tripped as text through both parsers; a
+    generated GraphSAGE directory converted by ``python -m
+    cuda_gcn_torch.data.reddit`` and trained by ``cli.main --backend segment``
+    (kernel 2) for 3 epochs. Host seconds of each, beside the host's cores."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import cli, kernels
+    from cuda_gcn_torch.data import graph as graph_mod
+    from cuda_gcn_torch.data import native
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.data.parser import load_dataset
+    from cuda_gcn_torch.data.reorder import label_propagation
+    from cuda_gcn_torch.data.synthetic import write_dataset
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    res = {"cores": _cores(), "gxx": gxx.stdout.splitlines()[0] if gxx.stdout else "?"}
+    t0 = time.perf_counter()
+    built = native.build()
+    res["build_s"] = time.perf_counter() - t0
+    log(f"(q) native host code on the card's host ({res['cores']}): {res['gxx']} built "
+        f"{sorted(built) or 'nothing (cached)'} in {res['build_s']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()) + f") with "
+        f"{' '.join(native.CXX_FLAGS)} into {native.BUILD_DIR}")
+
+    raw = load_cached("synth-reddit")
+    g = raw.graph
+    t0 = time.perf_counter()
+    lab_np = label_propagation(g.indptr, g.indices, prefer_native=False)
+    res["lpa_numpy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab = label_propagation(g.indptr, g.indices)
+    res["lpa_native_s"] = time.perf_counter() - t0
+    same = lab.dtype == lab_np.dtype and np.array_equal(lab, lab_np)
+    log(f"  synth-reddit LPA (4 rounds, collapse guard): numpy {res['lpa_numpy_s']:.2f} s, "
+        f"native {res['lpa_native_s']:.2f} s ({res['cores']}); {len(np.unique(lab))} "
+        f"labels, equal bit for bit {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("native LPA labels differ from numpy's on synth-reddit")
+    del raw, g, lab, lab_np
+
+    csr = dataset.graph
+    torch.cuda.empty_cache()
+    # warm-up: the card's context and the scatter's kernels, outside the timings
+    graph_mod.build_graph(load_cached("synth-cora").graph, backend="bsr", device=device)
+    builds, tensors = {}, {}
+    for way in ("numpy", "native"):
+        saved = graph_mod.NATIVE_BUILD_MIN_NNZ
+        if way == "numpy":  # the numpy oracle: every step under the threshold
+            graph_mod.NATIVE_BUILD_MIN_NNZ = 1 << 62
+        try:
+            t0 = time.perf_counter()
+            gr = graph_mod.build_graph(csr, backend="bsr", device=device)
+            torch.cuda.synchronize()
+            builds[way] = dict(seconds=time.perf_counter() - t0, steps=dict(gr.build_s))
+        finally:
+            graph_mod.NATIVE_BUILD_MIN_NNZ = saved
+        tensors[way] = _graph_tensors(gr)
+        del gr
+    diff = [k for k in tensors["native"] if not (
+        tensors["native"][k].dtype == tensors["numpy"][k].dtype
+        and torch.equal(tensors["native"][k], tensors["numpy"][k]))]
+    same = tensors["native"].keys() == tensors["numpy"].keys() and not diff
+    res["graph_build"] = builds
+    for way, b in builds.items():
+        log(f"  synth-reddit relabelled, bsr build_graph on the card, {way}: "
+            f"{b['seconds']:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in b["steps"].items())
+            + ")")
+    log(f"  native against numpy build: {', '.join(tensors['native'])} equal bit for bit "
+        f"{'ok' if same else 'FAIL ' + str(diff)} (K={tensors['native']['tiles'].shape[0]})")
+    if not same:
+        raise AssertionError(f"the native graph build differs from numpy's: {diff}")
+    del tensors
+    torch.cuda.empty_cache()
+
+    pubmed = load_cached("synth-pubmed")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dataset(pubmed, tmp, "pubmed-text")
+        parsed, secs = {}, {}
+        for way, flag in (("native", True), ("numpy", False)):
+            t0 = time.perf_counter()
+            parsed[way] = load_dataset("pubmed-text", data_dir=tmp, use_native=flag)
+            secs[way] = time.perf_counter() - t0
+    a, b = parsed["native"], parsed["numpy"]
+    ints = [(a.graph.indptr, b.graph.indptr), (a.graph.indices, b.graph.indices),
+            (a.feature_index.indptr, b.feature_index.indptr),
+            (a.feature_index.indices, b.feature_index.indices), (a.label, b.label),
+            (a.split, b.split), (a.graph.indices, pubmed.graph.indices),
+            (a.label, pubmed.label)]
+    ok = all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in ints) and (
+        (a.num_nodes, a.input_dim, a.output_dim) == (b.num_nodes, b.input_dim, b.output_dim))
+    va, vb = a.feature_value, b.feature_value
+    rel = float(np.max(np.abs(va - vb) / np.maximum(np.abs(vb), 1e-30))) if len(va) else 0.0
+    ok = ok and va.dtype == vb.dtype and np.allclose(va, vb, rtol=1e-6, atol=0)
+    res["parse_s"] = secs
+    log(f"  synth-pubmed as text ({a.num_nodes} nodes, {len(va)} feature values): native parse "
+        f"{secs['native']:.2f} s, numpy {secs['numpy']:.2f} s; every index array equal, "
+        f"{int(np.sum(va != vb))} values differ in the last bit (strtof against float), max "
+        f"rel diff {rel:.2e} (rtol 1e-6) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the native and numpy parsers disagree on synth-pubmed")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dumps, out = os.path.join(tmp, "dumps"), os.path.join(tmp, "out")
+        os.makedirs(dumps)
+        _graphsage_dumps(dumps, n=3000, feats=64, classes=8, seed=0)
+        t0 = time.perf_counter()
+        conv = subprocess.run([sys.executable, "-m", "cuda_gcn_torch.data.reddit", dumps,
+                               "--out-dir", out], capture_output=True, text=True, timeout=300)
+        res["convert_s"] = time.perf_counter() - t0
+        if conv.returncode != 0:
+            raise AssertionError(f"python -m cuda_gcn_torch.data.reddit failed:\n{conv.stderr}")
+        log(f"  GraphSAGE dumps of 3,000 nodes converted in {res['convert_s']:.2f} s: "
+            + " / ".join(conv.stdout.strip().splitlines()))
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["reddit", "--data-dir", out, "--backend", "segment",
+                           "--epochs", str(NATIVE_CLI_EPOCHS)])
+        launches = dict(kernels.launches)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log("  | " + line)
+    num = r"-?\d+\.\d{5}"
+    ok = rc == 0 and len(lines) == 4 + NATIVE_CLI_EPOCHS + 2 and all(
+        re.fullmatch(rf"epoch={i} train_loss={num} train_acc={num} val_loss={num} "
+                     rf"val_acc={num} time={num}", line)
+        for i, line in enumerate(lines[4:4 + NATIVE_CLI_EPOCHS], start=1))
+    losses = [float(line.split()[1].split("=")[1]) for line in lines[4:4 + NATIVE_CLI_EPOCHS]]
+    ok = ok and all(np.isfinite(losses))
+    # segment backend: kernel 2 on every adjacency pass, 4 an epoch and 2 for
+    # each of the trailing and the test eval
+    expected = {"csr_spmm": 4 * NATIVE_CLI_EPOCHS + 4}
+    log(f"  cli.main reddit --backend segment: rc {rc}, train losses {losses}; launches "
+        f"{launches}; expected {expected}, 0 for the others")
+    if not ok or any(v != expected.get(k, 0) for k, v in launches.items()):
+        raise AssertionError("the converted reddit directory did not train as expected")
+    res["cli_launches"] = launches
+    return res
 
 
 def phase_cli_extras():
@@ -2508,6 +2758,7 @@ def main() -> int:
     t0 = time.perf_counter()
     dataset = reorder_cached(load_cached("synth-reddit"), "synth-reddit")
     log(f"loaded and reordered synth-reddit in {time.perf_counter() - t0:.1f} s")
+    host = phase_native(dataset)
     graph, errs = phase_kernels(dataset, device)
     phase_tile_cases(errs)
     phase_third_part()
@@ -2629,6 +2880,15 @@ def main() -> int:
         + ", ".join(f"{h} {[round(v, 2) for v in r['epoch_ms']]}" for h, r in info["runs"].items())
         + f", boundary edge fraction {info['boundary_fraction']:.4f}"
         for w, info in shard["worlds"].items()) + " (ranks of P=2 and 4 share one card)")
+    log(f"native host code (q), {host['cores']}: g++ {host['build_s']:.2f} s; synth-reddit LPA "
+        f"native {host['lpa_native_s']:.2f} s against numpy {host['lpa_numpy_s']:.2f} s, bsr "
+        f"build native {host['graph_build']['native']['seconds']:.2f} s against numpy "
+        f"{host['graph_build']['numpy']['seconds']:.2f} s; synth-pubmed parse native "
+        f"{host['parse_s']['native']:.2f} s against numpy {host['parse_s']['numpy']:.2f} s; "
+        f"synth-reddit4x LPA native {reddit4x['host_setup_s']['lpa_s']:.2f} s against numpy "
+        f"{reddit4x['lpa_numpy_s']:.2f} s, build steps s "
+        + json.dumps({w: {k: round(v, 2) for k, v in b.items()}
+                      for w, b in reddit4x["build_steps_s"].items()}))
     log("--timing phases on synth-pubmed (ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in cli_timers.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -17,6 +17,13 @@ Layouts per backend:
   flattened into an ``EllPlan`` for kernel 3 (ops/ell.py); the transpose packing
   only for an asymmetric Â. No residual CSR is built for them.
 
+At ``NATIVE_BUILD_MIN_NNZ`` edges and more, as in the JAX package
+(cuda_gcn_tpu/data/graph.py:448-472,526-531,838-847), the normalization, the
+stable transposes and the tile selection run in the native build steps of
+data/native_build.py, bit for bit with the numpy code below them, which stays
+the oracle; the symmetry and uniqueness sorts stay numpy in both packages.
+``Graph.build_s`` holds the host seconds of each step of the build.
+
 The edge coefficients of the residual CSR and of the ELL plan are stored in
 bf16 when the activations are (``act_itemsize=2``), as the JAX package stores
 its residual's (cuda_gcn_tpu/data/graph.py:621): half the bytes of every slot's
@@ -35,10 +42,12 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
+from cuda_gcn_torch.data import native_build
 from cuda_gcn_torch.data.dataset import CSR
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops.bsr import TilePlan, tile_plan
@@ -54,6 +63,9 @@ BSR_DEFAULT_DTYPE = "bfloat16"
 # It was calibrated on a TPU; it is kept so that both packages select the same
 # tiles. Re-deriving it for the H100 is a ROADMAP item.
 BSR_BREAK_EVEN_BYTES_PER_EDGE = 2048
+# At this many edges and more the native build steps take the host's hot loops
+# (cuda_gcn_tpu/data/graph.py:451); below it the numpy code runs.
+NATIVE_BUILD_MIN_NNZ = 2_000_000
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -92,6 +104,7 @@ class Graph:
     plan_t: TilePlan | None = None  # tiles grouped by block col (asymmetric)
     ell: EllPlan | None = None      # ELL packing of Â ('ell', 'pallas')
     ell_t: EllPlan | None = None    # ELL packing of Âᵀ (asymmetric only)
+    build_s: dict = dataclasses.field(default_factory=dict)  # host seconds by build step
 
     @property
     def num_tiles(self) -> int:
@@ -105,6 +118,8 @@ class Graph:
 def normalization_coefficients(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
     """Per-edge Â values 1/sqrt(rowlen(src) * rowlen(dst)) (module.cpp:91-93),
     row lengths including the prepended self-loop."""
+    if int(indptr[-1]) >= NATIVE_BUILD_MIN_NNZ:
+        return native_build.norm_coef(indptr, indices)
     deg = np.diff(indptr).astype(np.float64)
     src = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
     return (1.0 / np.sqrt(deg[src] * deg[indices])).astype(np.float32)
@@ -167,6 +182,26 @@ def _select_tile_ids(src, dst, n, tb, min_edges, budget_bytes, itemsize):
         order = np.argsort(-counts[candidates], kind="stable")
         candidates = candidates[order[:max_tiles]]
     return np.sort(candidates), tile_id, t_blocks
+
+
+def _select_tiles(src, dst, n, tb, min_edges, budget_bytes, itemsize, symmetric):
+    """(ids, edge rank, T): the tiles that ``build_graph`` makes, sorted ids
+    as ``_select_tile_ids`` gives them, pair-closed when ``symmetric``, and
+    each edge's rank among them (-1: the residual keeps the edge)."""
+    t_blocks = -(-n // tb)
+    if len(src) >= NATIVE_BUILD_MIN_NNZ:
+        max_tiles = max(int(budget_bytes // (tb * tb * itemsize)), 0)
+        ids, rank = native_build.select_tiles(src, dst, n, tb,
+                                              _min_edges(tb, itemsize, min_edges),
+                                              max_tiles, symmetric)
+        return ids, rank, t_blocks
+    candidates, tile_id, _ = _select_tile_ids(src, dst, n, tb, min_edges, budget_bytes,
+                                              itemsize)
+    if symmetric and len(candidates):
+        candidates = _pair_close(candidates, t_blocks)
+    rank_of = np.full(t_blocks * t_blocks, -1, dtype=np.int64)
+    rank_of[candidates] = np.arange(len(candidates))
+    return candidates, rank_of[tile_id], t_blocks
 
 
 def _pair_close(candidates: np.ndarray, t_blocks: int) -> np.ndarray:
@@ -238,6 +273,14 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, coef: np.ndarray) -> list
     return _ell_pack(np.argsort(deg, kind="stable"), deg, indices, coef, indptr)
 
 
+def _transpose_coo(src, dst, coef, n):
+    """The edges ordered stably by ``dst``, as (dst, src, coef): Âᵀ's COO."""
+    if len(src) >= NATIVE_BUILD_MIN_NNZ:
+        return native_build.transpose_coo(src, dst, coef, n)
+    perm = np.argsort(dst, kind="stable")
+    return dst[perm], src[perm], coef[perm]
+
+
 def _coo_to_csr(rows_sorted: np.ndarray, n: int) -> np.ndarray:
     """indptr from row ids that are already sorted ascending."""
     counts = np.bincount(rows_sorted, minlength=n)
@@ -286,32 +329,47 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
         backend = "dense" if n <= DENSE_BACKEND_MAX_NODES else "bsr"
     if backend not in ("dense", "segment", "bsr", "ell", "pallas"):
         raise ValueError(f"unknown graphsum backend {backend!r}")
+    steps: dict[str, float] = {}
+    t0 = time.perf_counter()
+
+    def lap(step: str) -> None:
+        nonlocal t0
+        t1 = time.perf_counter()
+        steps[step] = t1 - t0
+        t0 = t1
+
     indptr = csr.indptr.astype(np.int64)
     dst = csr.indices.astype(np.int64)
     coef = normalization_coefficients(indptr, dst)
     src = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    lap("coef")
 
     # symmetry of the edge pattern, and whether any edge is listed twice
     fwd_sorted = np.sort(src * n + dst)
     symmetric = bool(np.array_equal(fwd_sorted, np.sort(dst * n + src)))
     unique_edges = not bool(np.any(fwd_sorted[1:] == fwd_sorted[:-1]))
     del fwd_sorted
+    lap("pattern")
 
     graph = Graph(n_nodes=n, backend=backend, symmetric=symmetric,
-                  total_nnz=int(csr.nnz))
+                  total_nnz=int(csr.nnz), build_s=steps)
     coef_dtype = torch.bfloat16 if act_itemsize == 2 else torch.float32
     if backend == "dense":
         adj = np.zeros((n, n), dtype=np.float32)
         np.add.at(adj, (src, dst), coef)
         graph.adj = torch.from_numpy(adj).to(device)
+        lap("dense")
         return graph
 
     if backend in ("ell", "pallas"):
         graph.ell = _ell_plan_of(indptr, dst, coef, device, coef_dtype)
+        lap("ell")
         if not symmetric:
-            perm = np.argsort(dst, kind="stable")
-            graph.ell_t = _ell_plan_of(_coo_to_csr(dst[perm], n), src[perm], coef[perm],
-                                       device, coef_dtype)
+            t_src, t_dst, t_coef = _transpose_coo(src, dst, coef, n)
+            lap("transpose")
+            graph.ell_t = _ell_plan_of(_coo_to_csr(t_src, n), t_dst, t_coef, device,
+                                       coef_dtype)
+            lap("ell_t")
         return graph
 
     if backend == "bsr":
@@ -321,36 +379,34 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
             bsr_budget_bytes = resolve_tile_budget(
                 n, len(src), bsr_tile, itemsize, bsr_min_edges, aux_bytes,
                 symmetric, act_itemsize, device)
-        candidates, tile_id, t_blocks = _select_tile_ids(
-            src, dst, n, bsr_tile, bsr_min_edges, bsr_budget_bytes, itemsize)
-        if symmetric and len(candidates):
-            candidates = _pair_close(candidates, t_blocks)
-        k = len(candidates)
-        rank_of = np.full(t_blocks * t_blocks, -1, dtype=np.int64)
-        rank_of[candidates] = np.arange(k)
-        edge_rank = rank_of[tile_id]
+        ids, edge_rank, t_blocks = _select_tiles(src, dst, n, bsr_tile, bsr_min_edges,
+                                                 bsr_budget_bytes, itemsize, symmetric)
         in_tile = edge_rank >= 0
-        del tile_id, rank_of
-        tb = bsr_tile
-        flat = (edge_rank[in_tile] * tb * tb + (src[in_tile] % tb) * tb
-                + dst[in_tile] % tb)
+        lap("select")
+        k, tb = len(ids), bsr_tile
+        flat = (edge_rank[in_tile].astype(np.int64, copy=False) * tb * tb
+                + (src[in_tile] % tb) * tb + dst[in_tile] % tb)
+        del edge_rank
         graph.tiles = _materialize_tiles(k, tb, flat, coef[in_tile], tdtype,
                                          unique_edges, device)
-        rows = (candidates // t_blocks).astype(np.int32)
-        cols = (candidates % t_blocks).astype(np.int32)
-        graph.tile_rows = torch.from_numpy(rows).to(device)
-        graph.tile_cols = torch.from_numpy(cols).to(device)
+        del flat
+        graph.tile_rows = torch.from_numpy((ids // t_blocks).astype(np.int32)).to(device)
+        graph.tile_cols = torch.from_numpy((ids % t_blocks).astype(np.int32)).to(device)
         graph.tb, graph.t_blocks = tb, t_blocks
         graph.plan = tile_plan(graph.tile_rows, graph.tile_cols, t_blocks)
         if not symmetric:
             graph.plan_t = tile_plan(graph.tile_cols, graph.tile_rows, t_blocks)
+        lap("tiles")
         keep = ~in_tile
         src, dst, coef = src[keep], dst[keep], coef[keep]
+        lap("residual_edges")
 
     graph.resid = _residual_csr(src, dst, coef, n, device, coef_dtype)
+    lap("residual")
     if not symmetric:
         # Âᵀ as CSR: the same edges ordered by column, stably
-        perm = np.argsort(dst, kind="stable")
-        graph.resid_t = _residual_csr(dst[perm], src[perm], coef[perm], n, device,
-                                      coef_dtype)
+        t_src, t_dst, t_coef = _transpose_coo(src, dst, coef, n)
+        lap("transpose")
+        graph.resid_t = _residual_csr(t_src, t_dst, t_coef, n, device, coef_dtype)
+        lap("residual_t")
     return graph

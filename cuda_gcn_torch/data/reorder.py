@@ -9,8 +9,9 @@ a relabelled dataset trains to the same metrics. ``partition_layout`` (cluster
 packing into P parts, then boundary refinement) gives the sharded trainer its
 node order and part cuts (parallel/sharded.py ``prepare_sharded``).
 
-Only the numpy LPA is copied; the JAX package's native C++ LPA is its own host
-library and computes the same labels.
+``label_propagation`` runs the native multithreaded LPA (data/native.py, the
+JAX package's ``csrc/gcn_lpa.cpp``) unless it is given ``prefer_native=False``;
+the numpy LPA here is the oracle, and the two give the same labels.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import hashlib
 
 import numpy as np
 
+from cuda_gcn_torch.data import native
 from cuda_gcn_torch.data.dataset import CSR, reorder_dataset
 
 __all__ = ["LPA_VERSION", "cluster_order", "label_propagation", "locality_permutation",
@@ -42,9 +44,14 @@ def lpa_cache_key(indptr: np.ndarray, indices: np.ndarray) -> str:
 
 def label_propagation(indptr: np.ndarray, indices: np.ndarray, rounds: int = 4,
                       seed_labels: np.ndarray | None = None,
+                      prefer_native: bool = True,
                       max_top_share: float | None = 0.5) -> np.ndarray:
     """Synchronous LPA: per round, each node takes the modal label among its
     neighbors (ties -> smallest label; isolated nodes keep their label).
+
+    ``prefer_native`` runs the rounds in the native LPA, which raises if it
+    cannot be built; False runs the numpy code below (the dispatch of
+    cuda_gcn_tpu/data/reorder.py:49-86, less its silent fallback).
 
     ``max_top_share`` is the collapse guard: rounds run one at a time, and if
     a round's top label holds more than that share of the nodes, the previous
@@ -55,7 +62,7 @@ def label_propagation(indptr: np.ndarray, indices: np.ndarray, rounds: int = 4,
         labels = seed_labels
         for _ in range(rounds):
             new = label_propagation(indptr, indices, rounds=1, seed_labels=labels,
-                                    max_top_share=None)
+                                    prefer_native=prefer_native, max_top_share=None)
             top = np.bincount(new.astype(np.int64)).max()
             if top > max_top_share * n and labels is not None:
                 return labels
@@ -63,6 +70,8 @@ def label_propagation(indptr: np.ndarray, indices: np.ndarray, rounds: int = 4,
                 return labels
             labels = new
         return labels
+    if prefer_native:
+        return native.label_propagation(indptr, indices, rounds, seed_labels)
     n = len(indptr) - 1
     labels = seed_labels.copy() if seed_labels is not None else np.arange(n, dtype=np.int64)
     src = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))

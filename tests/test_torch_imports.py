@@ -88,6 +88,22 @@ def test_the_sharded_trainer_imports_no_jax(module):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("module", ["native", "native_build", "reddit"])
+def test_the_native_host_code_and_the_converter_import_no_jax(module):
+    """The native host code's bindings and the GraphSAGE converter stand alone:
+    importing one pulls in neither jax, ml_dtypes nor the JAX package, and
+    builds nothing."""
+    code = (f"import os, sys; import cuda_gcn_torch.data.{module}; "
+            "from cuda_gcn_torch.data import native; bad = sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'cuda_gcn_tpu')); print(bad, native._libs); "
+            "sys.exit(1 if bad or native._libs else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def _one_shard(ds):
     cfg, shards, _ = sharded.prepare_sharded(GCNConfig(reorder="none"), ds, 1)
     return cfg, shards[0]

@@ -2,8 +2,10 @@
 path, and the bsr backend's default reorder='auto' through train.run.
 
 The JAX package prefers its native C++ LPA; the tests switch it off
-(``native.lpa_available``) so both sides run numpy. Labels and permutations
-must be equal; the training run agrees as tests/test_torch_train.py does.
+(``native.lpa_available``) so that its side runs numpy, while the port's side
+runs its default, the native LPA (tests/test_torch_native.py holds it to the
+port's numpy LPA). Labels and permutations must be equal; the training run
+agrees as tests/test_torch_train.py does.
 """
 
 import numpy as np
