@@ -17,9 +17,10 @@ Phases, each of which raises (exit code not 0) when it fails:
     bf16 part of h; and on block rows of 24, 89 and 178 random tiles against
     an f64 sum (the kernel's error must not grow with a row's length);
 (c) the main path: ``train.run`` trains the 602-16-41 GCN on the bsr backend
-    with dropout 0.5; losses must be finite, the train loss must fall, and
-    each kernel must have launched on every adjacency pass (4 per epoch, 2
-    for the trailing eval, 2 for the test eval);
+    with dropout 0.5 (epoch 1 eagerly, then replays of the epoch's CUDA
+    graph); losses must be finite, the train loss must fall, and each kernel
+    must have launched on every adjacency pass (4 per epoch, 2 for the
+    trailing eval, 2 for the test eval);
 (d) time each kernel and its plain version at the main path's four widths,
     beside the least time the card could take (its bound, both parts printed
     at every width) and one PyTorch library call for the same function;
@@ -89,7 +90,8 @@ Phases, each of which raises (exit code not 0) when it fails:
     16/32/41/82 (kernel 1's plain version over 32,768 tiles at a time) and
     bitwise repeatable, timed beside their bounds and the library as in (d);
     the dense-feature fused loop, 5 epochs after 2 warm-up ones, with its
-    profile, its peak device memory and its launch counts; sparse features:
+    profile, its peak device memory and its launch counts, and the peak with
+    the epoch as a CUDA graph (``run_epochs_chunked``); sparse features:
     X·W (kernel 2) and dW (kernel 3) as in (k), 3 fused epochs at dropout 0
     against dense features within rtol 1e-4 / atol 1e-5, and the steady
     sparse loop with its launch counts; then the dense loop on the same graph
@@ -124,6 +126,35 @@ Phases, each of which raises (exit code not 0) when it fails:
     cuda_gcn_torch.data.reddit`` on generated GraphSAGE dumps, then 3 epochs of
     ``cli.main --backend segment`` on its output with kernel 2's launches
     counted. Each time beside the host's core count.
+(r) the epoch as a CUDA graph (run after (m)): ``train.run_epochs_chunked``
+    against ``train.run_epochs``, each from a fresh ``create_state``, for 100
+    epochs at dropout 0.5 on synth-reddit (bsr, 602-16-41) and synth-pubmed
+    (pallas): metrics, weights, Adam moments and step and the generator's
+    state bit for bit (or within rtol 1e-6, the leaves that differ named),
+    launches equal to the eager loop's (4 per epoch + 2), one capture and 99
+    replays; each call's ms per epoch, the capture's time and the host's µs
+    per replay; then 20 steady epochs of each loop (the graph's replays, the
+    eager epoch), three turns each in alternation, with host µs per epoch,
+    ms per epoch (each turn and the median) and, under
+    torch.profiler, the device's busy share and the port's kernels by name,
+    which must be the same in both; early stopping on synth-pubmed ell
+    (window 3, dropout 0.5, up to 200 epochs): the graph stops where the
+    eager loop does, with equal metrics and state, and the host's cost of a
+    read of the stop flag; ``train.run`` 4 epochs against 2 + a checkpoint +
+    2, bit for bit; ``cli.main synth-pubmed --prime-cache --compilation-cache
+    D`` (a process of its own) builds the 8 libraries into a fresh D, and a
+    run of 3 epochs from D in another process, whose compilers are refused,
+    builds nothing; the sharded trainer at world size 1 over NCCL,
+    ``run_epochs_chunked`` against ``run_epochs`` on synth-pubmed.
+
+``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
+of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
+halo) cut for one NCCL rank a card; on every rank ``sharded.run_epochs_chunked``
+(the epoch captured with its halo rounds and all-reduce) against
+``sharded.run_epochs`` over 20 epochs, and ``run_epochs_es_chunked`` against
+``run_epochs_es``, after 2 eager epochs that set up NCCL: bit for bit, the
+same launches and halo rows and bytes; ms per epoch of each whole call; every
+card's name and power limit.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
@@ -1968,6 +1999,20 @@ def phase_reddit4x(errs):
         graph, ds, f" {name}, dense f32 features", epochs=e)),
         {"bsr_tile": 4 * (2 + e) + 4, "csr_spmm": 4 * (2 + e) + 4})
     peak_dense = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, xd, truths, kw = _fused_inputs(ds)
+    t0 = time.perf_counter()
+    _counted(f"{name} graph", lambda: train.run_epochs_chunked(
+        train.create_state(cfg, "cuda"), graph, xd, *truths, epochs=e, **kw).cpu(),
+        {"bsr_tile": 4 * e + 2, "csr_spmm": 4 * e + 2})
+    graph_s = time.perf_counter() - t0
+    peak_graph = torch.cuda.max_memory_allocated()
+    del xd
+    log(f"  run_epochs_chunked (a CUDA graph of the epoch), {e} epochs: {graph_s:.2f} s "
+        f"with the capture; peak device memory {peak_graph / 1e9:.2f} GB against "
+        f"{peak_dense / 1e9:.2f} GB eager")
+    torch.cuda.empty_cache()
     prof = phase_profile(graph, ds, label=f"  {name}")
     torch.cuda.empty_cache()
 
@@ -2001,7 +2046,8 @@ def phase_reddit4x(errs):
                   tiles=graph.num_tiles, residual_edges=graph.resid_nnz,
                   tile_gb=graph.tiles.numel() * graph.tiles.element_size() / 1e9,
                   epoch_ms=steady, busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
-                  peak_device_gb={"dense": peak_dense / 1e9, "sparse": peak_sparse / 1e9},
+                  peak_device_gb={"dense": peak_dense / 1e9, "sparse": peak_sparse / 1e9,
+                                  "graph": peak_graph / 1e9},
                   device_gb=total / 1e9, host_setup_s=setup, build_steps_s=result_build,
                   lpa_numpy_s=lpa_numpy_s,
                   kernels={line["name"]: line for line in timing}, layer0=layer0)
@@ -2738,12 +2784,545 @@ def phase_sharded():
     return result
 
 
+# (r) the epoch as a replayed CUDA graph (train.run_epochs_chunked and its kin)
+
+GRAPH_EPOCHS = 100        # as bench.py runs the main path
+GRAPH_REPLAYS = 20        # profiled steady epochs of each loop
+GRAPH_ES = dict(epochs=200, early_stopping=3)
+GRAPH_SHARDED_EPOCHS = 20
+GRAPH_RTOL = 1e-6         # where graph and eager are not bit for bit
+
+
+def _state_leaves(state) -> dict:
+    """A train state's weights, Adam moments and step and its generator's
+    state, on the host, by name."""
+    leaves = {f"w.{k}": p.detach() for k, p in state.model.named_parameters()}
+    leaves.update({f"m.{k}": t for k, t in state.opt.m.items()})
+    leaves.update({f"v.{k}": t for k, t in state.opt.v.items()})
+    leaves["step"] = state.opt.step
+    leaves["generator"] = state.generator.get_state()
+    return {k: v.cpu() for k, v in leaves.items()}
+
+
+def _compare(label: str, got: dict, want: dict) -> str:
+    """'bit for bit' when every tensor of ``got`` equals ``want``'s; else the
+    leaves that differ, each within rtol ``GRAPH_RTOL`` or the check fails."""
+    import torch
+
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if not differ:
+        return "bit for bit"
+    worst = {}
+    for k in differ:
+        a, b = got[k].double(), want[k].double()
+        if a.shape != b.shape or k in ("step", "generator"):
+            raise AssertionError(f"{label}: {k} differs between the graph and the eager loop")
+        worst[k] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    note = ", ".join(f"{k} rel {v:.2e}" for k, v in worst.items())
+    if max(worst.values()) > GRAPH_RTOL:
+        raise AssertionError(f"{label}: graph and eager differ beyond rtol {GRAPH_RTOL}: {note}")
+    return f"within rtol {GRAPH_RTOL}, not bit for bit: {note}"
+
+
+def _port_kernel_ms(prof) -> dict:
+    """Device ms of every kernel of the port seen by the profiler, by name."""
+    out = {}
+    own = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials")
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+            key = next((o for o in own if o in evt.key), "other")
+            out[key] = out.get(key, 0.0) + dev_us / 1e3
+    return out
+
+
+GRAPH_TURNS = 3           # timed turns of each steady loop, taken in alternation
+
+
+def _steady(fns: dict, n: int) -> dict:
+    """``n`` calls (one epoch each) of every function of ``fns`` on a warm
+    device, ``GRAPH_TURNS`` times in alternation (a, b, b, a, a, b): host µs
+    per call before any wait and wall ms per epoch to the end of the work,
+    each turn's and their median; then, once each under torch.profiler, the
+    device's busy ms per epoch, its busy share and the port's kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = list(fns)
+    turns = {k: [] for k in names}
+    for t in range(GRAPH_TURNS):
+        for k in (names if t % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+            host_us = (time.perf_counter() - t0) * 1e6 / n
+            torch.cuda.synchronize()
+            turns[k].append(((time.perf_counter() - t0) * 1e3 / n, host_us))
+    out = {}
+    for k in names:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t1) * 1e3
+        by_kernel = _port_kernel_ms(prof)
+        busy = sum(by_kernel.values())
+        ms = sorted(m for m, _ in turns[k])
+        out[k] = dict(ms=ms[len(ms) // 2], ms_turns=[m for m, _ in turns[k]],
+                      host_us=sorted(h for _, h in turns[k])[len(ms) // 2],
+                      busy_ms=busy / n, busy_share=busy / prof_wall,
+                      kernels=sorted(x for x in by_kernel if x != "other"))
+    return out
+
+
+class _GraphSpy:
+    """Keeps the ``EpochGraph`` of a run and times its capture and the host's
+    share of each replay (the call alone), for the length of a ``with``."""
+
+    def __enter__(self):
+        from cuda_gcn_torch import graphs
+
+        self.cls, self.graphs, self.capture_s, self.replay_us = graphs.EpochGraph, [], [], []
+        self.real = (self.cls.capture, self.cls.replay)
+        spy = self
+
+        def capture(eg):
+            t0 = time.perf_counter()
+            spy.real[0](eg)
+            spy.capture_s.append(time.perf_counter() - t0)
+            spy.graphs.append(eg)
+
+        def replay(eg):
+            t0 = time.perf_counter()
+            spy.real[1](eg)
+            spy.replay_us.append((time.perf_counter() - t0) * 1e6)
+
+        self.cls.capture, self.cls.replay = capture, replay
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.capture, self.cls.replay = self.real
+
+
+def _graph_against_eager(label: str, graph, x, truths, cfg, epochs: int, expected: dict):
+    """``run_epochs_chunked`` (a CUDA graph) against ``run_epochs`` (eager),
+    each from a fresh ``create_state``: metrics, weights, moments, step and
+    generator equal; launches as the eager loop's, counted from 0; the run's
+    ms per epoch; then each loop's steady epoch (``_steady``)."""
+    import torch
+
+    from cuda_gcn_torch import graphs, kernels, train
+
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    runs = {}
+    for way in ("eager", "graph"):
+        state = train.create_state(cfg, "cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        times = []
+        with _GraphSpy() as spy:
+            t0 = time.perf_counter()
+            if way == "eager":
+                m = train.run_epochs(state, graph, x, *truths, epochs=epochs, **kw)
+            else:
+                m = train.run_epochs_chunked(state, graph, x, *truths, epochs=epochs,
+                                             times_out=times, **kw)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        runs[way] = dict(state=state, metrics=m.cpu(), launches=dict(kernels.launches),
+                         run_ms=run_s * 1e3 / epochs, spy=spy, times=times)
+    e, g = runs["eager"], runs["graph"]
+    spy = g["spy"]
+    agree = _compare(label, dict(metrics=g["metrics"], **_state_leaves(g["state"])),
+                     dict(metrics=e["metrics"], **_state_leaves(e["state"])))
+    log(f"  {label}, {epochs} epochs: graph against eager {agree}; launches graph "
+        f"{ {k: v for k, v in g['launches'].items() if v} } eager "
+        f"{ {k: v for k, v in e['launches'].items() if v} }, expected {expected}")
+    if g["launches"] != e["launches"] or any(g["launches"][k] != expected.get(k, 0)
+                                             for k in g["launches"]):
+        raise AssertionError(f"{label}: the graph's launch counts are not the eager loop's")
+    if len(spy.graphs) != 1 or len(spy.replay_us) != epochs - 1:
+        raise AssertionError(f"{label}: expected one capture and {epochs - 1} replays, "
+                             f"got {len(spy.graphs)} and {len(spy.replay_us)}")
+    replay_us = sorted(spy.replay_us)
+    out = dict(agree=agree, epochs=epochs, launches=g["launches"],
+               run_ms={"eager": e["run_ms"], "graph": g["run_ms"]},
+               capture_s=spy.capture_s[0],
+               replay_host_us_median=replay_us[len(replay_us) // 2])
+    chunks = [t * 1e3 for i, t in enumerate(g["times"]) if i == 0 or t != g["times"][i - 1]]
+    out["chunk_ms_per_epoch"] = chunks
+    log(f"  whole call: eager {e['run_ms']:.3f} ms/epoch, graph {g['run_ms']:.3f} ms/epoch "
+        f"(capture {spy.capture_s[0] * 1e3:.1f} ms, host {out['replay_host_us_median']:.1f} "
+        f"us per replay, median of {len(replay_us)}); the graph's chunks, ms per epoch: "
+        + ", ".join(f"{t:.3f}" for t in chunks))
+    # steady epochs: the eager state goes on eagerly, the graph's state by the
+    # replays of a graph of the same epoch without the metric row, which has
+    # no room past the run's epochs
+    state = g["state"]
+    eg = graphs.EpochGraph(lambda: train._fused_epoch(state, graph, x, *truths, **kw),
+                           (state.generator,))
+    eg.run()
+    eg.run()
+    steady = _steady({"eager": lambda: train._fused_epoch(e["state"], graph, x, *truths, **kw),
+                      "graph": eg.replay}, GRAPH_REPLAYS)
+    out["steady"] = steady
+    if steady["graph"]["kernels"] != steady["eager"]["kernels"] or not steady["graph"]["kernels"]:
+        raise AssertionError(f"{label}: the port's kernels in the replays "
+                             f"{steady['graph']['kernels']} are not the eager epoch's "
+                             f"{steady['eager']['kernels']}")
+    for way, r in steady.items():
+        log(f"  steady {way}, {GRAPH_REPLAYS} epochs: {r['ms']:.3f} ms/epoch (median of "
+            f"turns {', '.join(f'{m:.3f}' for m in r['ms_turns'])}), host {r['host_us']:.1f} "
+            f"us per epoch, device busy {r['busy_ms']:.3f} ms/epoch (share "
+            f"{r['busy_share']:.3f}); port kernels {r['kernels']}")
+    return out
+
+
+def _es_against_eager(graph, x, truths, cfg):
+    """The early-stopping graph against ``run_epochs_es``: the same stop epoch,
+    metrics and state; ms per epoch of each; the host's cost of one read of the
+    4-byte stop flag on an idle card."""
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    es = dict(epochs=cfg.epochs, es_window=cfg.early_stopping)
+    runs = {}
+    for way in ("eager", "graph"):
+        state = train.create_state(cfg, "cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fn = train.run_epochs_es if way == "eager" else train.run_epochs_es_chunked
+        m, stopped = fn(state, graph, x, *truths, **es, **kw)
+        torch.cuda.synchronize()
+        runs[way] = dict(m=m.cpu(), stopped=stopped, state=state,
+                         ms=(time.perf_counter() - t0) * 1e3 / len(m),
+                         launches=dict(kernels.launches))
+    e, g = runs["eager"], runs["graph"]
+    agree = _compare("(r) early stopping", dict(metrics=g["m"], **_state_leaves(g["state"])),
+                     dict(metrics=e["m"], **_state_leaves(e["state"])))
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        bool(flag)
+        reads.append((time.perf_counter() - t0) * 1e6)
+    read_us = sorted(reads)[len(reads) // 2]
+    log(f"  early stopping (window {cfg.early_stopping}, dropout {cfg.dropout}): eager "
+        f"stopped after {len(e['m'])} epochs ({e['stopped']}), graph after {len(g['m'])} "
+        f"({g['stopped']}); {agree}; eager {e['ms']:.3f} ms/epoch, graph {g['ms']:.3f} "
+        f"ms/epoch; one read of the stop flag on an idle card {read_us:.1f} us (median of "
+        f"100); launches {g['launches']['ell_spmm']} (eager {e['launches']['ell_spmm']})")
+    if len(g["m"]) != len(e["m"]) or g["stopped"] != e["stopped"] or not e["stopped"] \
+            or g["launches"] != e["launches"]:
+        raise AssertionError("the early-stopping graph does not stop where the eager loop does")
+    return dict(epochs=len(e["m"]), agree=agree, ms={"eager": e["ms"], "graph": g["ms"]},
+                flag_read_us=read_us)
+
+
+def _resume_through_run(ds):
+    """``train.run`` 4 epochs against 2 + a checkpoint + 2 at dropout 0.5."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from cuda_gcn_torch import train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.utils.checkpoint import restore_state, save_state
+
+    cfg = GCNConfig(graphsum_backend="pallas", seed=0)
+    full = train.run(dataclasses.replace(cfg, epochs=4), ds, device="cuda", verbose=False)
+    half = train.run(dataclasses.replace(cfg, epochs=2), ds, device="cuda", verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "half.npz")
+        save_state(path, half.state)
+        like = train.create_state(ds.apply_config(cfg), "cuda")
+        resumed = train.run(dataclasses.replace(cfg, epochs=2), ds, device="cuda",
+                            verbose=False, initial_state=restore_state(path, like))
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    rows = ([[h[k] for k in keys] for h in resumed.history]
+            == [[h[k] for k in keys] for h in full.history[2:]])
+    agree = _compare("(r) resumption", _state_leaves(resumed.state), _state_leaves(full.state))
+    log(f"  train.run synth-pubmed pallas, dropout {cfg.dropout}: 4 epochs against 2 + "
+        f"checkpoint + 2: epochs 3-4 equal bit for bit {rows}; final state {agree}")
+    if not rows or agree != "bit for bit":
+        raise AssertionError("a resumed graph run differs from the uninterrupted one")
+    torch.cuda.synchronize()
+
+
+_NO_COMPILER = """
+import sys
+from cuda_gcn_torch import cli, kernels
+from cuda_gcn_torch.data import native
+
+def refuse():
+    raise RuntimeError("a compiler was called")
+
+kernels._nvcc = native._gxx = refuse
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def _prime_cli():
+    """``cli.main synth-pubmed --prime-cache --compilation-cache D`` in a
+    process of its own, D fresh; then ``--compilation-cache D --epochs 3`` in
+    another, where calling nvcc or g++ raises, and D gains no file."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(root, "build", "prime_check")
+    shutil.rmtree(cache, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    prime = subprocess.run([sys.executable, "-m", "cuda_gcn_torch.cli", "synth-pubmed",
+                            "--prime-cache", "--compilation-cache", cache], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=600)
+    prime_s = time.perf_counter() - t0
+    built = sorted(os.listdir(os.path.join(cache, "kernels"))
+                   + os.listdir(os.path.join(cache, "native")))
+    primed = [line for line in prime.stdout.splitlines() if line.startswith("primed ")]
+    log(f"  --prime-cache --compilation-cache (fresh): rc {prime.returncode} in {prime_s:.1f} s; "
+        + "; ".join(primed))
+    t0 = time.perf_counter()
+    again = subprocess.run([sys.executable, "-c", _NO_COMPILER, "synth-pubmed",
+                            "--compilation-cache", cache, "--epochs", "3"], cwd=root,
+                           env=env, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    after = sorted(os.listdir(os.path.join(cache, "kernels"))
+                   + os.listdir(os.path.join(cache, "native")))
+    log(f"  then --compilation-cache (same) --epochs 3 with the compilers refused: rc "
+        f"{again.returncode} in {run_s:.1f} s; "
+        + " | ".join(line for line in again.stdout.splitlines() if line.startswith("epoch=3")))
+    if prime.returncode or again.returncode or after != built or len(primed) != 9 \
+            or not primed[-1].startswith("primed 8 programs"):
+        raise AssertionError(f"--prime-cache / --compilation-cache failed:\n{prime.stdout}"
+                             f"{prime.stderr}\n{again.stdout}{again.stderr}")
+    shutil.rmtree(cache, ignore_errors=True)
+    return dict(prime_s=prime_s, run_s=run_s)
+
+
+def _sharded_graph(pubmed):
+    """World size 1 over NCCL, in this process: ``sharded.run_epochs_chunked``
+    against ``sharded.run_epochs`` on synth-pubmed with bsr interiors."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.parallel import multihost, sharded
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"tcp://localhost:{port}", 1, 0, device="cuda")
+    try:
+        cfg, shards, _ = sharded.prepare_sharded(GCNConfig(graphsum_backend="bsr", seed=0),
+                                                 pubmed, 1, device="cuda")
+        inputs, truths = sharded.shard_inputs(cfg, shards[0], "cuda")
+        e = GRAPH_SHARDED_EPOCHS
+        runs = {}
+        for way, fn in (("eager", sharded.run_epochs), ("graph", sharded.run_epochs_chunked)):
+            state = sharded.create_state(cfg, "cuda", 0)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = fn(state, inputs, truths[1], truths[2], cfg, e)
+            torch.cuda.synchronize()
+            runs[way] = dict(m=m.cpu(), state=state, launches=dict(kernels.launches),
+                             ms=(time.perf_counter() - t0) * 1e3 / e)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    g, ea = runs["graph"], runs["eager"]
+    agree = _compare("(r) sharded", dict(metrics=g["m"], **_state_leaves(g["state"])),
+                     dict(metrics=ea["m"], **_state_leaves(ea["state"])))
+    want = _expected_launches(e, 1)
+    want = {k: v - 2 for k, v in want.items()}  # no test eval here
+    log(f"  sharded, world size 1 over {backend}, synth-pubmed bsr interiors, {e} epochs: "
+        f"graph against eager {agree}; {ea['ms']:.3f} against {g['ms']:.3f} ms/epoch "
+        f"(whole calls); launches {g['launches']['bsr_tile']}/{g['launches']['csr_spmm']}"
+        f", expected {want}")
+    if backend != "nccl" or g["launches"] != ea["launches"] or any(
+            g["launches"][k] != v for k, v in want.items()):
+        raise AssertionError("the sharded graph's launches differ from the eager loop's")
+    return dict(agree=agree, ms={"eager": ea["ms"], "graph": g["ms"]})
+
+
+def phase_graphs(dataset):
+    """(r) the epoch as a CUDA graph: synth-reddit bsr at full width and
+    synth-pubmed pallas, 100 epochs at dropout 0.5, graph against eager
+    (``_graph_against_eager``); early stopping on synth-pubmed ell; 2 + 2
+    resumed through ``train.run``; ``--prime-cache`` and
+    ``--compilation-cache`` across processes; the sharded graph at world
+    size 1 over NCCL."""
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.data.graph import build_graph
+
+    t_all = time.perf_counter()
+    has = hasattr(torch.cuda.CUDAGraph, "register_generator_state")
+    log(f"(r) epoch graphs: torch {torch.__version__}, "
+        f"CUDAGraph.register_generator_state {'present' if has else 'MISSING'}")
+    out = {}
+    e = GRAPH_EPOCHS
+    cfg = GCNConfig(epochs=e, graphsum_backend="bsr", reorder="none", seed=0)
+    cfg, graph, x, truths = train.prepare(cfg, dataset, "cuda")
+    out["synth-reddit bsr"] = _graph_against_eager(
+        "synth-reddit bsr 602-16-41", graph, x, (truths[1], truths[2]), cfg, e,
+        {"bsr_tile": 4 * e + 2, "csr_spmm": 4 * e + 2})
+    del graph, x, truths
+    torch.cuda.empty_cache()
+
+    pubmed = load_cached("synth-pubmed")
+    cfg = GCNConfig(epochs=e, graphsum_backend="pallas", seed=0)
+    cfg, graph, x, truths = train.prepare(cfg, pubmed, "cuda")
+    out["synth-pubmed pallas"] = _graph_against_eager(
+        "synth-pubmed pallas 500-16-3", graph, x, (truths[1], truths[2]), cfg, e,
+        {"ell_spmm": 4 * e + 2})
+    es_cfg = GCNConfig(graphsum_backend="ell", seed=0, **GRAPH_ES)
+    es_cfg, graph, x, truths = train.prepare(es_cfg, pubmed, "cuda")
+    out["early stopping"] = _es_against_eager(graph, x, (truths[1], truths[2]), es_cfg)
+    del graph, x, truths
+    _resume_through_run(pubmed)
+    out["prime"] = _prime_cli()
+    out["sharded"] = _sharded_graph(pubmed)
+    torch.cuda.empty_cache()
+    log(f"  (r) took {time.perf_counter() - t_all:.1f} s; peak device memory so far "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    assert np.isfinite(out["synth-reddit bsr"]["run_ms"]["graph"])
+    return out
+
+
+# (s) the sharded graph across cards over NCCL (``python3 chip_smoke.py --nccl-graphs``)
+
+NCCL_GRAPH_EPOCHS = 20
+NCCL_GRAPH_ES = dict(epochs=40, early_stopping=3)
+
+
+def _graph_rank(rank, world, init_method, cfg, shard):
+    """(s), one NCCL rank on cuda:<rank>: ``sharded.run_epochs_chunked``
+    against ``sharded.run_epochs`` and ``run_epochs_es_chunked`` against
+    ``run_epochs_es``, each from a fresh state: metrics, state, launches and
+    the halo rows and bytes shipped, and ms per epoch of the whole calls."""
+    import dataclasses
+
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.parallel import multihost, sharded
+
+    device = torch.device("cuda", rank)
+    multihost.initialize(init_method, world, rank, backend="nccl", device=device)
+    torch.cuda.set_device(device)
+    kernels.build()
+    inputs, truths = sharded.shard_inputs(cfg, shard, device)
+    # NCCL sets up its communicators at the first collective: not in a timed call
+    sharded.run_epochs(sharded.create_state(cfg, device, rank), inputs, truths[1], truths[2],
+                       cfg, 2)
+    es_cfg = dataclasses.replace(cfg, **NCCL_GRAPH_ES)
+    pairs = {
+        "fused": (lambda st, f: f(st, inputs, truths[1], truths[2], cfg, NCCL_GRAPH_EPOCHS),
+                  sharded.run_epochs, sharded.run_epochs_chunked),
+        "early stopping": (lambda st, f: f(st, inputs, truths[1], truths[2], es_cfg,
+                                           es_cfg.epochs, es_cfg.early_stopping),
+                           sharded.run_epochs_es, sharded.run_epochs_es_chunked)}
+    out = {}
+    for name, (call, eager, graphed) in pairs.items():
+        for way, fn in (("eager", eager), ("graph", graphed)):
+            state = sharded.create_state(cfg, device, rank)
+            kernels.reset_launches()
+            sent = dict(inputs.exchange.sent)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(state, fn)
+            m, stopped = res if isinstance(res, tuple) else (res, None)
+            torch.cuda.synchronize()
+            out[(name, way)] = dict(  # numpy: a rank's tensors would not outlive it
+                metrics=m.cpu().numpy(), stopped=stopped,
+                leaves={k: v.numpy() for k, v in _state_leaves(state).items()},
+                launches=dict(kernels.launches),
+                sent={k: v - sent[k] for k, v in inputs.exchange.sent.items()},
+                ms=(time.perf_counter() - t0) * 1e3 / len(m))
+    return out
+
+
+def phase_nccl_graphs() -> dict:
+    """(s) synth-reddit (bsr interiors, dropout 0.5, f32 halo) cut for every
+    card of the machine, one NCCL rank a card: on every rank the graphed
+    runners equal the eager ones bit for bit, with the same launches and the
+    same halo rows and bytes, and the metrics agree across ranks."""
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.parallel import multihost, sharded
+
+    def tensors(r):
+        return {k: torch.from_numpy(v) for k, v in
+                dict(metrics=r["metrics"], **r["leaves"]).items()}
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        raise AssertionError(f"--nccl-graphs needs 2 cards or more, have {world}")
+    t0 = time.perf_counter()
+    cfg, shards, _ = sharded.prepare_sharded(
+        GCNConfig(graphsum_backend="bsr", seed=0, halo_dtype="float32"),
+        load_cached("synth-reddit"), world, device="cuda")
+    log(f"(s) synth-reddit cut for {world} NCCL ranks in {time.perf_counter() - t0:.1f} s; "
+        f"dropout {cfg.dropout}, halo {cfg.halo_dtype}")
+    ranks = multihost.run_ranks(_graph_rank, world, (cfg,), rank_args=[(s,) for s in shards],
+                                timeout=600)
+    summary = {}
+    for name in ("fused", "early stopping"):
+        for rank, r in enumerate(ranks):
+            e, g = r[(name, "eager")], r[(name, "graph")]
+            agree = _compare(f"(s) {name} rank {rank}", tensors(g), tensors(e))
+            log(f"  {name}, rank {rank}: graph against eager {agree}; {len(g['metrics'])} "
+                f"epochs (stopped {g['stopped']}); launches {g['launches']['bsr_tile']}/"
+                f"{g['launches']['csr_spmm']} (eager {e['launches']['bsr_tile']}/"
+                f"{e['launches']['csr_spmm']}); halo {g['sent']} (eager {e['sent']}); whole "
+                f"calls {e['ms']:.3f} eager, {g['ms']:.3f} graph ms/epoch")
+            if g["launches"] != e["launches"] or g["sent"] != e["sent"] \
+                    or g["stopped"] != e["stopped"]:
+                raise AssertionError(f"(s) {name}: rank {rank}'s graph ran other work")
+            if not np.array_equal(g["metrics"], ranks[0][(name, "graph")]["metrics"]):
+                raise AssertionError(f"(s) {name}: the ranks' metrics differ")
+            summary[f"{name} rank {rank}"] = dict(agree=agree, eager_ms=e["ms"],
+                                                  graph_ms=g["ms"])
+    return summary
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--nccl-graphs"]:
+        phase_build()
+        phase_nccl_graphs()
+        log(f"(s) passed on {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip())
+        return 0
     from cuda_gcn_torch.data.dataset import load_cached, reorder_cached
     from cuda_gcn_torch.device import resolve_device
 
@@ -2777,6 +3356,7 @@ def main() -> int:
     sparse_launches = phase_sparse_path(dataset)
     phase_small_reference()
     bf16 = phase_bf16(dataset, errs)
+    graphs_out = phase_graphs(dataset)
     del dataset
     errs["ell_spmm"] = 0.0
     pallas_launches, pubmed_timing = phase_pallas_path(errs)
@@ -2839,6 +3419,14 @@ def main() -> int:
                              "source": "cuda_gcn_torch/csrc/taa_probe.cu",
                              "replaces": replaces[name], **line})
     kernels_line += _bf16_kernel_lines(bf16)
+    for line in kernels_line:  # (r): the graphed 100-epoch loops
+        cell = {"bsr_tile": "synth-reddit bsr", "csr_spmm": "synth-reddit bsr",
+                "ell_spmm": "synth-pubmed pallas"}.get(line["name"])
+        if cell:
+            r = graphs_out[cell]
+            line["graph"] = dict(cell=cell, launches=r["launches"][line["name"]],
+                                 agree=r["agree"], run_ms=r["run_ms"],
+                                 steady_ms={k: v["ms"] for k, v in r["steady"].items()})
     for line in kernels_line:  # kernels 1-3 at synth-reddit4x: checked, timed, bounded
         name = line["name"]
         if name in reddit4x["kernels"]:
@@ -2889,6 +3477,14 @@ def main() -> int:
         f"{reddit4x['lpa_numpy_s']:.2f} s, build steps s "
         + json.dumps({w: {k: round(v, 2) for k, v in b.items()}
                       for w, b in reddit4x["build_steps_s"].items()}))
+    log("epoch graphs (r): " + "; ".join(
+        f"{cell} steady ms/epoch eager {r['steady']['eager']['ms']:.3f} (busy share "
+        f"{r['steady']['eager']['busy_share']:.3f}) graph {r['steady']['graph']['ms']:.3f} "
+        f"(busy share {r['steady']['graph']['busy_share']:.3f}), host "
+        f"{r['replay_host_us_median']:.1f} us per replay"
+        for cell, r in graphs_out.items() if "steady" in r)
+        + f"; early stopping ms/epoch {graphs_out['early stopping']['ms']}, flag read "
+        f"{graphs_out['early stopping']['flag_read_us']:.1f} us")
     log("--timing phases on synth-pubmed (ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in cli_timers.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -8,6 +8,7 @@
         [--compute-dtype float32|bfloat16] [--mesh N] [--halo-dtype bfloat16|float32]
         [--save-checkpoint PATH] [--load-checkpoint PATH]
         [--metrics-csv PATH] [--metrics-jsonl PATH] [--timing] [--build-kernels]
+        [--platform cpu|tpu] [--compilation-cache DIR] [--prime-cache]
 
 The nine hyperparameter overrides are those of the reference's usage string
 (src/main.cpp:15-49), positional or as flags, as cuda_gcn_tpu.cli takes them
@@ -33,10 +34,19 @@ program does; ``--compute-dtype bfloat16`` runs the activations in bf16.
 npz layout (utils/checkpoint.py); ``--metrics-csv``/``--metrics-jsonl`` dump
 the per-epoch history (utils/logging.py); ``--timing`` prints every phase
 timer's average, the per-op phases measured after the run
-(utils/profiling.py). ``--build-kernels`` builds the CUDA kernels and exits:
-the card's counterpart of the JAX CLI's ``--prime-cache``. ``--platform``
-and ``--compilation-cache`` have no use here (the port has ``--device`` and
-no XLA cache).
+(utils/profiling.py). ``--build-kernels`` builds the CUDA kernels and exits.
+
+The JAX CLI's compile flags (cuda_gcn_tpu/cli.py:51-75, 133-156):
+``--prime-cache`` builds what a run loads and keeps across processes, the
+nvcc kernel libraries (on the card) and the g++ host libraries
+(train.prime_cache), prints ``primed <library> in <s>s`` for each and ``primed
+N programs in <s>s``, and exits 0 without training; the CUDA graphs of the
+epoch are captured by each run and are not primed. With ``--mesh`` it exits
+1, as the JAX CLI does. ``--compilation-cache DIR`` is the directory those
+libraries are built into and loaded from (utils/compile_cache.py; by default
+``build/`` at the repository root, and ``''`` a temporary directory).
+``--platform cpu`` is ``--device cpu``; ``--platform tpu`` exits 1: the port
+runs on an NVIDIA GPU.
 
 ``--mesh N`` trains sharded (parallel/sharded.py): the dataset is partitioned
 once here, and N local ranks are started with ``torch.multiprocessing``'s
@@ -101,6 +111,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "PRINT_TIMER_AVERAGE, src/common/timer.h:26)")
     p.add_argument("--build-kernels", action="store_true",
                    help="build the CUDA kernels, print the seconds and exit")
+    p.add_argument("--platform", default=None, choices=["tpu", "cpu"],
+                   help="'cpu' is --device cpu; the port has no TPU platform")
+    p.add_argument("--compilation-cache", default=None, metavar="DIR",
+                   help="directory the kernel and host libraries are built into and "
+                        "loaded from (default: build/ at the repository root; '' a "
+                        "temporary directory)")
+    p.add_argument("--prime-cache", action="store_true",
+                   help="build the libraries this run loads (nvcc kernels on the card, "
+                        "g++ host code) and exit without training (train.prime_cache)")
     for name in _POSITIONAL:
         typ = float if name in _FLOAT_FIELDS else int
         p.add_argument(f"--{name.replace('_', '-')}", type=typ, default=None)
@@ -139,6 +158,16 @@ def main(argv: list[str] | None = None) -> int:
         print(f"too many positional overrides (max {len(_POSITIONAL)})", file=sys.stderr)
         return 1
     cfg = config_from_args(args)
+    if args.platform == "tpu":
+        print("--platform tpu: this port runs on an NVIDIA GPU (--device cuda) or the "
+              "CPU (--platform cpu)", file=sys.stderr)
+        return 1
+    if args.platform == "cpu":
+        args.device = "cpu"
+    if args.compilation_cache is not None:
+        from cuda_gcn_torch.utils.compile_cache import use_build_dir
+
+        use_build_dir(args.compilation_cache)
 
     from cuda_gcn_torch import train
     from cuda_gcn_torch.data.dataset import (CACHE_DIR, cached_permutation_path,
@@ -177,6 +206,16 @@ def main(argv: list[str] | None = None) -> int:
         print("Parse Node Succeeded.")
         print("Parse Split Succeeded.")
     platform = device.type.upper()
+    if args.prime_cache:
+        print(f"RUNNING ON {platform}")
+        if args.mesh:
+            print("--prime-cache is single-chip (the sharded path compiles "
+                  "per-mesh programs)", file=sys.stderr)
+            return 1
+        t0 = time.perf_counter()
+        built = train.prime_cache(cfg, dataset, device)
+        print(f"primed {len(built)} programs in {time.perf_counter() - t0:.1f}s")
+        return 0
     if args.mesh:
         print(f"RUNNING ON {platform}")
         return _run_mesh(args, cfg, dataset, device, platform)

@@ -3,9 +3,9 @@
 The same argv gives the same ``GCNConfig`` (the nine positional overrides and
 their ``--flag`` forms, the flag winning, the "inferred from the dataset"
 note, the exit on a value that does not parse, ``--halo-dtype``); every flag
-of the JAX CLI is accepted but those of XLA (``--platform``,
-``--compilation-cache``, ``--prime-cache``, whose counterpart is
-``--build-kernels``). Checkpoints, history files and ``--timing`` run end to
+of the JAX CLI is accepted, its compile flags (``--platform``,
+``--compilation-cache``, ``--prime-cache``) with the behaviour that
+tests/test_torch_chunked.py checks. Checkpoints, history files and ``--timing`` run end to
 end on synth-cora with ``--device cpu``; ``--mesh`` runs in
 tests/test_torch_sharded.py.
 """
@@ -40,13 +40,14 @@ def _options(parser) -> set[str]:
 
 
 def test_every_jax_flag_but_the_sharded_and_xla_ones():
-    """Since the sharded trainer was ported, only XLA's flags are left out:
-    ``--mesh`` and ``--halo-dtype`` are the port's too."""
-    left_out = {"--platform", "--compilation-cache", "--prime-cache"}
+    """No flag of the JAX CLI is left out any more: ``--mesh`` and
+    ``--halo-dtype`` came with the sharded trainer, XLA's compile flags with
+    the chunked runners; the port adds ``--device`` and ``--build-kernels``."""
+    compile_flags = {"--platform", "--compilation-cache", "--prime-cache"}
     jax_opts = _options(jcli.build_argparser())
     port_opts = _options(tcli.build_argparser())
-    assert left_out <= jax_opts
-    assert jax_opts - left_out <= port_opts
+    assert compile_flags <= jax_opts
+    assert jax_opts <= port_opts
     assert {"--mesh", "--halo-dtype"} <= port_opts
     assert port_opts - jax_opts == {"--device", "--build-kernels"}
 

@@ -65,6 +65,15 @@ def _case(rank, case):
         state = _state(cfg, case["params"])
         m = sharded.run_epochs(state, inputs, truths[1], truths[2], cfg, case["epochs"])
         return m.numpy(), _numpy(state.params())
+    if kind == "chunked":
+        out = []
+        for run in (sharded.run_epochs, sharded.run_epochs_chunked):
+            state = _state(cfg, case["params"])
+            extra = dict(chunk=case["chunk"]) if run is sharded.run_epochs_chunked else {}
+            m = run(state, inputs, truths[1], truths[2], cfg, case["epochs"], **extra)
+            out.append((m.numpy(), _numpy(state.params()), _numpy(state.opt.m),
+                        int(state.opt.step), state.generator.get_state().numpy()))
+        return out
     if kind == "pair":
         block = shard.part.block
         rows = slice(rank * block, (rank + 1) * block)
