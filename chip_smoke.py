@@ -146,6 +146,12 @@ Phases, each of which raises (exit code not 0) when it fails:
     run of 3 epochs from D in another process, whose compilers are refused,
     builds nothing; the sharded trainer at world size 1 over NCCL,
     ``run_epochs_chunked`` against ``run_epochs`` on synth-pubmed.
+(t) the benchmark entry (run after (r)): ``python -m cuda_gcn_torch.bench``
+    in a process of its own with its defaults (synth-reddit, bsr, 100
+    epochs, f32): one stdout line with a positive ``value``, backend bsr,
+    ``device`` naming the card, ``sol_fraction_lower_bound`` in (0, 1.05],
+    a finite ``test_acc``; kernels 1 and 2 launched 4 · 100 + 2 times each in
+    its measured run (its stderr).
 
 ``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
 of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
@@ -154,7 +160,11 @@ halo) cut for one NCCL rank a card; on every rank ``sharded.run_epochs_chunked``
 ``sharded.run_epochs`` over 20 epochs, and ``run_epochs_es_chunked`` against
 ``run_epochs_es``, after 2 eager epochs that set up NCCL: bit for bit, the
 same launches and halo rows and bytes; ms per epoch of each whole call; every
-card's name and power limit.
+card's name and power limit. Then (u): ``python -m cuda_gcn_torch.bench_scaling
+--dataset reddit --parts 1,2,4``, one NCCL rank a card: the partition
+statistics equal artifacts/partition_stats_reddit.json at P = 1, 2, 4, every P
+timed, every rank launching kernels 1 and 2; its payload, and each rank's
+steady ms an epoch with the capture left out.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
@@ -3309,6 +3319,98 @@ def phase_nccl_graphs() -> dict:
     return summary
 
 
+# (t) the benchmark entry, (u) the scaling bench: each in a process of its own
+
+BENCH_EPOCHS = 100        # python -m cuda_gcn_torch.bench's default
+SOL_FRACTION_MAX = 1.05   # a lower bound above 1 (beyond rounding) is a wrong model or clock
+
+
+def _entry(module: str, *args: str, timeout: float) -> tuple[dict, str]:
+    """``python -m <module> <args>`` from the repository's root: (its one stdout
+    line as JSON, its stderr). Fails unless it exits 0 with exactly one line."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                         text=True, timeout=timeout)
+    out = res.stdout.strip().splitlines()
+    if res.returncode or len(out) != 1:
+        raise AssertionError(f"{module} {' '.join(args)}: rc {res.returncode}, "
+                             f"{len(out)} stdout lines:\n{res.stdout}\n{res.stderr[-4000:]}")
+    return json.loads(out[0]), res.stderr
+
+
+def phase_bench() -> dict:
+    """(t) ``python -m cuda_gcn_torch.bench`` with its defaults (synth-reddit,
+    bsr, 100 epochs, f32, on the card): its one line must have a positive
+    ``value``, backend bsr, the card's name in ``device``, a speed-of-light
+    lower bound in (0, 1.05] and a finite test accuracy; its measured run
+    must launch kernels 1 and 2 on every pass, 4 · 100 + 2 each."""
+    import math
+
+    import torch
+
+    t0 = time.perf_counter()
+    doc, err = _entry("cuda_gcn_torch.bench", timeout=600)
+    wall = time.perf_counter() - t0
+    log(f"(t) python -m cuda_gcn_torch.bench in {wall:.1f} s: {json.dumps(doc)}")
+    for line in err.splitlines():
+        if line.startswith(("device:", "warmup", "total training time", "steady:",
+                            "speed-of-light")):
+            log(f"  {line}")
+    d = doc.get("detail", {})
+    sol = d.get("sol_fraction_lower_bound")
+    launches = json.loads(err.split("kernel launches in the measured run: ")[1].splitlines()[0])
+    want = 4 * BENCH_EPOCHS + 2
+    if not (isinstance(doc.get("value"), (int, float)) and doc["value"] > 0
+            and doc.get("metric") == f"synth-reddit_{BENCH_EPOCHS}ep_train_time"
+            and d.get("backend") == "bsr"
+            and torch.cuda.get_device_name(0) in str(d.get("device"))
+            and isinstance(sol, (int, float)) and 0 < sol <= SOL_FRACTION_MAX
+            and isinstance(d.get("test_acc"), (int, float)) and math.isfinite(d["test_acc"])):
+        raise AssertionError(f"(t) the benchmark line fails its checks: {json.dumps(doc)}")
+    if launches.get("bsr_tile") != want or launches.get("csr_spmm") != want:
+        raise AssertionError(f"(t) kernels 1 and 2 launched {launches}, not {want} each")
+    return dict(doc=doc, launches=launches, wall_s=wall)
+
+
+def phase_bench_scaling() -> dict:
+    """(u) ``python -m cuda_gcn_torch.bench_scaling --dataset reddit --parts
+    1,2,4``, one NCCL rank a card: its partition statistics must equal the
+    committed artifacts/partition_stats_reddit.json at P = 1, 2, 4, every P
+    must be timed, and every rank must launch kernels 1 and 2."""
+    import os
+
+    t0 = time.perf_counter()
+    doc, err = _entry("cuda_gcn_torch.bench_scaling", "--dataset", "reddit", "--parts",
+                      "1,2,4", timeout=1500)
+    log(f"(u) python -m cuda_gcn_torch.bench_scaling --dataset reddit --parts 1,2,4 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in err.splitlines():
+        if line.startswith(("P=", "  P=")):
+            log(f"  {line.strip()}")
+    log(f"  {json.dumps(doc)}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "artifacts", "partition_stats_reddit.json")) as f:
+        want = {r["parts"]: r for r in json.load(f)["results"]}
+    got = {r["parts"]: r for r in doc["results"]}
+    if sorted(got) != [1, 2, 4]:
+        raise AssertionError(f"(u) timed P = {sorted(got)}, not 1, 2, 4")
+    for p, r in got.items():
+        if (r["partition"], r["boundary_fraction"]) != (want[p]["partition"],
+                                                         want[p]["boundary_fraction"]):
+            raise AssertionError(f"(u) P={p}: statistics {r} differ from the artifact's")
+        if not r["seconds"] > 0:
+            raise AssertionError(f"(u) P={p} was not timed: {r}")
+    ranks = [json.loads(line.split("launches ")[1]) for line in err.splitlines()
+             if line.startswith("  P=") and " launches " in line]
+    if len(ranks) != 1 + 2 + 4 or not all(r.get("bsr_tile") and r.get("csr_spmm")
+                                          for r in ranks):
+        raise AssertionError(f"(u) the ranks' launches of kernels 1 and 2: {ranks}")
+    return doc
+
+
 def main() -> int:
     import torch
 
@@ -3319,6 +3421,8 @@ def main() -> int:
         phase_build()
         phase_nccl_graphs()
         log(f"(s) passed on {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+        phase_bench_scaling()
+        log(f"(u) passed on {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip())
@@ -3358,6 +3462,8 @@ def main() -> int:
     bf16 = phase_bf16(dataset, errs)
     graphs_out = phase_graphs(dataset)
     del dataset
+    torch.cuda.empty_cache()
+    bench_run = phase_bench()
     errs["ell_spmm"] = 0.0
     pallas_launches, pubmed_timing = phase_pallas_path(errs)
     reddit, ell_split = phase_ell_reddit(errs)
@@ -3419,6 +3525,9 @@ def main() -> int:
                              "source": "cuda_gcn_torch/csrc/taa_probe.cu",
                              "replaces": replaces[name], **line})
     kernels_line += _bf16_kernel_lines(bf16)
+    for line in kernels_line:  # (t): the benchmark entry's measured run
+        if line["name"] in bench_run["launches"]:
+            line["launches_bench"] = bench_run["launches"][line["name"]]
     for line in kernels_line:  # (r): the graphed 100-epoch loops
         cell = {"bsr_tile": "synth-reddit bsr", "csr_spmm": "synth-reddit bsr",
                 "ell_spmm": "synth-pubmed pallas"}.get(line["name"])
@@ -3485,6 +3594,10 @@ def main() -> int:
         for cell, r in graphs_out.items() if "steady" in r)
         + f"; early stopping ms/epoch {graphs_out['early stopping']['ms']}, flag read "
         f"{graphs_out['early stopping']['flag_read_us']:.1f} us")
+    log(f"benchmark entry (t): {bench_run['doc']['value']} s for {BENCH_EPOCHS} epochs, "
+        f"sol_fraction_lower_bound {bench_run['doc']['detail']['sol_fraction_lower_bound']}, "
+        f"compile_s {bench_run['doc']['detail']['compile_s']}, "
+        f"{bench_run['wall_s']:.1f} s of command")
     log("--timing phases on synth-pubmed (ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in cli_timers.items()))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -58,6 +58,7 @@ class PartView:
     interior_t: tuple          # their transpose
     boundary: tuple            # [0, B) x [0, halo_space)
     boundary_t: tuple          # [0, halo_space) x [0, B)
+    edge_capacity: int         # eimax + ebmax, the same on every part
     tile_flat: np.ndarray | None = None   # flat index of each tile edge into [K, tb, tb]
     tile_vals: np.ndarray | None = None   # its value (f32)
     tile_rows: np.ndarray | None = None   # (K,) int32 block rows, sorted
@@ -155,7 +156,7 @@ class PartitionedGraph:
             interior_t=(self.it_src[p, :ki], self.it_dst[p, :ki], self.it_coef[p, :ki]),
             boundary=(self.b_src[p, :kb], self.b_dst[p, :kb], self.b_coef[p, :kb]),
             boundary_t=(self.bt_src[p, :kb], self.bt_dst[p, :kb], self.bt_coef[p, :kb]),
-            tile_dtype=self.tile_dtype)
+            edge_capacity=self.eimax + self.ebmax, tile_dtype=self.tile_dtype)
         if self.tb:
             k = int(self.i_tile_counts[p])
             view.tile_flat, view.tile_vals = self.i_tile_flat[p], self.i_tile_vals[p]

@@ -169,6 +169,10 @@ class ShardedInputs:
     x: torch.Tensor | SparseFeatures  # [B, F] dense slab, or the part's CSR rows
     block: int
     exchange: HaloExchange
+    # eimax + ebmax, one part's padded edge slots (tile-covered edges not
+    # counted), the same on every rank: the chunk policy's measure of an
+    # epoch, as the JAX runners take it (:499-501)
+    edge_capacity: int
 
 
 def _interior_graph(part: PartView, device, coef_dtype) -> Graph:
@@ -209,7 +213,8 @@ def make_sharded_inputs(part: PartView, x, device, exchange: HaloExchange,
     if not isinstance(x, SparseFeatures):
         x = torch.from_numpy(np.ascontiguousarray(x)).to(device).to(act_dtype)
     return ShardedInputs(interior=interior, boundary=boundary, send_secs=secs,
-                         send_idx=send_idx, x=x, block=part.block, exchange=exchange)
+                         send_idx=send_idx, x=x, block=part.block, exchange=exchange,
+                         edge_capacity=part.edge_capacity)
 
 
 class _HaloSum(torch.autograd.Function):
@@ -466,11 +471,6 @@ def _graphed(device: torch.device) -> bool:
                                       or dist.get_backend() == "nccl")
 
 
-def _rank_nnz(inputs: ShardedInputs) -> int:
-    """This rank's edges: the chunk policy's measure of an epoch."""
-    return inputs.interior.square.total_nnz + inputs.boundary.resid.nnz
-
-
 def run_epochs_chunked(state, inputs: ShardedInputs, truth_train: ShardedTruth,
                        truth_val: ShardedTruth, cfg: GCNConfig, epochs: int,
                        chunk: int | None = None, times_out: list | None = None):
@@ -481,7 +481,7 @@ def run_epochs_chunked(state, inputs: ShardedInputs, truth_train: ShardedTruth,
 
     return train.chunked_fused_epochs(
         lambda: _fused_epoch(state, inputs, truth_train, truth_val, cfg),
-        lambda: eval_step(state.model, inputs, truth_val, cfg), state, _rank_nnz(inputs),
+        lambda: eval_step(state.model, inputs, truth_val, cfg), state, inputs.edge_capacity,
         epochs=epochs, chunk=chunk, times_out=times_out,
         graphed=_graphed(truth_train.rows.device),
         counters=(kernels.launches, inputs.exchange.sent))
@@ -500,7 +500,7 @@ def run_epochs_es_chunked(state, inputs: ShardedInputs, truth_train: ShardedTrut
 
     return train.chunked_es_epochs(
         lambda: _es_epoch(state, inputs, truth_train, truth_val, cfg), state,
-        _rank_nnz(inputs), epochs=epochs, es_window=es_window, chunk=chunk,
+        inputs.edge_capacity, epochs=epochs, es_window=es_window, chunk=chunk,
         times_out=times_out, graphed=_graphed(truth_train.rows.device),
         counters=(kernels.launches, inputs.exchange.sent))
 
@@ -521,14 +521,17 @@ class HostShard:
         return len(self.part.boundary[0])
 
 
-def prepare_sharded(cfg: GCNConfig, dataset: GCNDataset, n_parts: int, **partition_kwargs):
+def prepare_sharded(cfg: GCNConfig, dataset: GCNDataset, n_parts: int,
+                    lpa_labels: np.ndarray | None = None, **partition_kwargs):
     """Partition a dataset into ``n_parts`` shards on the host (:611-677).
     Returns (cfg, [HostShard] by rank, the PartitionedGraph).
 
     Unless ``cfg.reorder`` is 'none' the dataset is first relabelled by
     ``reorder.partition_layout`` over its LPA labels and cut at its part
-    boundaries; a caller that relabels the dataset itself passes 'none' and
-    the ``cuts``. The interiors take dense tiles on the bsr backend, and on
+    boundaries; ``lpa_labels``, the labels of this dataset's node order
+    (computed or cached by the caller), skip the label propagation. A
+    caller that relabels the dataset itself passes 'none' and the ``cuts``.
+    The interiors take dense tiles on the bsr backend, and on
     'auto' above ``DENSE_BACKEND_MAX_NODES`` nodes a part.
     ``partition_kwargs`` go to ``partition_graph`` (cuts, tile size, budget,
     ``device``)."""
@@ -536,7 +539,8 @@ def prepare_sharded(cfg: GCNConfig, dataset: GCNDataset, n_parts: int, **partiti
     if cfg.reorder != "none":
         from cuda_gcn_torch.data.reorder import label_propagation, partition_layout
 
-        labels = label_propagation(dataset.graph.indptr, dataset.graph.indices)
+        labels = (lpa_labels if lpa_labels is not None else
+                  label_propagation(dataset.graph.indptr, dataset.graph.indices))
         deg = np.diff(dataset.graph.indptr.astype(np.int64))
         perm, cuts = partition_layout(dataset.graph.indptr, dataset.graph.indices,
                                       labels, n_parts, weights=deg)

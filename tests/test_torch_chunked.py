@@ -125,6 +125,76 @@ def _assert_same_state(a, b):
         assert torch.equal(la[k], lb[k]), k
 
 
+class _Cut(Exception):
+    """Raised by ``_record_chunks`` once the chunk policy's arguments are read."""
+
+
+def _record_chunks(module, monkeypatch, seen: list):
+    """Patch ``module.run_chunked_loop`` to record, for each runner that calls
+    it, the epoch measure and the chunk sizes the real policy asks for (from
+    a runner that does no work), then stop the runner."""
+    policy = module.run_chunked_loop
+
+    def record(run_one, epochs, chunk, nnz, passes_per_epoch=4, times_out=None):
+        ks = []
+        policy(lambda k: ks.append(k) or [np.zeros(k, np.float32)] * 4, epochs, chunk, nnz,
+               passes_per_epoch=passes_per_epoch)
+        seen.append((nnz, ks))
+        raise _Cut
+
+    monkeypatch.setattr(module, "run_chunked_loop", record)
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_sharded_chunk_measure_is_the_jax_runners(tiny_dataset, n_parts, monkeypatch):
+    """The sharded runners' chunk measure on a partition with interior tiles:
+    one part's padded edge capacity (eimax + ebmax, tile-covered edges left
+    out) on every rank, which the JAX runners read from make_sharded_inputs'
+    coefficient arrays; and with ``chunk=None`` the fused and the
+    early-stopping runners of both packages ask for the same chunks. The
+    policy's target is cut so that this graph's epochs make chunks of about
+    seven."""
+    from cuda_gcn_tpu.parallel import sharded as jsharded
+
+    from cuda_gcn_torch.parallel import sharded as tsharded
+
+    tiles = dict(bsr_tile=16, bsr_min_edges=4)
+    mesh = jsharded.make_mesh(n_parts)
+    jcfg, jin, jt = jsharded.prepare_sharded(
+        tiny_dataset.apply_config(JConfig(graphsum_backend="bsr", hidden_dim=8)), tiny_dataset,
+        mesh, **tiles)
+    want = int(jin.interior.coef.shape[-1] + jin.boundary.coef.shape[-1])
+    cfg, shards, pg = tsharded.prepare_sharded(GCNConfig(graphsum_backend="bsr", hidden_dim=8),
+                                               to_torch_dataset(tiny_dataset), n_parts, **tiles)
+    assert pg.i_tile_counts.min() > 0  # every part has tile-covered edges
+    assert want == pg.eimax + pg.ebmax
+    target = want * 4 * ttrain._EST_SECONDS_PER_EDGE_PASS * 7.5
+    for module in (ttrain, jtrain):
+        monkeypatch.setattr(module, "TARGET_PROGRAM_SECONDS", target)
+    jax_seen, port_seen = [], []
+    _record_chunks(jtrain, monkeypatch, jax_seen)
+    _record_chunks(ttrain, monkeypatch, port_seen)
+    with pytest.raises(_Cut):
+        jsharded.run_sharded_epochs_chunked(mesh, jcfg, jtrain.create_state(jcfg), jin, jt[1],
+                                            jt[2], epochs=100)
+    with pytest.raises(_Cut):
+        jsharded.run_sharded_epochs_es_chunked(mesh, jcfg, jtrain.create_state(jcfg), jin,
+                                               jt[1], jt[2], epochs=100, es_window=4)
+    assert [nnz for nnz, _ in jax_seen] == [want, want]
+    for rank, shard in enumerate(shards):
+        inputs = tsharded.make_sharded_inputs(
+            shard.part, shard.x, "cpu", tsharded.HaloExchange(rank, n_parts, shard.part.hmax_k))
+        assert inputs.edge_capacity == want
+        truths = {s: tsharded.ShardedTruth(torch.from_numpy(shard.truths[s]), shard.counts[s])
+                  for s in (1, 2)}
+        for run, kw in ((tsharded.run_epochs_chunked, {}),
+                        (tsharded.run_epochs_es_chunked, dict(es_window=4))):
+            with pytest.raises(_Cut):
+                run(ttrain.create_state(cfg, "cpu"), inputs, truths[1], truths[2], cfg, 100, **kw)
+        assert port_seen[-2:] == jax_seen
+    assert sum(jax_seen[0][1]) == 100 and 1 < len(jax_seen[0][1]) < 100
+
+
 @pytest.mark.parametrize("backend", ["bsr", "ell", "segment", "dense"])
 def test_cpu_chunked_equals_run_epochs(tiny_dataset, backend):
     """Chunks of 3 over 7 epochs at dropout 0.5 equal one ``run_epochs`` of 7

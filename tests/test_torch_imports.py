@@ -11,6 +11,8 @@ import sys
 import pytest
 import torch
 
+from cuda_gcn_torch import bench as tbench
+from cuda_gcn_torch import bench_scaling as tbench_scaling
 from cuda_gcn_torch import kernels, train
 from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.data import graph as tgraph
@@ -104,13 +106,28 @@ def test_the_native_host_code_and_the_converter_import_no_jax(module):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("module", ["bench", "bench_scaling"])
+def test_the_benchmark_entries_import_no_jax(module):
+    """``python -m cuda_gcn_torch.bench`` and ``.bench_scaling`` stand alone:
+    importing one pulls in neither jax, ml_dtypes nor the JAX package (not
+    even the root bench.py, which shares the module name)."""
+    code = (f"import sys; import cuda_gcn_torch.{module}; bad = sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'cuda_gcn_tpu', 'bench')); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def _one_shard(ds):
     cfg, shards, _ = sharded.prepare_sharded(GCNConfig(reorder="none"), ds, 1)
     return cfg, shards[0]
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_graph", "create_state",
-                                   "run", "run_sharded", "initialize"])
+                                   "run", "run_sharded", "initialize", "bench",
+                                   "bench_scaling"])
 def test_entry_points_default_to_cuda_and_raise_without_it(tiny_dataset, entry,
                                                            monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -125,6 +142,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tiny_dataset, entry,
         # the sharded trainer: a rank's run, and its process group (NCCL by default)
         "run_sharded": lambda: sharded.run_sharded(*_one_shard(tiny_dataset)),
         "initialize": lambda: multihost.initialize(f"file://{tmp_path}/store", 1, 0),
+        # the benchmark entries, before they read a dataset
+        "bench": lambda: tbench.run_bench(tbench.build_argparser().parse_args([])),
+        "bench_scaling": lambda: tbench_scaling.main(["--stats-only"]),
     }
     with pytest.raises(RuntimeError, match="CUDA device"):
         calls[entry]()
