@@ -197,6 +197,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _clocks() -> str:
+    """The card's SM clock (now and its most), memory clock, power draw and
+    temperature, as nvidia-smi reads them: printed beside the probes' times,
+    which differ between runs."""
+    query = "clocks.sm,clocks.max.sm,clocks.mem,power.draw,temperature.gpu"
+    try:
+        res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=30)
+        read = res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unread"
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        read = "unread"
+    return f"{query}: {read}"
+
+
 def cuda_ms(fn, iters: int) -> float:
     from cuda_gcn_torch.device import cuda_ms as timed
 
@@ -1093,18 +1107,8 @@ def phase_probes(errs):
     h, idx, idx_sorted, coef = x["h"], x["idx"], x["idx_sorted"], x["coef"]
     rows, d = h.shape
     m = idx.numel()
-    log(f"(i) probes at table [{rows}, {d}], m={m}, mb={mb}: launches {launches}")
-    # probe A sums 2^20 terms: the tolerance scales with their magnitudes
-    got = probes.gather_probe(idx, h)
-    want = probes.gather_probe_plain(idx, h)
-    mass = probes.gather_probe_plain(idx, h.abs())
-    err = float((got - want).abs().max())
-    ratio = float(((got - want).abs() / (1e-6 * mass)).max())
-    log(f"  gather_probe: max_abs_err={err:.3e} max_err/tol={ratio:.3f} "
-        f"(tol 1e-6 * sum_i |h[idx[i]]|) {'ok' if ratio <= 1 else 'FAIL'}")
-    if ratio > 1 or not torch.equal(got, probes.gather_probe(idx, h)):
-        raise AssertionError("gather_probe disagrees with its plain version or itself")
-    errs["gather_probe"] = err
+    log(f"(i) probes at table [{rows}, {d}], m={m}, mb={mb}: launches {launches}; {_clocks()}")
+    errs["gather_probe"] = _gather_check(idx, h)
     got = probes.scatter_probe(idx_sorted, coef, h, mb)
     errs["scatter_probe"] = check("scatter_probe", got,
                                   probes.scatter_probe_plain(idx_sorted, coef, h, mb))
@@ -1131,8 +1135,8 @@ def phase_probes(errs):
             ("gather_probe", "A", plain_a, lib_a, bound_a, m, split[0], split[1]),
             ("scatter_probe", "B", plain_b, lib_b, bound_b, mb, split[2], split[3])):
         ms = res[key]["ms"]
-        log(f"  {name}: {ms:.4f} ms = {res[key]['ns_per_row']:.4f} ns/row over {count} "
-            f"rows (plain {plain:.4f} ms; library "
+        log(f"  {name}: {ms:.4f} ms = {res[key]['ns_per_row']:.4f} ns/"
+            f"{'id' if key == 'A' else 'row'} over {count} (plain {plain:.4f} ms; library "
             f"{'%.4f ms' % lib if lib is not None else 'did not run'}; bound "
             f"{bound:.4f} ms, {by})")
         log(f"    the kernel: {_fmt_split(own)}; the library call: {_fmt_split(lib_split)}")
@@ -1141,7 +1145,92 @@ def phase_probes(errs):
                          device_us=own["device_us"], host_us_per_call=own["host_us"],
                          library_device_us=lib_split["device_us"],
                          library_host_us_per_call=lib_split["host_us"])
+    a = out["gather_probe"]
+    a["path"] = kernels.gather_probe_path(rows)
+    log(f"  gather_probe ({a['path']} counts): device {a['device_us']:.2f} us against its bytes "
+        f"bound {bound_a[0] * 1e3:.2f} us (idx, h and out once) and the {4 * m * d / 1e6:.0f} MB "
+        f"of row gathers of the design it replaced, {4 * m * d / PEAK_BYTES_PER_S * 1e6:.1f} us "
+        f"from the memory with no reuse")
+    a["above_shared"] = _gather_above_shared()
+    _gather_edges()
     return out
+
+
+GATHER_GLOBAL_SHAPE = (1 << 17, 1 << 20, 128)  # rows, m, d: counts beyond shared memory
+
+
+def _gather_check(idx, h) -> float:
+    """Probe A against its plain version: a sum of m terms, so the tolerance is
+    1e-6 of the sum of their magnitudes; and the same bits on two calls."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.probes import gather as probes
+
+    got = probes.gather_probe(idx, h)
+    want = probes.gather_probe_plain(idx, h)
+    mass = probes.gather_probe_plain(idx, h.abs())
+    err = float((got - want).abs().max())
+    ratio = float(((got - want).abs() / (1e-6 * mass)).max())
+    log(f"  gather_probe [{h.shape[0]}, {h.shape[1]}] m={idx.numel()} "
+        f"({kernels.gather_probe_path(h.shape[0])} counts): max_abs_err={err:.3e} "
+        f"max_err/tol={ratio:.3f} (tol 1e-6 * sum_i |h[idx[i]]|) "
+        f"{'ok' if ratio <= 1 else 'FAIL'}")
+    if ratio > 1 or not torch.equal(got, probes.gather_probe(idx, h)):
+        raise AssertionError("gather_probe disagrees with its plain version or itself")
+    return err
+
+
+def _gather_above_shared() -> dict:
+    """(i), second shape: a table whose int32 counts do not fit a block's shared
+    memory, so the kernel counts into device memory; checked and timed."""
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.probes import gather as probes
+
+    rows, m, d = GATHER_GLOBAL_SHAPE
+    x = probes.make_inputs(rows, m, d, seed=1, device="cuda")
+    idx, h = x["idx"], x["h"]
+    path = kernels.gather_probe_path(rows)
+    if path != "global":
+        raise AssertionError(f"gather_probe at {rows} rows took the {path} path")
+    err = _gather_check(idx, h)
+    bound, by = _bound(4 * m + 4 * rows * d + 4 * d, m * d)
+    own, lib = split_times(lambda: probes.gather_probe(idx, h),
+                           lambda: h.index_select(0, idx).sum(0))
+    plain = cuda_ms(lambda: probes.gather_probe_plain(idx, h), 3)
+    log(f"  gather_probe [{rows}, {d}] m={m} ({path} counts): {_fmt_split(own)}; bound "
+        f"{bound * 1e3:.2f} us ({by}); row gathers with no reuse "
+        f"{4 * m * d / PEAK_BYTES_PER_S * 1e6:.1f} us; plain {plain:.4f} ms; library "
+        f"index_select + sum: {_fmt_split(lib)}")
+    return dict(rows=rows, m=m, d=d, path=path, max_abs_err=err, ms=own["event_us"] / 1e3,
+                device_us=own["device_us"], host_us_per_call=own["host_us"], plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib["event_us"] / 1e3,
+                library_device_us=lib["device_us"])
+
+
+def _gather_edges() -> None:
+    """(i), the count kernel's ragged ends and its stray ids, on both paths: ids
+    read from 1-3 ints past a 16-byte boundary, m odd (down to one id, fewer
+    than a 16-byte load), held as the main shape is; and an id outside [0,
+    rows) makes every element of the result NaN."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.probes import gather as probes
+
+    for rows, d in ((16384, 128), (GATHER_GLOBAL_SHAPE[0], 32)):
+        x = probes.make_inputs(rows, (1 << 16) + 8, d, seed=2, device="cuda")
+        ids, h = x["idx"], x["h"]
+        for off, m in ((1, (1 << 16) + 3), (2, 4097), (3, 3), (1, 1)):
+            _gather_check(ids[off:off + m], h)
+        for stray in (rows, -1):
+            bad = ids[:1001].clone()
+            bad[500] = stray
+            if not bool(torch.isnan(probes.gather_probe(bad, h)).all()):
+                raise AssertionError(f"gather_probe counted the stray id {stray} of a table of "
+                                     f"{rows} rows")
+        log(f"  gather_probe [{rows}, {d}] ({kernels.gather_probe_path(rows)} counts): the ids "
+            f"{rows} and -1 each make the result NaN")
 
 
 TAA_ITERS = 5  # the probe entry points' default
@@ -1201,7 +1290,7 @@ def phase_taa_probes(errs):
                 "cumsum_cols": per, "piece": per + 1}
     log(f"(j) TAA probes: launches {launches}; expected {expected} ({per} per case: A2 and "
         f"{n_rows} axis-0 cases, {len(timed) - n_rows} axis-1 cases, C, D and D's spot "
-        f"check), 0 for the others")
+        f"check), 0 for the others; {_clocks()}")
     if any(v != expected.get(k, 0) for k, v in launches.items()):
         raise AssertionError("the probe entry points did not launch every case's kernel")
     if not res["D_check"]["ok"]:
@@ -1276,12 +1365,19 @@ def phase_taa_probes(errs):
         n = case.tab.numel()
         item = case.tab.element_size()
         bound = _bound(4 * case.idx.numel() + item * n + 4 * n, n * case.steps * case.reps)
+        if case.axis == 1:
+            form = kernels.taa_lanes_form(case.strides, *case.tab.shape, case.steps, item)
+            log(f"  taa_lanes {case.label}: {form.form} form, {form.rows} rows a CTA, "
+                f"tile {form.tile} columns")
         row = record("taa_rows" if case.axis == 0 else "taa_lanes", case.label, ms,
                      cuda_ms(case.plain, 2), lib_ms, lib_name, bound, 0.0, (case.run, lib),
                      head=case.label in heads, gather_bytes=item * n * case.steps * case.reps)
+        if case.axis == 1:
+            row["form"] = form._asdict()
         log("    " + dyngather.rate_line(case, ms).replace("\n", " "))
         if case.group == "bisect" and case.axis == 0 and case.steps == 1:
             versus.append((case.label, lib_name, row))
+    _lanes_edges()
     for label, lib_name, row in versus:  # k1, k2, k5 against the library's call
         log(f"  {label} against {lib_name}: device {row['device_us']:.2f} / "
             f"{row['library_device_us']:.2f} us, host {row['host_us_per_call']:.2f} / "
@@ -1331,6 +1427,48 @@ def phase_taa_probes(errs):
         log(f"    {name}: {res[name]['ms']:.4f} ms = {res[name]['ns_per_row']:.3f} ns/row "
             f"over {res[name]['rows']} rows")
     return out
+
+
+# taa_lanes' group form off the scripts' shapes: (S, L, dtype, steps, reps,
+# table 16-byte aligned). Ragged row groups (S 17, 3, 5), rows that are no
+# whole number of 16-byte loads (L 333) or a table off a 16-byte boundary,
+# both staged one value at a time, and steps past and within a batch of 16.
+LANE_EDGES = ((17, 333, "float32", 7, 1, True), (3, 333, "bfloat16", 5, 2, True),
+              (3, 1000, "bfloat16", 9, 1, False), (17, 1000, "bfloat16", 20, 1, True),
+              (5, 4096, "float32", 16, 1, False))
+
+
+def _lanes_edges() -> None:
+    """(j), ``LANE_EDGES``: each case in the group form, equal bit for bit to
+    its plain version."""
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.probes import taa
+
+    rng = np.random.default_rng(12)
+    for s, l, dtype, steps, reps, aligned in LANE_EDGES:
+        dt = getattr(torch, dtype)
+        vals = torch.from_numpy(rng.standard_normal((s, l), dtype=np.float32)).to(dt)
+        buf = torch.empty(s * l + 8, dtype=dt, device="cuda")
+        tab = buf[:s * l] if aligned else buf[1:1 + s * l]
+        tab = tab.view(s, l)
+        tab.copy_(vals)
+        idx = torch.from_numpy(rng.integers(0, l, steps * l, dtype=np.int32)).cuda()
+        strides = (0, 1, l)
+        form = kernels.taa_lanes_form(strides, s, l, steps, tab.element_size())
+        staged = ("16-byte loads" if l % (16 // tab.element_size()) == 0
+                  and tab.data_ptr() % 16 == 0 else "one value at a time")
+        got = kernels.taa_lanes(idx, strides, tab, steps, reps)
+        want = taa.taa_lanes_plain(idx, strides, tab, steps, reps)
+        ok = form.form == "group" and torch.equal(got, want)
+        log(f"  taa_lanes [{s}x{l}] {dtype} x{steps} steps x{reps} reps: {form.form} form, "
+            f"{form.rows} rows a CTA, tile {form.tile}, staged by {staged}: "
+            f"{'equal' if ok else 'FAIL'} to its plain version")
+        if not ok:
+            raise AssertionError(f"taa_lanes [{s}x{l}] {dtype}: not the group form, or not "
+                                 f"equal to its plain version")
 
 
 def _mass_check(name, got, want, mass):

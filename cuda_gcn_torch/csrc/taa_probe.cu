@@ -38,11 +38,39 @@
 //   are 4 scattered bytes each whatever a thread is given, and 4 elements a
 //   thread with one 16-byte index load measured level on one step and slower
 //   on the repeated small shapes, where fewer threads walk the same chain.
-// taa_lanes: a CTA stages its table row in shared memory (above 48 KB by
-// opt-in; a row that does not fit is read from global memory) and walks a tile
-// of the columns. In all of them, the sum starts at 0 and adds step after step, rep
-// after rep, in f32, and every rep reads the table again (a compiler barrier
-// keeps the loads inside the loop): the probes time gathers, not additions.
+// taa_lanes reads the table row of each output element at columns that the
+// index names, so every (element, step) is a dependent pair: an index load,
+// then a read of the row. Its bytes bound (idx, the table and out once: 3.1 us
+// at [128, 8192] f32 x64 steps) is far below what the reads of the rows take
+// from shared memory, 4 bytes an element and step (268 MB at that shape, 9 us
+// at the SMs' 128 bytes a clock with no bank conflict), so the design cuts the
+// index traffic and spends shared-memory reads as vectors. The launcher picks
+// one of two forms (kernels.taa_lanes_form):
+// * group form, si == 0 (the index does not depend on the row: the compact
+//   [steps, L] layouts of exp_dyngather.py's lane_kernel): a CTA of 512
+//   threads takes a group of R table rows and a tile of columns, and stages
+//   the R rows transposed, [L][R] in shared memory, so the R values of one
+//   column are 4, 8 or 16 contiguous bytes, W words (R = 2, 4, 8 bf16 or 1,
+//   2, 4 f32; the stage within a block's 232,448 bytes). Staging reads each
+//   row with 16-byte loads, 8 in flight a thread, transposes them in
+//   registers and stores whole columns, swizzled so that a warp's stores hit
+//   distinct banks (stage_pos). Then a thread takes a column and keeps R
+//   sums: each index is loaded once and serves the R rows with one vector
+//   read of the stage. That divides the index traffic by R (at [128, 8192]
+//   f32, 256 MB read row after row becomes 64 MB) and spends a shared-memory
+//   wavefront on up to 8 random columns of R values where a scalar read
+//   spends it on fewer values. The steps go in batches of 16 whose index
+//   loads are all in flight before the first read. The launcher sizes the
+//   column tile so that groups x tiles fill the card's SMs about once, and
+//   takes the R whose stages (read from L2 once a tile) and index loads
+//   (once a group) move the fewest bytes.
+// * general form, any strides (a full index: k4 and exp_dyngather3.py's axis
+//   1): a CTA stages its one table row in shared memory (above 48 KB by
+//   opt-in; a row that does not fit is read from global memory) and walks a
+//   tile of 1024 columns, an index load and a row read a step.
+// In all of them, the sum starts at 0 and adds step after step, rep after rep,
+// in f32, and every rep reads the table again (a compiler barrier keeps the
+// loads inside the loop): the probes time gathers, not additions.
 //
 // cumsum_cols and piece share one three-pass scan: per (chunk of 64 rows,
 // column) a thread adds its chunk's values; one thread per column turns the
@@ -62,6 +90,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -179,6 +209,156 @@ taa_lanes_kernel(const int* idx, int64_t si, int64_t sj, int64_t sk, const T* ta
   }
 }
 
+// W 32-bit words of a staged column: one load from shared memory
+template <int W> struct Words;
+template <> struct Words<1> {
+  using V = unsigned;
+  __device__ static V make(const unsigned (&w)[1]) { return w[0]; }
+  __device__ static void get(V v, unsigned (&w)[1]) { w[0] = v; }
+};
+template <> struct Words<2> {
+  using V = uint2;
+  __device__ static V make(const unsigned (&w)[2]) { return make_uint2(w[0], w[1]); }
+  __device__ static void get(V v, unsigned (&w)[2]) { w[0] = v.x, w[1] = v.y; }
+};
+template <> struct Words<4> {
+  using V = uint4;
+  __device__ static V make(const unsigned (&w)[4]) { return make_uint4(w[0], w[1], w[2], w[3]); }
+  __device__ static void get(V v, unsigned (&w)[4]) { w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w; }
+};
+
+// the R table values of a staged column of W words (one f32 row or two bf16
+// rows a word, the even row in the low half), added to their sums in row order
+template <int kItem, int W>
+__device__ __forceinline__ void add_words(typename Words<W>::V v, float (&acc)[W * 4 / kItem]) {
+  unsigned w[W];
+  Words<W>::get(v, w);
+#pragma unroll
+  for (int q = 0; q < W * 4 / kItem; ++q) {
+    const unsigned word = w[q * kItem / 4];
+    acc[q] += __uint_as_float(kItem == 4 ? word : (q & 1) ? (word & 0xffff0000u) : (word << 16));
+  }
+}
+
+constexpr int kGroupThreads = 512;  // threads a CTA of the group form
+constexpr int kGroupBatch = 16;     // index loads in flight per thread of the group form
+
+// where column c of a group is staged: c ^ ((c / V) mod N), V the columns of a
+// 16-byte row load, N the staged columns of one 128-byte shared-memory
+// wavefront. Consecutive threads store column cc of consecutive 16-byte loads,
+// which the swizzle puts in distinct banks; it changes only the low bits of c
+// within an aligned run of N, so the stage holds l rounded up to N columns.
+template <int kItem, int W>
+__device__ __forceinline__ unsigned stage_pos(unsigned c) {
+  constexpr unsigned V = 16 / kItem, N = 32 / W;
+  return c ^ ((c / V) & (N - 1));
+}
+
+__device__ __forceinline__ unsigned word_of(uint4 v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// word j of staged column cc, from the 16-byte loads in[q] of the group's R
+// rows at the same columns: an f32 row per word, or two bf16 rows (the even
+// row in the low half)
+template <int kItem, int R>
+__device__ __forceinline__ unsigned column_word(const uint4 (&in)[R], int cc, int j) {
+  if constexpr (kItem == 4) {
+    return word_of(in[j], cc);
+  } else {
+    return __byte_perm(word_of(in[2 * j], cc >> 1), word_of(in[2 * j + 1], cc >> 1),
+                       (cc & 1) ? 0x7632 : 0x5410);
+  }
+}
+
+// group form (si == 0): out[i0 + q, j] for the R = 4 W / kItem rows of group
+// blockIdx.y and the columns of tile blockIdx.x, table values of kItem bytes
+// (2: bf16, 4: f32). The group's rows are staged transposed, W words a column:
+// with `vec` (rows a whole number of 16-byte loads) each thread loads 16 bytes
+// of each row, 8 loads in flight, and transposes them in registers; else one
+// value at a time. A thread then takes a column of the tile: each index it
+// loads serves its R sums through one vector read of the stage.
+template <int kItem, int W>
+__global__ void __launch_bounds__(kGroupThreads)
+taa_lanes_group_kernel(const int* __restrict__ idx, int sj, int sk, const void* __restrict__ tab_v,
+                       float* __restrict__ out, int s, int l, int steps, int reps, int tile,
+                       int vec) {
+  constexpr int R = 4 * W / kItem, V = 16 / kItem, kBatch = R >= 8 ? 1 : 8 / R;
+  using Vec = typename Words<W>::V;
+  extern __shared__ __align__(16) unsigned char stage_bytes[];
+  Vec* stage = reinterpret_cast<Vec*>(stage_bytes);
+  const unsigned char* tab = static_cast<const unsigned char*>(tab_v);
+  const int i0 = blockIdx.y * R;
+  const int nt = blockDim.x;
+  if (vec) {
+    const int groups = l / V;
+    for (int g0 = threadIdx.x; g0 < groups; g0 += nt * kBatch) {
+      uint4 in[kBatch][R];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int g = g0 + b * nt;
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          in[b][q] = g < groups && i0 + q < s
+                         ? __ldg(reinterpret_cast<const uint4*>(tab + (size_t)(i0 + q) * l * kItem) + g)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int g = g0 + b * nt;
+        if (g < groups) {
+#pragma unroll
+          for (int cc = 0; cc < V; ++cc) {
+            unsigned w[W];
+#pragma unroll
+            for (int j = 0; j < W; ++j) w[j] = column_word<kItem>(in[b], cc, j);
+            stage[stage_pos<kItem, W>(g * V + cc)] = Words<W>::make(w);
+          }
+        }
+      }
+    }
+  } else {
+    using Raw = std::conditional_t<kItem == 2, unsigned short, unsigned>;
+    const Raw* rows = reinterpret_cast<const Raw*>(tab);
+    for (int c = threadIdx.x; c < l; c += nt) {
+      unsigned w[W];
+#pragma unroll
+      for (int u = 0; u < W; ++u) w[u] = 0u;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const unsigned bits = i0 + q < s ? (unsigned)rows[(size_t)(i0 + q) * l + c] : 0u;
+        w[q * kItem / 4] |= bits << (8 * (q * kItem % 4));
+      }
+      stage[stage_pos<kItem, W>(c)] = Words<W>::make(w);
+    }
+  }
+  __syncthreads();
+  const int j0 = blockIdx.x * tile;
+  const int j1 = min(l, j0 + tile);
+  for (int j = j0 + threadIdx.x; j < j1; j += nt) {
+    const int* ip = idx + j * sj;
+    float acc[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) acc[q] = 0.f;
+    for (int r = 0; r < reps; ++r) {
+      int k = 0;
+      for (; k + kGroupBatch <= steps; k += kGroupBatch) {  // all index loads, then the reads
+        int id[kGroupBatch];
+#pragma unroll
+        for (int u = 0; u < kGroupBatch; ++u) id[u] = ip[(k + u) * sk];
+#pragma unroll
+        for (int u = 0; u < kGroupBatch; ++u)
+          add_words<kItem, W>(stage[stage_pos<kItem, W>(id[u])], acc);
+      }
+      for (; k < steps; ++k) add_words<kItem, W>(stage[stage_pos<kItem, W>(ip[k * sk])], acc);
+      asm volatile("" ::: "memory");
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (i0 + q < s) out[(size_t)(i0 + q) * l + j] = acc[q];
+  }
+}
+
 // the scanned values: a table, or gathered rows of it scaled per row
 struct TableSource {
   const float* tab;
@@ -290,6 +470,60 @@ cudaError_t launch_rows(int form, const int* idx, int64_t si, int64_t sj, int64_
   return cudaGetLastError();
 }
 
+// the group form's shared memory: l columns rounded up to a swizzle run, W words each
+int group_stage_bytes(int l, int w) {
+  const int n = 32 / w;
+  return (l + n - 1) / n * n * w * 4;
+}
+
+template <int kItem, int W>
+cudaError_t launch_lanes_group(const int* idx, int sj, int sk, const void* tab, float* out,
+                               int s, int l, int steps, int reps, int tile,
+                               cudaStream_t stream) {
+  constexpr int R = 4 * W / kItem;
+  const int smem = group_stage_bytes(l, W);
+  if (smem > (48 << 10)) {
+    const cudaError_t err = cudaFuncSetAttribute(taa_lanes_group_kernel<kItem, W>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int vec = l % (16 / kItem) == 0 && aligned(tab, 16);
+  const dim3 grid((l + tile - 1) / tile, (s + R - 1) / R);
+  taa_lanes_group_kernel<kItem, W><<<grid, kGroupThreads, smem, stream>>>(
+      idx, sj, sk, tab, out, s, l, steps, reps, tile, vec);
+  return cudaGetLastError();
+}
+
+constexpr int kLanesGeneral = 0, kLanesGroup = 1;  // kernels.TAA_LANES_FORMS
+
+// the group form's R rows a group, by the table's type; what it rests on is
+// checked here too: the launcher chose the form by the same rules, so a
+// refusal is a fault of the caller
+cudaError_t launch_group(const int* idx, int64_t si, int64_t sj, int64_t sk, const void* tab,
+                         int bf16, float* out, int s, int l, int steps, int reps, int rows,
+                         int tile, cudaStream_t stream) {
+  const int64_t span = (l - 1) * sj + (steps - 1) * sk;
+  const int item = bf16 ? 2 : 4;
+  if (si != 0 || span >= (int64_t(1) << 31) || tile < 1 || rows * item < 4 ||
+      rows * item > 16 || group_stage_bytes(l, rows * item / 4) > 232448)
+    return cudaErrorInvalidValue;
+  const int i_sj = (int)sj, i_sk = (int)sk;
+  switch (rows * item) {
+    case 4:
+      return bf16 ? launch_lanes_group<2, 1>(idx, i_sj, i_sk, tab, out, s, l, steps, reps, tile, stream)
+                  : launch_lanes_group<4, 1>(idx, i_sj, i_sk, tab, out, s, l, steps, reps, tile, stream);
+    case 8:
+      return bf16 ? launch_lanes_group<2, 2>(idx, i_sj, i_sk, tab, out, s, l, steps, reps, tile, stream)
+                  : launch_lanes_group<4, 2>(idx, i_sj, i_sk, tab, out, s, l, steps, reps, tile, stream);
+    case 16:
+      return bf16 ? launch_lanes_group<2, 4>(idx, i_sj, i_sk, tab, out, s, l, steps, reps, tile, stream)
+                  : launch_lanes_group<4, 4>(idx, i_sj, i_sk, tab, out, s, l, steps, reps, tile, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <class T>
 cudaError_t launch_lanes(const int* idx, int64_t si, int64_t sj, int64_t sk, const void* tab,
                          float* out, int s, int l, int steps, int reps,
@@ -340,11 +574,15 @@ extern "C" int taa_rows(const void* idx, int64_t si, int64_t sj, int64_t sk, con
 }
 
 extern "C" int taa_lanes(const void* idx, int64_t si, int64_t sj, int64_t sk, const void* tab,
-                         int tab_bf16, void* out, int s, int l, int steps, int reps,
-                         void* stream) {
+                         int tab_bf16, void* out, int s, int l, int steps, int reps, int form,
+                         int rows, int tile, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto ip = static_cast<const int*>(idx);
   auto o = static_cast<float*>(out);
+  if (form == kLanesGroup)
+    return static_cast<int>(launch_group(ip, si, sj, sk, tab, tab_bf16, o, s, l, steps, reps,
+                                         rows, tile, st));
+  if (form != kLanesGeneral) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       tab_bf16 ? launch_lanes<__nv_bfloat16>(ip, si, sj, sk, tab, o, s, l, steps, reps, st)
                : launch_lanes<float>(ip, si, sj, sk, tab, o, s, l, steps, reps, st));

@@ -28,12 +28,14 @@ refused here, and by the C entry; nothing is cast to reach another variant.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -53,11 +55,13 @@ _ENTRY = {
                  [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "ell_spmm": ("ell_spmm", "ell_spmm",
                  [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "gather_probe": ("gather_probe", "gather_probe", [_P, _P, _P, _P, _L, _I, _I, _P]),
+    "gather_probe": ("gather_probe", "gather_probe",
+                     [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "taa_rows": ("taa_probe", "taa_rows",
                  [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
-    "taa_lanes": ("taa_probe", "taa_lanes", [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _P]),
+    "taa_lanes": ("taa_probe", "taa_lanes",
+                  [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "cumsum_cols": ("taa_probe", "cumsum_cols", [_P, _P, _P, _I, _I, _I, _P]),
     "piece": ("taa_probe", "piece", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
@@ -404,27 +408,68 @@ def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
     return out
 
 
-# Probe A's first kernel: CTAs of at most this many row ids each, at most
-# GATHER_MAX_BLOCKS of them (csrc/gather_probe.cu).
-GATHER_IDS_PER_BLOCK = 2048
-GATHER_MAX_BLOCKS = 1024
+# Shared memory a block can opt into on the H100, and its number of SMs.
+SMEM_BLOCK_BYTES = 232448
+H100_SMS = 132
+# Probe A (csrc/gather_probe.cu) counts the ids, then contracts the counts with
+# the table: its paths by their number in the C interface. A count CTA takes at
+# least GATHER_MIN_COUNT_IDS ids and there are at most GATHER_MAX_COUNT_BLOCKS;
+# the contraction's CTAs, at most GATHER_CONTRACT_CTAS, take chunks of
+# GATHER_CONTRACT_ROWS table rows in turn and write one partial row each.
+GATHER_PATHS = ("shared", "global")
+GATHER_MIN_COUNT_IDS = 8192
+GATHER_MAX_COUNT_BLOCKS = 2 * H100_SMS
+GATHER_CONTRACT_ROWS = 128
+GATHER_CONTRACT_CTAS = 128
+
+
+def gather_probe_path(rows: int) -> str:
+    """Where probe A counts: 'shared', a histogram a CTA in shared memory, for a
+    table whose int32 counts fit a block's shared memory (at most 58,112 rows);
+    'global', one count array in device memory, for a larger one."""
+    return "shared" if 4 * rows <= SMEM_BLOCK_BYTES else "global"
+
+
+def gather_count_blocks(m: int, rows: int, path: str) -> int:
+    """How many CTAs count the ``m`` ids: at least GATHER_MIN_COUNT_IDS ids
+    each, at most GATHER_MAX_COUNT_BLOCKS; on the shared path also no more than
+    m / rows, so that the CTAs' histograms hold no more ints than idx."""
+    blocks = min(GATHER_MAX_COUNT_BLOCKS, -(-m // GATHER_MIN_COUNT_IDS))
+    if path == "shared":
+        blocks = min(blocks, m // rows)
+    return max(1, blocks)
 
 
 def gather_probe(idx, h) -> torch.Tensor:
-    """Launch probe A: Σ_i h[idx[i]] as a [1, d] tensor in f32."""
+    """Launch probe A: Σ_i h[idx[i]] as a [1, d] tensor in f32, computed as
+    Σ_r count[r]·h[r] (``gather_probe_path`` names where it counts). An id
+    outside [0, rows) is not counted and makes every element of the result
+    NaN, and no memory outside the scratch is written (the plain version
+    indexes as torch does: it raises for an id >= rows)."""
     dev = _on_cuda(h, "gather_probe")
     _check(idx, "idx", torch.int32, dev)
     _check(h, "h", torch.float32, dev)
     if h.dim() != 2:
         raise ValueError(f"h must be [rows, d], got {tuple(h.shape)}")
-    m, d = idx.numel(), h.shape[1]
-    out = torch.zeros(1, d, dtype=torch.float32, device=h.device)
+    m, (rows, d) = idx.numel(), h.shape
+    if m >= 2**31:
+        raise ValueError(f"gather_probe counts fewer than 2^31 ids, got {m}")
     if m == 0 or d == 0:
-        return out
-    blocks = min(GATHER_MAX_BLOCKS, -(-m // GATHER_IDS_PER_BLOCK))
-    partial = torch.empty(blocks, d, dtype=torch.float32, device=h.device)
-    _call("gather_probe", idx.data_ptr(), h.data_ptr(), partial.data_ptr(), out.data_ptr(),
-          m, blocks, d, _stream(dev))
+        return torch.zeros(1, d, dtype=torch.float32, device=h.device)
+    path = gather_probe_path(rows)
+    blocks = gather_count_blocks(m, rows, path)
+    # the count arrays, the ticket that elects the CTA adding the partial rows
+    # (the count kernel clears it), and a stray-id flag a count CTA (each writes
+    # its own)
+    if path == "shared":
+        counts = torch.empty(blocks * rows + 1 + blocks, dtype=torch.int32, device=h.device)
+    else:
+        counts = torch.zeros(rows + 1 + blocks, dtype=torch.int32, device=h.device)
+    partial = torch.empty(min(-(-rows // GATHER_CONTRACT_ROWS), GATHER_CONTRACT_CTAS), d,
+                          dtype=torch.float32, device=h.device)
+    out = torch.empty(1, d, dtype=torch.float32, device=h.device)
+    _call("gather_probe", idx.data_ptr(), h.data_ptr(), counts.data_ptr(), partial.data_ptr(),
+          out.data_ptr(), m, rows, d, blocks, GATHER_PATHS.index(path), _stream(dev))
     return out
 
 
@@ -448,8 +493,8 @@ def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
     return out
 
 
-# taa_lanes puts the table's rows on the grid's second dimension, the scans
-# their row chunks (csrc/taa_probe.cu).
+# taa_lanes puts the table's rows (or row groups) on the grid's second
+# dimension, the scans their row chunks (csrc/taa_probe.cu).
 TAA_LANES_MAX_ROWS = 65535
 SCAN_CHUNK_ROWS = 64
 SCAN_MAX_ROWS = 65535 * SCAN_CHUNK_ROWS
@@ -468,6 +513,56 @@ def taa_rows_form(strides, s: int, l: int, steps: int, idx_numel: int, itemsize:
             and tab_ptr % (4 * itemsize) == 0 and out_ptr % 16 == 0:
         return "row"
     return "general"
+
+
+# The forms of taa_lanes (csrc/taa_probe.cu), by their number in the C
+# interface; the general form's CTA walks TAA_LANE_TILE columns.
+TAA_LANES_FORMS = ("general", "group")
+TAA_LANE_TILE = 1024
+
+
+class LanesForm(NamedTuple):
+    form: str   # one of TAA_LANES_FORMS
+    rows: int   # table rows a CTA stages (the group form's R)
+    tile: int   # columns a CTA walks
+
+
+def _group_stage_bytes(l: int, column_bytes: int) -> int:
+    """Shared memory of a group: its columns, ``column_bytes`` each, rounded up
+    to the run of one 128-byte wavefront that the stage's swizzle permutes."""
+    run = 128 // column_bytes
+    return -(-l // run) * run * column_bytes
+
+
+@functools.lru_cache(maxsize=256)
+def taa_lanes_form(strides: tuple, s: int, l: int, steps: int, itemsize: int) -> LanesForm:
+    """Which form of ``taa_lanes`` takes a call: 'group' where the index does
+    not depend on the row (si == 0) and its offsets fit 32 bits, 'general' for
+    everything else (a full index, or a row too long to stage).
+
+    A group stages R rows, 2, 4 or 8 bf16 or 1, 2 or 4 f32 (4 to 16 bytes of
+    a column), within a block's shared memory; its column tile makes the
+    groups × tiles about one CTA an SM (measured faster than more CTAs of
+    smaller stages, whose stages add traffic). Of the R that fit, it takes the
+    one whose traffic is least: each CTA reads its group's stage from L2, and
+    each group reads the index loads of its columns (L × steps ints); the
+    larger R where two tie."""
+    si, sj, sk = strides
+    if si != 0 or (l - 1) * sj + (steps - 1) * sk >= 2**31:
+        return LanesForm("general", 1, TAA_LANE_TILE)
+    best = None
+    for rows in (16 // itemsize, 8 // itemsize, 4 // itemsize):
+        stage = _group_stage_bytes(l, rows * itemsize)
+        if stage > SMEM_BLOCK_BYTES:
+            continue
+        groups = -(-s // rows)
+        tiles = max(1, min(-(-l // 32), H100_SMS // groups))
+        per_tile = -(-l // tiles)
+        tile = -(-per_tile // 32) * 32  # whole warps
+        traffic = -(-l // tile) * groups * stage + groups * 4 * l * steps
+        if best is None or traffic < best[0]:
+            best = (traffic, LanesForm("group", rows, tile))
+    return LanesForm("general", 1, TAA_LANE_TILE) if best is None else best[1]
 
 
 def _taa(name: str, idx, strides, tab, steps: int, reps: int) -> torch.Tensor:
@@ -500,8 +595,9 @@ def _taa(name: str, idx, strides, tab, steps: int, reps: int) -> torch.Tensor:
         _call(name, idx.data_ptr(), si, sj, sk, tab_ptr, bf16, out_ptr, s, l, steps, reps,
               form, _stream(dev))
     else:
+        form = taa_lanes_form(tuple(strides), s, l, steps, 2 if bf16 else 4)
         _call(name, idx.data_ptr(), si, sj, sk, tab_ptr, bf16, out_ptr, s, l, steps, reps,
-              _stream(dev))
+              TAA_LANES_FORMS.index(form.form), form.rows, form.tile, _stream(dev))
     return out
 
 
@@ -515,7 +611,8 @@ def taa_rows(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
 
 def taa_lanes(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
     """Launch the axis-1 element gather: out[i, j] = Σ_{r<reps} Σ_{k<steps}
-    tab[i, idx[i·si + j·sj + k·sk]] in f32. The indices must lie in [0, L)."""
+    tab[i, idx[i·si + j·sj + k·sk]] in f32, in the form that ``taa_lanes_form``
+    names. The indices must lie in [0, L)."""
     return _taa("taa_lanes", idx, strides, tab, steps, reps)
 
 

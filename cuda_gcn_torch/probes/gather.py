@@ -11,10 +11,18 @@ aggregation kernel of the port is made of these two primitives:
   for i < m_b = min(m, 65536), over sorted idx, into an [rows, d] f32 output
   that starts at zero.
 
-Both kernels are in csrc/gather_probe.cu. A tensor on the CPU takes the plain
-PyTorch version; a CUDA tensor launches the kernel or raises. The entry point
-runs on the card and prints each kernel's time and ns per row beside the
-card's name and power limit.
+Both kernels are in csrc/gather_probe.cu. Probe A's kernel does not gather:
+the sum regroups exactly as Σ_r count[r] · h[r], so it counts the ids (in
+shared memory where a table's counts fit a block's, else in device memory;
+``kernels.gather_probe_path``), then reads each table row once, times its
+count. That reads the 4 MB of ids and the 8 MB table of the defaults once,
+which is what the bytes bound counts, where gathering the rows moves 537 MB;
+the card's random row gather is timed by kernel 3 and ``taa_rows`` instead.
+Probe B adds each sorted segment in index order, one warp per output row. A
+tensor on the CPU takes the plain PyTorch version; a CUDA tensor launches the
+kernel or raises. The entry point runs on the card and prints each kernel's
+time beside the card's name and power limit, per id for A (the function's
+time over its ids, not a rate of row gathers) and per row for B.
 """
 
 from __future__ import annotations
@@ -74,7 +82,8 @@ def scatter_probe(idx: torch.Tensor, coef: torch.Tensor, h: torch.Tensor,
 def run(rows: int = 16384, m: int = 1 << 20, d: int = 128, iters: int = 20,
         seed: int = 0) -> dict:
     """Time both probe kernels on the card at these shapes. Returns
-    {"A": {...}, "B": {...}, "inputs": ...} with ms and ns per row."""
+    {"A": {...}, "B": {...}, "inputs": ...} with ms and ns per id (A) or per
+    edge (B) under ``ns_per_row``."""
     if not torch.cuda.is_available():
         raise RuntimeError("the probes run on a CUDA device and none is available")
     x = make_inputs(rows, m, d, seed, "cuda")
@@ -101,10 +110,11 @@ def main(argv: list[str] | None = None) -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(f"device={torch.cuda.get_device_name(0)} ({smi}) table=[{args.rows},{args.d}] "
           f"m={args.m}")
-    for name, label in (("A", "A gather"), ("B", "B scatter+=")):
-        r = res[name]
-        print(f"{label}: {r['ms']:.4f} ms = {r['ns_per_row']:.3f} ns/row "
-              f"over {r['rows']} rows")
+    a, b = res["A"], res["B"]
+    print(f"A gather-sum: {a['ms']:.4f} ms = {a['ns_per_row']:.3f} ns/id over {a['rows']} ids "
+          f"(the function's time per id, not a gather rate: the kernel counts the ids and "
+          f"reads each table row once)")
+    print(f"B scatter+=: {b['ms']:.4f} ms = {b['ns_per_row']:.3f} ns/row over {b['rows']} rows")
     return 0
 
 

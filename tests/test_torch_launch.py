@@ -1,8 +1,9 @@
 """The launch path of the port's kernels, as far as the CPU can follow it.
 
 What the launchers decide in Python is tested as plain functions: the load
-width of kernels 2 and 3 from the feature width and the bases' alignment, and
-the form of ``taa_rows`` from the strides, for every layout the probes use.
+width of kernels 2 and 3 from the feature width and the bases' alignment, the
+forms of ``taa_rows`` and ``taa_lanes`` from the strides, for every layout the
+probes use, and where probe A counts.
 The launchers themselves are driven with tensors that claim to lie on a card
 (``FakeCuda``, a Tensor subclass whose storage is on the CPU) and with the C
 call replaced by a recorder: a valid call reaches the C function once, with
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cuda_gcn_torch import kernels
 from cuda_gcn_torch.ops import ell as tell
 from cuda_gcn_torch.probes import dyngather as dg
@@ -49,11 +51,14 @@ _WANT = {"compact_rows": "row", "bcast_rows": "row", "take_rows": "row",
 def test_taa_rows_form_of_every_probe_layout(i):
     """A2 and the 19 cases of the dynamic-gather scripts: one index per row or
     per row and step is the row form, a full index the general form; the axis-1
-    cases go to ``taa_lanes``, which has one form."""
+    cases go to ``taa_lanes``, whose group form takes a compact index [steps,
+    L] and whose general form a full one."""
     case = _probe_cases()[i]
     s, l = case.tab.shape
     if case.axis == 1:
         assert case.form in ("full_lanes", "compact_lanes")
+        form = kernels.taa_lanes_form(case.strides, s, l, case.steps, case.tab.element_size())
+        assert form.form == ("group" if case.form == "compact_lanes" else "general")
         return
     form = kernels.taa_rows_form(case.strides, s, l, case.steps, case.idx.numel(),
                                  case.tab.element_size())
@@ -90,6 +95,176 @@ def test_taa_rows_form_bf16_rows_need_8_bytes():
     assert kernels.taa_rows_form((1, 0, 0), 64, 128, 1, 64, 2, 4, 0) == "general"
     assert kernels.taa_rows_form((1, 0, 0), 64, 128, 1, 2**31, 2, 8, 0) == "general"
     assert kernels.TAA_FORMS == ("general", "row")
+
+
+# every axis-1 layout of the 20 at the scripts' full size: (label, S, L,
+# itemsize, steps, strides); the compact ones with the group form's (R, tile)
+_LANE_LAYOUTS = [
+    *((f"lane_kernel [{s}x{l}] {dt} x{steps}", s, l, 2 if dt == "bfloat16" else 4, steps,
+       (0, 1, l)) for s, l, dt, steps in dg.LANE_SHAPES),
+    ("k4 [16x8192]", 16, 8192, 4, 1, (8192, 1, 0)),
+    *((f"envelope axis 1 [{s}x{l}]", s, l, 4, 1, (l, 1, 0))
+      for s, l, axis in dg.ENVELOPE_SHAPES if axis == 1)]
+_GROUPS = {"lane_kernel [16x8192] bfloat16 x64": (4, 256),
+           "lane_kernel [16x32768] bfloat16 x16": (2, 2048),
+           "lane_kernel [128x8192] float32 x64": (4, 2048)}
+
+
+@pytest.mark.parametrize("label,s,l,itemsize,steps,strides", _LANE_LAYOUTS,
+                         ids=[c[0] for c in _LANE_LAYOUTS])
+def test_taa_lanes_form_of_every_axis_1_layout(label, s, l, itemsize, steps, strides):
+    """The three compact shapes of lane_kernel take the group form: R rows of
+    4 to 16 bytes a column whose staged [L][R] fits a block's 232,448 bytes of
+    shared memory, and column tiles of whole warps that, with the groups, fill
+    the 132 SMs about once (at [16, 8192] bf16 R = 4, whose stages and index
+    loads move 16.8 MB where R = 8 moves 21). k4 and the envelope's full
+    indices take the general form."""
+    assert len(_LANE_LAYOUTS) == 6
+    form = kernels.taa_lanes_form(strides, s, l, steps, itemsize)
+    if label not in _GROUPS:
+        assert form == ("general", 1, kernels.TAA_LANE_TILE)
+        return
+    assert form.form == "group" and (form.rows, form.tile) == _GROUPS[label]
+    assert form.rows * l * itemsize <= kernels.SMEM_BLOCK_BYTES == 232448
+    assert form.rows * itemsize in (4, 8, 16) and form.tile % 32 == 0
+    ctas = -(-s // form.rows) * -(-l // form.tile)
+    assert kernels.H100_SMS * 3 // 4 <= ctas <= kernels.H100_SMS
+
+
+@pytest.mark.parametrize("strides,s,l,steps,itemsize,form", [
+    ((0, 1, 128), 3, 128, 2, 2, ("group", 4, 32)),        # 3 rows: one group, a padded row
+    ((0, 1, 128), 1, 128, 5, 4, ("group", 1, 32)),        # one f32 row: 4 bytes a column
+    ((0, 1, 128), 1, 128, 5, 2, ("group", 2, 32)),        # one bf16 row staged as 2
+    ((0, 0, 1), 64, 128, 3, 4, ("group", 4, 32)),         # one index for every column
+    ((0, 1, 58000), 4, 58000, 2, 4, ("group", 1, 1760)),  # 232,000 B: one f32 row fits
+    ((0, 1, 58000), 4, 58000, 2, 2, ("group", 2, 896)),   # 2 bf16 rows, 232,000 B
+    ((0, 1, 60000), 4, 60000, 2, 4, ("general", 1, 1024)),  # 240,000 B a f32 row
+    ((0, 1, 70000), 2, 70000, 1, 4, ("general", 1, 1024)),  # a row above shared memory
+    ((0, 1, 2**24), 2, 2**24, 129, 4, ("general", 1, 1024)),  # offsets past 2^31
+    ((128, 1, 0), 8, 128, 1, 4, ("general", 1, 1024)),   # a full index
+    ((0, 1, 16384), 8, 16384, 64, 2, ("group", 4, 256)),  # 8 rows exceed the block
+    ((0, 1, 4096), 4, 4096, 64, 4, ("group", 2, 64)),     # 2 groups of 2 move less than 1 of 4
+    ((0, 1, 128), 16, 128, 64, 2, ("group", 8, 32)),
+])
+def test_taa_lanes_form_from_strides_and_sizes(strides, s, l, steps, itemsize, form):
+    got = kernels.taa_lanes_form(strides, s, l, steps, itemsize)
+    assert tuple(got) == form
+    assert kernels.TAA_LANES_FORMS == ("general", "group")
+
+
+def lanes_group_restated(idx, strides, tab, steps, reps, rows, tile):
+    """The group form's work in plain torch, CTA by CTA: each group of ``rows``
+    table rows staged as [L][rows] f32 (rows past S are zeros), each tile of
+    columns summed step after step, rep after rep, from zero."""
+    s, l = tab.shape
+    _, sj, sk = strides
+    flat = idx.reshape(-1).long()
+    out = torch.full((s, l), float("nan"))
+    for g0 in range(0, s, rows):
+        n = min(rows, s - g0)
+        stage = torch.zeros(l, rows)
+        stage[:, :n] = tab[g0:g0 + n].float().T
+        for j0 in range(0, l, tile):
+            j = torch.arange(j0, min(l, j0 + tile))
+            acc = torch.zeros(len(j), rows)
+            for _ in range(reps):
+                for k in range(steps):
+                    acc = acc + stage[flat[j * sj + k * sk]]
+            out[g0:g0 + n, j0:j0 + len(j)] = acc.T[:n]
+    return out
+
+
+@pytest.mark.parametrize("which", ["lane_kernel 0", "lane_kernel 1", "lane_kernel 2",
+                                   "3 bf16 rows", "5 f32 rows, 2 reps", "one index a step"])
+def test_group_form_covers_every_element_in_the_plain_order(which):
+    """The three compact cases (L cut by 64), ragged groups and repeats: the
+    group form's CTAs, at the rows and tile that ``taa_lanes_form`` picks,
+    write every element once, equal bit for bit to the plain version."""
+    if which.startswith("lane_kernel"):
+        case = [c for c in dg.forms_cases("cpu", scale=64) if c.axis == 1][int(which[-1])]
+        idx, strides, tab, steps, reps = case.idx, case.strides, case.tab, case.steps, 1
+    else:
+        rng = np.random.default_rng(len(which))
+        s, dtype, reps = {"3 bf16 rows": (3, torch.bfloat16, 1),
+                          "5 f32 rows, 2 reps": (5, torch.float32, 2),
+                          "one index a step": (6, torch.float32, 1)}[which]
+        l, steps = 200, 7
+        tab = torch.from_numpy(rng.standard_normal((s, l)).astype(np.float32)).to(dtype)
+        strides = (0, 0, 1) if which == "one index a step" else (0, 1, l)
+        idx = torch.from_numpy(rng.integers(0, l, steps * l, dtype=np.int32))
+    s, l = tab.shape
+    form = kernels.taa_lanes_form(strides, s, l, steps, tab.element_size())
+    assert form.form == "group"
+    got = lanes_group_restated(idx, strides, tab, steps, reps, form.rows, form.tile)
+    assert torch.equal(got, taa.taa_lanes_plain(idx, strides, tab, steps, reps))
+
+
+@pytest.mark.parametrize("s,l,dtype,steps,reps,aligned", chip_smoke.LANE_EDGES)
+def test_chip_smoke_edge_cases_take_the_group_form(s, l, dtype, steps, reps, aligned):
+    """The cases that chip_smoke (j) adds off the scripts' shapes (ragged row
+    groups, rows staged one value at a time) reach the group form, whose work
+    restated CTA by CTA equals the plain version bit for bit."""
+    rng = np.random.default_rng(s * l)
+    tab = torch.from_numpy(rng.standard_normal((s, l), dtype=np.float32)).to(getattr(torch, dtype))
+    idx = torch.from_numpy(rng.integers(0, l, steps * l, dtype=np.int32))
+    strides = (0, 1, l)
+    form = kernels.taa_lanes_form(strides, s, l, steps, tab.element_size())
+    assert form.form == "group"
+    assert s % form.rows or l % (16 // tab.element_size()) or not aligned  # a ragged path
+    got = lanes_group_restated(idx, strides, tab, steps, reps, form.rows, form.tile)
+    assert torch.equal(got, taa.taa_lanes_plain(idx, strides, tab, steps, reps))
+
+
+@pytest.mark.parametrize("rows,path", [(16384, "shared"), (58112, "shared"),
+                                       (58113, "global"), (1 << 17, "global")])
+def test_gather_probe_path_from_the_table_rows(rows, path):
+    """Probe A counts in shared memory while a table's int32 counts fit a
+    block's 232,448 bytes, else in device memory."""
+    assert kernels.gather_probe_path(rows) == path
+    assert kernels.GATHER_PATHS == ("shared", "global")
+
+
+@pytest.mark.parametrize("m,rows,path,blocks", [
+    (1 << 20, 16384, "shared", 64),    # the histograms hold as many ints as idx
+    (1 << 20, 1 << 17, "global", 128),  # at least 8192 ids a CTA
+    (1 << 24, 1024, "shared", 264),    # at most two CTAs an SM
+    (4096, 16384, "shared", 1), (100, 1 << 17, "global", 1)])
+def test_gather_count_blocks(m, rows, path, blocks):
+    assert kernels.gather_count_blocks(m, rows, path) == blocks
+
+
+@pytest.mark.parametrize("rows,path", [(16384, "shared"), (1 << 17, "global")])
+def test_gather_probe_passes_its_scratch_and_path(recorder, monkeypatch, rows, path):
+    """One wrapper call is one C call: with the ids and the table it passes
+    the count scratch (a histogram a count CTA on the shared path, one cleared
+    count array on the global path, then an int for the ticket and a stray-id
+    flag a count CTA), the contraction's partial rows, the output, and the
+    path's number."""
+    m, d = 1 << 20, 8
+    idx, h = fake(m, dtype=I32), fake(rows, d)
+    made = {}
+
+    def spy(real):
+        def make(*args, **kwargs):
+            t = real(*args, **kwargs)
+            made[t.data_ptr()] = (real.__name__, tuple(t.shape), t.dtype)
+            return t
+        return make
+
+    monkeypatch.setattr(torch, "empty", spy(torch.empty))
+    monkeypatch.setattr(torch, "zeros", spy(torch.zeros))
+    out = kernels.gather_probe(idx, h)
+    assert [c[0] for c in recorder] == ["gather_probe"]
+    call = recorder[0][1]
+    blocks = kernels.gather_count_blocks(m, rows, path)
+    assert call[:2] == (idx.data_ptr(), h.data_ptr()) and call[4] == out.data_ptr()
+    assert call[5:11] == (m, rows, d, blocks, kernels.GATHER_PATHS.index(path), 7000)
+    # the count arrays, then the ticket and the count CTAs' flags
+    counts = (("empty", (blocks * rows + 1 + blocks,), I32) if path == "shared"
+              else ("zeros", (rows + 1 + blocks,), I32))
+    assert made[call[2]] == counts
+    assert made[call[3]] == ("empty", (128, d), torch.float32)  # a partial row a CTA
+    assert tuple(out.shape) == (1, d) and out.dtype == torch.float32
 
 
 class FakeCuda(torch.Tensor):
@@ -188,6 +363,8 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
         assert call[12:14] == (16, 4)
     if name == "taa_rows":
         assert call[-2] == kernels.TAA_FORMS.index("row") and call[1:4] == (4, 0, 1)
+    if name == "taa_lanes":  # a compact bf16 index: 8 rows a group, tiles of 32 columns
+        assert call[-4:-1] == (kernels.TAA_LANES_FORMS.index("group"), 8, 32)
 
 
 @pytest.mark.parametrize("fault", ["device", "dtype", "contiguity", "shape"])
@@ -353,3 +530,11 @@ def test_kernel_1_planes_follow_the_type_of_h():
         assert kernels.bsr_mma_width(torch.float32, 256, 9, 41, h_dtype) is None
     with pytest.raises(TypeError):
         kernels.bsr_mma_width(torch.bfloat16, 256, 9, 41, torch.float16)
+
+
+def test_a_full_index_reaches_the_general_form_of_taa_lanes(recorder):
+    _, args = _valid()["taa_lanes"]
+    s, l = args["tab"].shape
+    args.update(idx=fake(s, l, dtype=I32), strides=(l, 1, 0), steps=1)
+    kernels.taa_lanes(**args)
+    assert recorder[0][1][-4:-1] == (0, 1, kernels.TAA_LANE_TILE)
