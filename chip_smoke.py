@@ -53,8 +53,12 @@ Phases, each of which raises (exit code not 0) when it fails:
 (j) the take-along-axis probes (``python -m cuda_gcn_torch.probes.taa`` and
     ``probes.dyngather``) at every shape, type and step count of the TPU
     scripts: the two gather kernels bitwise equal to their plain versions, the
-    column scan and the piece within √S · epsilon · max|cs| of theirs and
-    bitwise equal across two runs; each case's time beside its plain version,
+    column scan and the piece within √S · epsilon · max|cs| of theirs, bitwise
+    equal across two runs and to the order of additions that
+    ``taa.scan_order_plain`` restates, one CUDA launch a call each (a profiler
+    trace in a process of its own), and so at ``SCAN_EDGES``
+    (ragged rows and widths, 2^20 + 3 rows in waves, an unaligned table,
+    boundaries in any order); each case's time beside its plain version,
     a PyTorch library call where one computes the same function, and its bound;
     device time and host time per call of every case and of its library call,
     taken in turns, and for the gathers the time of their loads from the memory
@@ -1389,6 +1393,7 @@ def phase_taa_probes(errs):
             + " on the device")
 
     # the scans: tolerance √S · epsilon · max|cs| per rep, same bits on two runs
+    # and as the kernels' order restated (taa.scan_order_plain)
     ref64 = torch.cumsum(tab.double(), 0)
     got, want = taa.cumsum_probe(tab, reps), taa.cumsum_probe_plain(tab, reps)
     tol = taa.scan_tolerance(float(ref64.abs().max()), s, reps)
@@ -1400,6 +1405,7 @@ def phase_taa_probes(errs):
         f"{float((torch.cumsum(tab, 0) - ref64).abs().max()):.3e}")
     if not err <= tol or not torch.equal(got, taa.cumsum_probe(tab, reps)):
         raise AssertionError("cumsum_cols disagrees with its plain version or itself")
+    _scan_order_check(tab, ids, coef, begin, end, reps)
     record("cumsum_cols", f"C [{s}x{taa.LANES}] f32 x{reps} reps", res["C"]["ms"],
            cuda_ms(lambda: taa.cumsum_probe_plain(tab, reps), 5),
            cuda_ms(lambda: torch.cumsum(tab, 0), 10), "cumsum (one scan, no repeats)",
@@ -1426,7 +1432,168 @@ def phase_taa_probes(errs):
     for name in ("A2", "C", "D", "X"):
         log(f"    {name}: {res[name]['ms']:.4f} ms = {res[name]['ns_per_row']:.3f} ns/row "
             f"over {res[name]['rows']} rows")
+    for kernel, row in _scan_launches(s, reps).items():
+        out[kernel].update(row)
+    _scan_edges()
     return out
+
+
+SCAN_TRACE_TRIES = 3
+
+
+def _kernel_records(fn) -> dict:
+    """{kernel name: [records, device us]} of the kernels that torch.profiler
+    saw in ``PROFILED_CALLS`` calls of ``fn`` (no user annotations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if (dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", ""))
+                and not getattr(evt, "is_user_annotation", False)):
+            out[evt.key] = [evt.count, dev_us]
+    return out
+
+
+def _scan_trace(s: int, reps: int) -> None:
+    """Prints, as one JSON line, ``_kernel_records`` of each scan's wrapper on
+    ``taa.make_inputs(s)``, ``reps`` reps: the traces taken, up to
+    ``SCAN_TRACE_TRIES``, until one kept a whole number of records a call of
+    every kernel. ``_scan_launches`` runs it in a process of its own."""
+    import torch
+
+    from cuda_gcn_torch.probes import taa
+
+    x = taa.make_inputs(s, device="cuda")
+    tab, ids, coef, begin, end = (x[k] for k in ("tab", "ids", "coef", "begin", "end"))
+    got = {}
+    for kernel, fn in (("cumsum_cols", lambda: taa.cumsum_probe(tab, reps)),
+                       ("piece", lambda: taa.piece_probe(ids, coef, begin, end, tab, reps))):
+        fn()
+        torch.cuda.synchronize()
+        got[kernel] = []
+        while len(got[kernel]) < SCAN_TRACE_TRIES:
+            got[kernel].append(_kernel_records(fn))
+            if all(n % PROFILED_CALLS == 0 for n, _ in got[kernel][-1].values()):
+                break
+    print(json.dumps(got), flush=True)
+
+
+def _scan_launches(s: int, reps: int) -> dict:
+    """(j): the kernels that one call of each scan's wrapper runs on the card,
+    by name, from a profiler trace of ``PROFILED_CALLS`` calls (``_scan_trace``,
+    in a process of its own: late in a full run a trace in this process has
+    kept 12-14 of 20 records). Fails unless the last trace holds one kernel
+    with exactly ``PROFILED_CALLS`` records: one CUDA launch a call."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c",
+                          f"import chip_smoke; chip_smoke._scan_trace({s}, {reps})"],
+                         cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode:
+        raise AssertionError(f"the scans' trace: rc {res.returncode}\n{res.stderr[-4000:]}")
+    out = {}
+    for kernel, traces in json.loads(res.stdout.strip().splitlines()[-1]).items():
+        for i, split in enumerate(traces):
+            log(f"  {kernel}, trace {i + 1} of {PROFILED_CALLS} calls: "
+                + "; ".join(f"{name}: {n} records, {us / max(n, 1):.2f} us each"
+                            for name, (n, us) in split.items()))
+        last = list(traces[-1].values())
+        if len(last) != 1 or last[0][0] != PROFILED_CALLS:
+            raise AssertionError(f"{kernel}: the last trace did not hold one kernel with "
+                                 f"{PROFILED_CALLS} records in {PROFILED_CALLS} calls: "
+                                 f"{traces[-1]}")
+        log(f"  {kernel}: one CUDA launch a call")
+        out[kernel] = {"cuda_launches_per_call": 1}
+    return out
+
+
+def _scan_order_check(tab, ids, coef, begin, end, reps: int, label: str = "") -> None:
+    """Both scan kernels equal, bit for bit, the order of additions that
+    ``taa.scan_order_plain`` restates: the fixed order is what makes them
+    repeat their bits."""
+    import torch
+
+    from cuda_gcn_torch.probes import taa
+
+    s, l = tab.shape
+    order = taa._repeat_add(taa.scan_order_plain(tab), reps)
+    vals = tab[ids.reshape(-1).long()] * coef.reshape(-1, 1)
+    cs = torch.cat([torch.zeros(1, l, device=tab.device), taa.scan_order_plain(vals)])
+    piece = taa._repeat_add(cs[end.reshape(-1).long()] - cs[begin.reshape(-1).long()], reps)
+    for kernel, got, want in (("cumsum_cols", taa.cumsum_probe(tab, reps), order),
+                              ("piece", taa.piece_probe(ids, coef, begin, end, tab, reps),
+                               piece)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kernel} {label}[{s}x{l}]: not the order of scan_order_plain "
+                                 f"(max abs difference {float((got - want).abs().max()):.3e})")
+
+
+# The scans off the scripts' shape: (S, L, reps, table 16-byte aligned). S of
+# one row, less than a chunk of 128 and one past half of it, at widths of one
+# value, 4 columns that are no whole 16-byte load, a tile less one, one tile,
+# and one tile plus a part; past the rows the card holds at once (the chunk
+# loop, in waves); tables off a 16-byte boundary (one value at a time).
+SCAN_EDGES = tuple((s, l, 1 + 2 * (i % 2), True) for i, (s, l) in enumerate(
+    [(s, l) for s in (1, 63, 65) for l in (1, 5, 127, 128, 333)])) + (
+    ((1 << 20) + 3, 128, 3, True), (16384, 128, 3, False), (65, 333, 1, False))
+
+
+def _scan_boundaries(s: int, rng):
+    """begin and end in [0, S] in no order: empty segments (begin == end),
+    whole scans (0, S), end == S on the last row, and begin > end."""
+    begin = rng.integers(0, s + 1, s).astype("int32")
+    end = rng.integers(0, s + 1, s).astype("int32")
+    end[-1] = s
+    begin[1::7], end[1::7] = 0, s
+    end[::5] = begin[::5]
+    return begin, end
+
+
+def _scan_edges() -> None:
+    """(j), ``SCAN_EDGES``: both scans within ``taa.scan_tolerance`` of their
+    plain versions, the same bits on two calls and equal to the restated order."""
+    import numpy as np
+    import torch
+
+    from cuda_gcn_torch.probes import taa
+
+    rng = np.random.default_rng(13)
+    for s, l, reps, aligned in SCAN_EDGES:
+        buf = torch.empty(s * l + 4, device="cuda")
+        tab = (buf[:s * l] if aligned else buf[1:1 + s * l]).view(s, l)
+        tab.copy_(torch.from_numpy(rng.standard_normal((s, l), dtype=np.float32)))
+        ids = torch.from_numpy(rng.integers(0, s, (s, 1), dtype=np.int32)).cuda()
+        coef = torch.from_numpy(rng.random((s, 1), dtype=np.float32)).cuda()
+        begin, end = (torch.from_numpy(a[:, None]).cuda() for a in _scan_boundaries(s, rng))
+        errs = []
+        for kernel, fn, plain, cs_max in (
+                ("cumsum_cols", lambda: taa.cumsum_probe(tab, reps),
+                 lambda: taa.cumsum_probe_plain(tab, reps),
+                 lambda: float(torch.cumsum(tab.double(), 0).abs().max())),
+                ("piece", lambda: taa.piece_probe(ids, coef, begin, end, tab, reps),
+                 lambda: taa.piece_probe_plain(ids, coef, begin, end, tab, reps),
+                 lambda: float(taa.piece_scan(ids, coef, tab).abs().max()))):
+            got = fn()
+            tol = taa.scan_tolerance(cs_max(), s, reps)
+            err = float((got - plain()).abs().max())
+            if not err <= tol or not torch.equal(got, fn()):
+                raise AssertionError(f"{kernel} [{s}x{l}] x{reps} reps (table "
+                                     f"{'aligned' if aligned else 'off 16 bytes'}): error "
+                                     f"{err:.3e} against {tol:.3e}, or not the same bits twice")
+            errs.append(f"{kernel} {err:.3e} (tol {tol:.3e})")
+        _scan_order_check(tab, ids, coef, begin, end, reps, "edge ")
+        log(f"  scans [{s}x{l}] x{reps} reps, table {'aligned' if aligned else 'off 16 bytes'}: "
+            + ", ".join(errs) + "; the same bits twice and as scan_order_plain")
 
 
 # taa_lanes' group form off the scripts' shapes: (S, L, dtype, steps, reps,

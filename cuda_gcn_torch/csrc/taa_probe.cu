@@ -72,25 +72,48 @@
 // in f32, and every rep reads the table again (a compiler barrier keeps the
 // loads inside the loop): the probes time gathers, not additions.
 //
-// cumsum_cols and piece share one three-pass scan: per (chunk of 64 rows,
-// column) a thread adds its chunk's values; one thread per column turns the
-// chunk totals into exclusive offsets, in chunk order; then each thread scans
-// its chunk from its offset and writes. One writer per element and a fixed
-// order of additions: no atomics, the same bits on every run. The scan is
-// taken once per launch and the last addition repeated `reps` times in order,
-// which for finite inputs is what the TPU loops compute (cumsum_kernel's
-// `tab + acc * 0` only differs when acc holds an infinity or a NaN, and that
-// is not reproduced). piece scans the gathered, scaled values (product and
-// sums rounded apart) into a scratch scan with a leading zero row, and a last
-// kernel reads the two boundary rows.
+// cumsum_cols and piece are one cooperative launch each, of one scan body
+// (scan_kernel). The table is cut into tiles of 128 rows (a chunk) by 128
+// columns; a CTA of 16 warps takes a tile, each warp 8 rows, each lane 4
+// columns (one 16-byte load a row where L % 4 == 0 and the pointers are
+// 16-byte aligned, else 4 values a warp apart). The tile's values are read
+// once, all of a warp's loads in flight together, and stay in registers until
+// they are written: each warp scans its 8 rows, the warp totals go through
+// shared memory and give each warp its offset within the chunk, and the
+// chunk's total is published to a scratch array. One grid-wide barrier; then
+// every CTA reads the totals of the chunks before its own in one round trip
+// into shared memory, adds them up and writes. The order of additions is
+// fixed and does not depend on the grid: row after row within a warp, warp
+// totals in order, and the chunk totals as one left fold from 0
+// (probes.taa.scan_order_plain restates it). No atomics: the same bits on
+// every run. The grid holds what the card keeps resident (occupancy times
+// SMs, 128 CTAs at the probes' [16384, 128]); a larger table goes in waves of
+// that many tiles, each wave with its barrier, and the fold's running value
+// crosses from one wave to the next through two scratch rows a column tile,
+// used in turns. Rows are ints and chunks times column tiles below 2^31. The
+// scan is taken once per launch and the last addition repeated `reps` times
+// in order, all of a thread's values side by side so that the additions do
+// not wait on each other; for finite inputs that is what the TPU loops
+// compute (cumsum_kernel's `tab + acc * 0` only differs when acc holds an
+// infinity or a NaN, and that is not reproduced). piece gathers its rows in
+// the same single read (tab[ids[i]] * coef[i], the product rounded apart from
+// the sums), writes the scan with a leading zero row into an [S+1, L] scratch
+// (L2 holds it at the probes' 8 MB), and after one more grid barrier the same
+// launch reads the two boundary rows of each output row, 8 rows in flight a
+// warp; begin and end may be any values in [0, S], in any order. A launch
+// that the card refuses returns its error; nothing falls back. What is left
+// above the bytes bound: the whole table is read before any of it is written
+// (the barrier between), and piece reads its scan back from L2.
 //
 // Bound on the H100: bytes for all four (each input read once, out written
 // once); the gathers are served mostly from L2.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -98,8 +121,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLaneTile = 1024;           // columns per CTA of taa_lanes
 constexpr int kMaxStageBytes = 200 << 10; // largest table row staged in shared memory
-constexpr int kScanRows = 64;             // rows per scan chunk
-constexpr int kScanThreads = 128;         // columns per scan CTA
+constexpr int kScanWarps = 16;                     // warps a scan CTA
+constexpr int kScanThreads = 32 * kScanWarps;
+constexpr int kWarpRows = 8;                       // rows a warp scans in registers
+constexpr int kScanRows = kScanWarps * kWarpRows;  // rows a chunk (kernels.SCAN_CHUNK_ROWS)
+constexpr int kScanCols = 128;                     // columns a tile, 4 a lane (SCAN_TILE_COLS)
+constexpr int kFoldChunks = 128;                   // chunk totals staged at once for the fold
+constexpr int kStageBytes = kFoldChunks * kScanCols * 4;  // dynamic shared memory
+constexpr int kDiffBatch = 8;                      // piece: boundary rows in flight a warp
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -359,87 +389,270 @@ taa_lanes_group_kernel(const int* __restrict__ idx, int sj, int sk, const void* 
   }
 }
 
-// the scanned values: a table, or gathered rows of it scaled per row
-struct TableSource {
+// what a scan launch reads and writes; totals is scratch: [col_tiles][chunks]
+// rows of kScanCols chunk totals, then [2][col_tiles] rows of the fold's
+// running value between waves
+struct ScanParams {
   const float* tab;
-  int l;
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    return tab[(int64_t)i * l + j];
-  }
-};
-
-struct PieceSource {
-  const float* tab;
-  const int* ids;
+  const int* ids;     // piece: the gathered rows, their scales and boundaries
   const float* coef;
-  int l;
-  __device__ __forceinline__ float operator()(int i, int j) const {
-    return __fmul_rn(tab[(int64_t)ids[i] * l + j], coef[i]);
-  }
+  const int* begin;
+  const int* end;
+  float* out;         // [s, l]
+  float* cs;          // piece: [s + 1, l], the scan after a zero row
+  float* totals;
+  int s, l, chunks, col_tiles, reps;
 };
 
-// totals[c, j] = sum of the values of chunk c in column j, in row order
-template <class Src>
-__global__ void __launch_bounds__(kScanThreads)
-scan_totals_kernel(Src src, float* __restrict__ totals, int s, int l) {
-  const int j = blockIdx.x * kScanThreads + threadIdx.x;
-  if (j >= l) return;
-  const int r0 = blockIdx.y * kScanRows, r1 = min(s, r0 + kScanRows);
-  float sum = 0.f;
-#pragma unroll 8
-  for (int i = r0; i < r1; ++i) sum += src(i, j);
-  totals[(int64_t)blockIdx.y * l + j] = sum;
+// the column of its tile that value k of a lane holds: 4 neighbours (one
+// 16-byte load) or 4 columns a warp apart (one value at a time)
+template <bool kVec>
+__device__ __forceinline__ int lane_col(int lane, int k) {
+  return kVec ? 4 * lane + k : lane + 32 * k;
 }
 
-// in place: totals[c, j] -> sum of totals[c' < c, j], in chunk order
-__global__ void __launch_bounds__(kScanThreads)
-scan_offsets_kernel(float* totals, int chunks, int l) {
-  const int j = blockIdx.x * kScanThreads + threadIdx.x;
-  if (j >= l) return;
-  float run = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < chunks; ++c) {
-    float* p = totals + (int64_t)c * l + j;
-    const float t = *p;
-    *p = run;
-    run += t;
+// a lane's 4 values of a row of a tile that has ncols columns (0 past them);
+// kL2: data written earlier in the same launch, read through L2 only
+template <bool kVec, bool kL2>
+__device__ __forceinline__ void load_cols(const float* row, int ncols, int lane, float (&x)[4]) {
+  if constexpr (kVec) {
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (4 * lane < ncols) {
+      const float4* at = reinterpret_cast<const float4*>(row) + lane;
+      t = kL2 ? __ldcg(at) : __ldg(at);
+    }
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = lane + 32 * k;
+      x[k] = c < ncols ? (kL2 ? __ldcg(row + c) : __ldg(row + c)) : 0.f;
+    }
   }
 }
 
-// out[lead + i, j] = reps additions of (offset of i's chunk + the chunk's
-// values up to and including row i); with lead = 1, row 0 is written 0
-template <class Src>
-__global__ void __launch_bounds__(kScanThreads)
-scan_write_kernel(Src src, const float* __restrict__ offsets, float* __restrict__ out, int s,
-                  int l, int reps, int lead) {
-  const int j = blockIdx.x * kScanThreads + threadIdx.x;
-  if (j >= l) return;
-  const int r0 = blockIdx.y * kScanRows, r1 = min(s, r0 + kScanRows);
-  if (lead && blockIdx.y == 0) out[j] = 0.f;
-  float run = offsets[(int64_t)blockIdx.y * l + j];
-#pragma unroll 8
-  for (int i = r0; i < r1; ++i) {
-    run += src(i, j);
-    float acc = 0.f;
-    for (int r = 0; r < reps; ++r) acc += run;
-    out[(int64_t)(i + lead) * l + j] = acc;
+template <bool kVec>
+__device__ __forceinline__ void store_cols(float* row, int ncols, int lane, const float (&x)[4]) {
+  if constexpr (kVec) {
+    if (4 * lane < ncols) reinterpret_cast<float4*>(row)[lane] = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (lane + 32 * k < ncols) row[lane + 32 * k] = x[k];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-piece_diff_kernel(const float* __restrict__ cs, const int* __restrict__ begin,
-                  const int* __restrict__ end, float* __restrict__ out, int l, int reps,
-                  int64_t total) {
-  const int64_t t = blockIdx.x * (int64_t)kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int64_t i = t / l;
-  const int j = (int)(t - i * l);
-  const float diff = cs[(int64_t)end[i] * l + j] - cs[(int64_t)begin[i] * l + j];
-  float acc = 0.f;
-  for (int r = 0; r < reps; ++r) acc += diff;
-  out[t] = acc;
+// x[n][4] -> reps additions of each value from 0, in order; the n * 4 chains
+// go side by side, one addition of each a step
+template <int N>
+__device__ __forceinline__ void repeat_add(float (&x)[N][4], int reps) {
+  float acc[N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[n][k] = 0.f;
+  for (int r = 0; r < reps; ++r)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[n][k] += x[n][k];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[n][k] = acc[n][k];
 }
 
+// cumsum_cols (kPiece false): out = reps additions of the inclusive scan of
+// tab; piece: cs = [0; scan of tab[ids] * coef], then out = reps additions of
+// cs[end] - cs[begin]. Tile t is (column tile t / chunks, chunk t % chunks);
+// wave w takes tiles w * gridDim.x + blockIdx.x.
+template <bool kPiece, bool kVec>
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const ScanParams p) {
+  __shared__ float warp_tot[kScanWarps][kScanCols];  // each warp's total
+  __shared__ float warp_off[kScanWarps][kScanCols];  // the totals of the warps before it
+  __shared__ float chunk_tot[kScanCols], chunk_off[kScanCols];
+  extern __shared__ __align__(16) unsigned char stage_bytes[];
+  float* stage = reinterpret_cast<float*>(stage_bytes);  // [kFoldChunks][kScanCols] totals
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
+  const int tiles = p.chunks * p.col_tiles, nb = gridDim.x;
+  const int waves = (tiles + nb - 1) / nb;
+  float* run = p.totals + (size_t)tiles * kScanCols;
+  for (int w = 0; w < waves; ++w) {
+    const int t = w * nb + blockIdx.x;
+    const bool live = t < tiles;  // the same for the whole CTA
+    const int ct = live ? t / p.chunks : 0;
+    const int c = t - ct * p.chunks;
+    const int ncols = p.l - ct * kScanCols;
+    const int r0 = c * kScanRows + warp * kWarpRows;
+    float v[kWarpRows][4];
+    if (live) {
+      // the warp's rows (for piece, lane u reads row u's id and scale): every
+      // load in flight before the first addition
+      int id = -1;
+      float coef = 0.f;
+      if (kPiece && lane < kWarpRows && r0 + lane < p.s) {
+        id = __ldg(p.ids + r0 + lane);
+        coef = __ldg(p.coef + r0 + lane);
+      }
+      int src[kWarpRows];
+      float scale[kWarpRows];
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+        src[u] = kPiece ? __shfl_sync(~0u, id, u) : r0 + u < p.s ? r0 + u : -1;
+        scale[u] = kPiece ? __shfl_sync(~0u, coef, u) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+        if (src[u] >= 0) {
+          load_cols<kVec, false>(p.tab + (size_t)src[u] * p.l + ct * kScanCols, ncols, lane, v[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[u][k] = 0.f;
+        }
+      }
+      if constexpr (kPiece) {
+#pragma unroll
+        for (int u = 0; u < kWarpRows; ++u)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[u][k] = __fmul_rn(v[u][k], scale[u]);
+      }
+#pragma unroll
+      for (int u = 1; u < kWarpRows; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[u][k] = v[u - 1][k] + v[u][k];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) warp_tot[warp][lane_col<kVec>(lane, k)] = v[kWarpRows - 1][k];
+      __syncthreads();
+      if (tid < kScanCols) {
+        float acc = warp_tot[0][tid];
+#pragma unroll
+        for (int q = 1; q < kScanWarps; ++q) {
+          warp_off[q][tid] = acc;
+          acc = acc + warp_tot[q][tid];
+        }
+        chunk_tot[tid] = acc;
+        __stcg(p.totals + (size_t)t * kScanCols + tid, acc);
+      }
+      __syncthreads();
+      if (warp > 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float off = warp_off[warp][lane_col<kVec>(lane, k)];
+#pragma unroll
+          for (int u = 0; u < kWarpRows; ++u) v[u][k] = off + v[u][k];
+        }
+      }
+    }
+    grid.sync();
+    if (live) {
+      // the chunk's offset: the fold up to the tile's first chunk in this wave
+      // (0, or what the wave before left), then the totals of the chunks
+      // between it and this one, in order
+      const int first = max(w * nb, ct * p.chunks) - ct * p.chunks;
+      float off = 0.f;
+      if (tid < kScanCols && first > 0)
+        off = __ldcg(run + ((size_t)((w - 1) & 1) * p.col_tiles + ct) * kScanCols + tid);
+      for (int c0 = first; c0 < c; c0 += kFoldChunks) {
+        const int m = min(kFoldChunks, c - c0);
+        const float4* from =
+            reinterpret_cast<const float4*>(p.totals + ((size_t)ct * p.chunks + c0) * kScanCols);
+        float4* to = reinterpret_cast<float4*>(stage);
+        float4 in[kStageBytes / 16 / kScanThreads];
+#pragma unroll
+        for (int q = 0; q < kStageBytes / 16 / kScanThreads; ++q) {
+          const int e = tid + q * kScanThreads;
+          if (e < m * (kScanCols / 4)) in[q] = __ldcg(from + e);
+        }
+#pragma unroll
+        for (int q = 0; q < kStageBytes / 16 / kScanThreads; ++q) {
+          const int e = tid + q * kScanThreads;
+          if (e < m * (kScanCols / 4)) to[e] = in[q];
+        }
+        __syncthreads();
+        if (tid < kScanCols) {
+          int q = 0;
+#pragma unroll 8
+          for (; q < m; ++q) off = off + stage[q * kScanCols + tid];
+        }
+        __syncthreads();
+      }
+      if (tid < kScanCols) {
+        chunk_off[tid] = off;
+        if (c + 1 < p.chunks && t + 1 == (w + 1) * nb)  // the wave ends inside the column tile
+          __stcg(run + ((size_t)(w & 1) * p.col_tiles + ct) * kScanCols + tid, off + chunk_tot[tid]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float off = chunk_off[lane_col<kVec>(lane, k)];
+#pragma unroll
+        for (int u = 0; u < kWarpRows; ++u) v[u][k] = off + v[u][k];
+      }
+      if (!kPiece) repeat_add(v, p.reps);
+#pragma unroll
+      for (int u = 0; u < kWarpRows; ++u) {
+        const int row = r0 + u;
+        if (row >= p.s) break;
+        float* dst = (kPiece ? p.cs + (size_t)(row + 1) * p.l : p.out + (size_t)row * p.l) +
+                     ct * kScanCols;
+        store_cols<kVec>(dst, ncols, lane, v[u]);
+      }
+      if (kPiece && c == 0 && warp == 0) {
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+        store_cols<kVec>(p.cs + ct * kScanCols, ncols, lane, zero);
+      }
+    }
+  }
+  if constexpr (kPiece) {
+    grid.sync();
+    // out[i] = reps additions of cs[end[i]] - cs[begin[i]]: each warp a
+    // contiguous run of (row, column tile) items; lane q reads the row and
+    // boundaries of item q of each 32, then kDiffBatch items' rows are in
+    // flight at once
+    const long long items = (long long)p.s * p.col_tiles;
+    const long long warps = (long long)nb * kScanWarps;
+    const long long per = (items + warps - 1) / warps;
+    const long long i0 = ((long long)blockIdx.x * kScanWarps + warp) * per;
+    const long long i1 = min(items, i0 + per);
+    for (long long g0 = i0; g0 < i1; g0 += 32) {
+      int my_row = -1, my_ct = 0, my_e = 0, my_b = 0;
+      if (g0 + lane < i1) {
+        my_row = (int)((g0 + lane) / p.col_tiles);
+        my_ct = (int)(g0 + lane - (long long)my_row * p.col_tiles);
+        my_e = __ldg(p.end + my_row);
+        my_b = __ldg(p.begin + my_row);
+      }
+      const int n = (int)min(32LL, i1 - g0);
+      for (int q0 = 0; q0 < n; q0 += kDiffBatch) {
+        int row[kDiffBatch], cti[kDiffBatch];
+        float d[kDiffBatch][4], lo[kDiffBatch][4];
+#pragma unroll
+        for (int q = 0; q < kDiffBatch; ++q) {
+          row[q] = __shfl_sync(~0u, my_row, q0 + q);
+          cti[q] = __shfl_sync(~0u, my_ct, q0 + q);
+          const int e = __shfl_sync(~0u, my_e, q0 + q), b = __shfl_sync(~0u, my_b, q0 + q);
+          if (row[q] < 0) continue;
+          const int nc = p.l - cti[q] * kScanCols;
+          const float* base = p.cs + cti[q] * kScanCols;
+          load_cols<kVec, true>(base + (size_t)e * p.l, nc, lane, d[q]);
+          load_cols<kVec, true>(base + (size_t)b * p.l, nc, lane, lo[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < kDiffBatch; ++q)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) d[q][k] = d[q][k] - lo[q][k];
+        repeat_add(d, p.reps);
+#pragma unroll
+        for (int q = 0; q < kDiffBatch; ++q)
+          if (row[q] >= 0)
+            store_cols<kVec>(p.out + (size_t)row[q] * p.l + cti[q] * kScanCols,
+                             p.l - cti[q] * kScanCols, lane, d[q]);
+      }
+    }
+  }
+}
 constexpr int kFormGeneral = 0, kFormRow = 1;  // kernels.TAA_FORMS
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
@@ -542,21 +755,46 @@ cudaError_t launch_lanes(const int* idx, int64_t si, int64_t sj, int64_t sk, con
   return cudaGetLastError();
 }
 
-// the three scan passes over `src`; totals is [chunks, l] scratch
-template <class Src>
-cudaError_t launch_scan(Src src, float* totals, float* out, int s, int l, int reps, int lead,
-                        cudaStream_t stream) {
-  const int chunks = (s + kScanRows - 1) / kScanRows;
-  const int col_blocks = (l + kScanThreads - 1) / kScanThreads;
-  const dim3 grid(col_blocks, chunks);
-  scan_totals_kernel<Src><<<grid, kScanThreads, 0, stream>>>(src, totals, s, l);
-  cudaError_t err = cudaGetLastError();
+// one cooperative launch of the scan: as many CTAs as there are tiles, at
+// most as many as the card holds at once (read once a device)
+template <bool kPiece, bool kVec>
+cudaError_t launch_scan_kernel(ScanParams p, cudaStream_t stream) {
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  scan_offsets_kernel<<<col_blocks, kScanThreads, 0, stream>>>(totals, chunks, l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_write_kernel<Src><<<grid, kScanThreads, 0, stream>>>(src, totals, out, s, l, reps, lead);
-  return cudaGetLastError();
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(scan_kernel<kPiece, kVec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<kPiece, kVec>,
+                                                          kScanThreads, kStageBytes);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  const int blocks = std::min(p.chunks * p.col_tiles, resident[dev]);
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(scan_kernel<kPiece, kVec>),
+                                     dim3(blocks), dim3(kScanThreads), args, kStageBytes,
+                                     stream);
+}
+
+// the tiles of an [s, l] scan, the load width, and the checks the launcher
+// made too (a refusal is a fault of the caller); totals must be 16-byte aligned
+cudaError_t launch_scan(ScanParams p, bool piece, cudaStream_t stream) {
+  if (p.s < 1 || p.l < 1 || p.reps < 1 || !aligned(p.totals, 16)) return cudaErrorInvalidValue;
+  p.chunks = (p.s + kScanRows - 1) / kScanRows;
+  p.col_tiles = (p.l + kScanCols - 1) / kScanCols;
+  if ((int64_t)p.chunks * p.col_tiles >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  const bool vec = p.l % 4 == 0 && aligned(p.tab, 16) && aligned(p.out, 16) &&
+                   (!piece || aligned(p.cs, 16));
+  if (piece)
+    return vec ? launch_scan_kernel<true, true>(p, stream) : launch_scan_kernel<true, false>(p, stream);
+  return vec ? launch_scan_kernel<false, true>(p, stream) : launch_scan_kernel<false, false>(p, stream);
 }
 
 }  // namespace
@@ -590,25 +828,26 @@ extern "C" int taa_lanes(const void* idx, int64_t si, int64_t sj, int64_t sk, co
 
 extern "C" int cumsum_cols(const void* tab, void* out, void* totals, int s, int l, int reps,
                            void* stream) {
-  const TableSource src{static_cast<const float*>(tab), l};
-  return static_cast<int>(launch_scan(src, static_cast<float*>(totals),
-                                      static_cast<float*>(out), s, l, reps, 0,
-                                      static_cast<cudaStream_t>(stream)));
+  ScanParams p{};
+  p.tab = static_cast<const float*>(tab);
+  p.out = static_cast<float*>(out);
+  p.totals = static_cast<float*>(totals);
+  p.s = s, p.l = l, p.reps = reps;
+  return static_cast<int>(launch_scan(p, false, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int piece(const void* ids, const void* coef, const void* begin, const void* end,
                      const void* tab, void* out, void* cs, void* totals, int s, int l,
                      int reps, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  const PieceSource src{static_cast<const float*>(tab), static_cast<const int*>(ids),
-                        static_cast<const float*>(coef), l};
-  const cudaError_t err = launch_scan(src, static_cast<float*>(totals),
-                                      static_cast<float*>(cs), s, l, 1, 1, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = (int64_t)s * l;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  piece_diff_kernel<<<blocks, kThreads, 0, st>>>(
-      static_cast<const float*>(cs), static_cast<const int*>(begin),
-      static_cast<const int*>(end), static_cast<float*>(out), l, reps, total);
-  return static_cast<int>(cudaGetLastError());
+  ScanParams p{};
+  p.tab = static_cast<const float*>(tab);
+  p.ids = static_cast<const int*>(ids);
+  p.coef = static_cast<const float*>(coef);
+  p.begin = static_cast<const int*>(begin);
+  p.end = static_cast<const int*>(end);
+  p.out = static_cast<float*>(out);
+  p.cs = static_cast<float*>(cs);
+  p.totals = static_cast<float*>(totals);
+  p.s = s, p.l = l, p.reps = reps;
+  return static_cast<int>(launch_scan(p, true, static_cast<cudaStream_t>(stream)));
 }

@@ -494,10 +494,14 @@ def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
 
 
 # taa_lanes puts the table's rows (or row groups) on the grid's second
-# dimension, the scans their row chunks (csrc/taa_probe.cu).
+# dimension. The scans cut the table into tiles of SCAN_CHUNK_ROWS rows (a
+# chunk, 8 a warp) by SCAN_TILE_COLS columns (csrc/taa_probe.cu), whose ints
+# hold piece's S + 1 rows and the count of tiles: both below SCAN_INT_LIMIT.
 TAA_LANES_MAX_ROWS = 65535
-SCAN_CHUNK_ROWS = 64
-SCAN_MAX_ROWS = 65535 * SCAN_CHUNK_ROWS
+SCAN_CHUNK_ROWS = 128
+SCAN_WARP_ROWS = 8
+SCAN_TILE_COLS = 128
+SCAN_INT_LIMIT = 2**31
 # The forms of taa_rows (csrc/taa_probe.cu), by their number in the C interface.
 TAA_FORMS = ("general", "row")
 
@@ -617,13 +621,22 @@ def taa_lanes(idx, strides, tab, steps: int = 1, reps: int = 1) -> torch.Tensor:
 
 
 def _scan_totals(s: int, l: int, device) -> torch.Tensor:
-    if s > SCAN_MAX_ROWS:
-        raise ValueError(f"the column scan takes at most {SCAN_MAX_ROWS} rows, got {s}")
-    return torch.empty(-(-s // SCAN_CHUNK_ROWS), l, dtype=torch.float32, device=device)
+    """The scans' scratch: a row of SCAN_TILE_COLS totals for each (column
+    tile, chunk), then two rows a column tile that carry the fold's running
+    value from one wave of tiles to the next. Raises for a table past the
+    kernel's ints (``SCAN_INT_LIMIT``)."""
+    chunks, tiles = -(-s // SCAN_CHUNK_ROWS), -(-l // SCAN_TILE_COLS)
+    if s + 1 >= SCAN_INT_LIMIT or chunks * tiles >= SCAN_INT_LIMIT:
+        raise ValueError(f"the column scans take fewer than {SCAN_INT_LIMIT - 1} rows and "
+                         f"{SCAN_INT_LIMIT} tiles of {SCAN_CHUNK_ROWS}x{SCAN_TILE_COLS}, "
+                         f"got [{s}, {l}]")
+    return torch.empty((chunks + 2) * tiles, SCAN_TILE_COLS, dtype=torch.float32, device=device)
 
 
 def cumsum_cols(tab, reps: int = 1) -> torch.Tensor:
-    """Launch the column scan: ``reps`` additions of cumsum(tab, axis 0), [S, L] f32."""
+    """Launch the column scan: ``reps`` additions of cumsum(tab, axis 0), [S, L]
+    f32, in one cooperative launch (the order of its additions is
+    ``probes.taa.scan_order_plain``'s)."""
     dev = _on_cuda(tab, "cumsum_cols")
     _check(tab, "tab", torch.float32, dev)
     if tab.dim() != 2 or reps < 1:
@@ -640,9 +653,11 @@ def cumsum_cols(tab, reps: int = 1) -> torch.Tensor:
 
 def piece(ids, coef, begin, end, tab, reps: int = 1) -> torch.Tensor:
     """Launch the piece: with cs = [0; cumsum(tab[ids]·coef, axis 0)], ``reps``
-    additions of cs[end] − cs[begin], [S, L] f32. ``ids``, ``begin``, ``end``
-    (int32) and ``coef`` (f32) hold S values each; ids lie in [0, S), begin and
-    end in [0, S] (the kernel does not check them)."""
+    additions of cs[end] − cs[begin], [S, L] f32, in one cooperative launch:
+    the scan in ``cumsum_cols``' order into an [S+1, L] scratch, a grid
+    barrier, then the boundary rows. ``ids``, ``begin``, ``end`` (int32) and
+    ``coef`` (f32) hold S values each; ids lie in [0, S), begin and end in
+    [0, S], in any order (the kernel does not check them)."""
     dev = _on_cuda(tab, "piece")
     _check(tab, "tab", torch.float32, dev)
     _check(ids, "ids", torch.int32, dev)

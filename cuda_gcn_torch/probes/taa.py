@@ -22,14 +22,22 @@ strides, so that one entry point serves full, compact and broadcast indices; A2
 is ``taa_rows`` with one index per row, which its launcher gives to the form
 that reads whole rows), ``cumsum_cols`` and ``piece``.
 probes/dyngather.py drives the other forms. A2 repeats its gather ``reps``
-times; C and D take their scan once per launch and repeat the last addition.
-A tensor on the CPU takes the plain PyTorch version; a CUDA tensor launches the
-kernel or raises.
+times. C and D are one cooperative launch each: every CTA scans a tile of 128
+rows by 128 columns in registers (8 rows a warp), publishes the tile's
+totals, waits at one grid-wide barrier and adds the totals of the chunks
+before its own; a table larger than the card holds at once goes in waves of
+tiles, one barrier each. D gathers and scales its rows in that single read of
+the table, writes the scan into an [S+1, L] scratch and, after one more
+barrier, reads the boundary rows in the same launch. The scan is taken once
+per launch and the last addition repeated ``reps`` times. Its order of
+additions is fixed (``scan_order_plain`` restates it), so a launch gives the
+same bits on every run. A tensor on the CPU takes the plain PyTorch version; a
+CUDA tensor launches the kernel or raises.
 
 Tolerances: the gathers add the same f32 values in the same order as their
 plain versions and are equal bit for bit. A scan's element is a sum of up to S
-terms whose rounding depends on the order of the additions (64-row chunks and
-chunk offsets here, the library's own order in ``torch.cumsum``). A scan that
+terms whose rounding depends on the order of the additions (``scan_order_plain``
+here, the library's own order in ``torch.cumsum``). A scan that
 adds row after row makes S roundings of up to half an f32 epsilon of |cs|
 each, which add up like a random walk to about √S/2 · epsilon · max|cs|; C
 and D are held to twice that, √S · epsilon · max|cs|, per addition of ``reps``
@@ -136,6 +144,37 @@ def cumsum_probe(tab, reps: int = 1) -> torch.Tensor:
     if tab.device.type == "cpu":
         return cumsum_probe_plain(tab, reps)
     return kernels.cumsum_cols(tab, reps)
+
+
+def scan_order_plain(vals) -> torch.Tensor:
+    """The inclusive column scan of ``vals`` [S, L] f32 in the kernels' order of
+    additions, restated with tensor operations: rows padded with zeros to
+    chunks of ``kernels.SCAN_CHUNK_ROWS``, each chunk cut into runs of
+    ``SCAN_WARP_ROWS`` (a warp's); each run scanned row after row; each run
+    after the first of a chunk given the totals of the runs before it, added
+    in order; then each chunk given the left fold from 0 of the totals of the
+    chunks before it. Every addition is one f32 addition of the kernels, so on
+    the same inputs the kernels' scan equals this bit for bit."""
+    s, l = vals.shape
+    rows, runs = kernels.SCAN_CHUNK_ROWS, kernels.SCAN_CHUNK_ROWS // kernels.SCAN_WARP_ROWS
+    chunks = -(-s // rows)
+    x = vals.new_zeros(chunks * rows, l)
+    x[:s] = vals
+    x = x.view(chunks, runs, kernels.SCAN_WARP_ROWS, l)
+    scan = x.clone()
+    for u in range(1, kernels.SCAN_WARP_ROWS):
+        scan[:, :, u] = scan[:, :, u - 1] + x[:, :, u]
+    total = scan[:, 0, -1].clone()
+    runs_scan = scan.clone()
+    for w in range(1, runs):
+        runs_scan[:, w] = total[:, None] + scan[:, w]
+        total = total + scan[:, w, -1]
+    off = torch.zeros_like(total)
+    fold = torch.zeros_like(total[0])
+    for c in range(chunks):
+        off[c] = fold
+        fold = fold + total[c]
+    return (off[:, None, None] + runs_scan).reshape(chunks * rows, l)[:s]
 
 
 def piece_scan(ids, coef, tab) -> torch.Tensor:

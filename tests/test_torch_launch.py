@@ -365,6 +365,47 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
         assert call[-2] == kernels.TAA_FORMS.index("row") and call[1:4] == (4, 0, 1)
     if name == "taa_lanes":  # a compact bf16 index: 8 rows a group, tiles of 32 columns
         assert call[-4:-1] == (kernels.TAA_LANES_FORMS.index("group"), 8, 32)
+    if name == "cumsum_cols":  # out, then the scan's totals in an allocation of their own
+        assert call[:2] == (args["tab"].data_ptr(), out.data_ptr()) and call[2] != out.data_ptr()
+        assert call[3:6] == (64, 128, 2)
+    if name == "piece":  # the [S+1, L] scan and its totals, each in an allocation of its own
+        assert call[4:6] == (args["tab"].data_ptr(), out.data_ptr()) and call[8:11] == (64, 128, 2)
+        assert call[6] != call[7] and out.data_ptr() not in call[6:8]
+
+
+@pytest.mark.parametrize("s,l", [(1, 1), (63, 5), (65, 127), (129, 128), (300, 333)])
+@pytest.mark.parametrize("name", ["cumsum_cols", "piece"])
+def test_scan_scratch_follows_the_tiles(recorder, monkeypatch, name, s, l):
+    """The scratch holds (chunks + 2) rows of 128 totals a column tile (chunks
+    of 128 rows, tiles of 128 columns) and is the pointer the C call gets."""
+    made, make = [], kernels._scan_totals
+    monkeypatch.setattr(kernels, "_scan_totals", lambda *a: made.append(make(*a)) or made[-1])
+    if name == "cumsum_cols":
+        out = kernels.cumsum_cols(fake(s, l), 3)
+        totals = recorder[0][1][2]
+    else:
+        out = kernels.piece(fake(s, 1, dtype=I32), fake(s, 1), fake(s, 1, dtype=I32),
+                            fake(s, 1, dtype=I32), fake(s, l), 3)
+        totals = recorder[0][1][7]
+    (scratch,) = made
+    assert scratch.shape == ((-(-s // 128) + 2) * -(-l // 128), 128)
+    assert scratch.dtype == torch.float32 and scratch.data_ptr() == totals
+    assert out.shape == (s, l) and out.is_contiguous()
+    assert recorder[0][1][-4:-1] == (s, l, 3)
+
+
+@pytest.mark.parametrize("s,l,fits", [
+    (65535 * 64, 128, True),                 # the cap the scans had before
+    (2**31 - 2, 1, True), (2**31 - 1, 1, False),  # piece's S + 1 rows are an int
+    (128 << 16, 128 * ((1 << 15) - 1), True), (128 << 16, 128 << 15, False)])  # 2^31 tiles
+def test_scan_cap_is_the_kernels_ints(s, l, fits):
+    """The scans refuse a shape whose rows or tiles the kernel's ints cannot
+    hold, and still take the rows of the cap before them at 128 columns."""
+    if fits:
+        assert kernels._scan_totals(s, l, "meta").shape[1] == kernels.SCAN_TILE_COLS
+    else:
+        with pytest.raises(ValueError, match="column scans"):
+            kernels._scan_totals(s, l, "meta")
 
 
 @pytest.mark.parametrize("fault", ["device", "dtype", "contiguity", "shape"])

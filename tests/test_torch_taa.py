@@ -7,7 +7,10 @@ expressions on the CPU (``jnp.take_along_axis`` over a broadcast index,
 ``jnp.cumsum``, the ``fori_loop`` as a Python loop). Tolerances: the gather
 adds the same f32 values in the same order and is exact; the scan and the
 piece are held to ``taa.scan_tolerance`` (√S · f32 epsilon · max|cs| per rep),
-since only the order of a scan's additions differs.
+since only the order of a scan's additions differs. The kernels' own order,
+``taa.scan_order_plain``, is held to the bodies and to an f64 scan the same
+way, at shapes off the kernels' tiles (S not a multiple of 128 rows, L not a
+multiple of 4 or of 128).
 """
 
 import jax.numpy as jnp
@@ -15,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from cuda_gcn_torch import kernels
 from cuda_gcn_torch.probes import taa
 
 L = taa.LANES
@@ -41,13 +46,13 @@ def cumsum_body(tab, reps):
 
 
 def piece_body(ids, coef, begin, end, tab, reps):
-    s = tab.shape[0]
-    idx, bidx, eidx = (jnp.broadcast_to(a, (s, L)) for a in (ids, begin, end))
-    acc = jnp.zeros((s, L), jnp.float32)
+    s, lanes = tab.shape
+    idx, bidx, eidx = (jnp.broadcast_to(a, (s, lanes)) for a in (ids, begin, end))
+    acc = jnp.zeros((s, lanes), jnp.float32)
     for _ in range(reps):
         vals = jnp.take_along_axis(tab, idx, axis=0) * coef
         cs = jnp.cumsum(vals, axis=0)
-        csz = jnp.concatenate([jnp.zeros((1, L), jnp.float32), cs], axis=0)[:s + 1]
+        csz = jnp.concatenate([jnp.zeros((1, lanes), jnp.float32), cs], axis=0)[:s + 1]
         acc = acc + (jnp.take_along_axis(csz, eidx, axis=0)
                      - jnp.take_along_axis(csz, bidx, axis=0))
     return acc
@@ -101,6 +106,92 @@ def test_piece_boundaries_cover_empty_segments_and_the_last_row():
     j = jnp_inputs(dict(x, begin=begin, end=end))
     want = np.asarray(piece_body(j["ids"], j["coef"], j["begin"], j["end"], j["tab"], 1))
     assert np.abs(got.numpy() - want).max() <= taa.scan_tolerance(float(cs.abs().max()), s, 1)
+
+
+def _table(s, l, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((s, l)).astype(np.float32))
+
+
+def _loop_order(vals):
+    """``scan_order_plain``'s order written out element by element in numpy f32."""
+    v = vals.numpy()
+    s, l = v.shape
+    rows, run = kernels.SCAN_CHUNK_ROWS, kernels.SCAN_WARP_ROWS
+    out = np.zeros_like(v)
+    fold = np.zeros(l, np.float32)
+    for c0 in range(0, s, rows):
+        x = np.zeros((rows, l), np.float32)
+        x[:min(rows, s - c0)] = v[c0:c0 + rows]
+        chunk = np.zeros_like(x)
+        acc = None
+        for w0 in range(0, rows, run):
+            part = np.zeros((run, l), np.float32)
+            part[0] = x[w0]
+            for u in range(1, run):
+                part[u] = part[u - 1] + x[w0 + u]
+            chunk[w0:w0 + run] = part if acc is None else acc + part
+            acc = part[-1] if acc is None else acc + part[-1]
+        n = min(rows, s - c0)
+        out[c0:c0 + n] = fold + chunk[:n]
+        fold = fold + acc
+    return out
+
+
+@pytest.mark.parametrize("s,l", [(1, 1), (63, 5), (65, 127), (300, 3), (257, 130)])
+def test_scan_order_plain_is_the_kernels_order(s, l):
+    """The restated order equals the same additions made one by one, bit for bit."""
+    vals = _table(s, l, s + l)
+    np.testing.assert_array_equal(taa.scan_order_plain(vals).numpy(), _loop_order(vals))
+
+
+@pytest.mark.parametrize("s,l", [(1, 1), (63, 5), (65, 127), (129, 128), (300, 333),
+                                 (1000, 128), (4099, 4)])
+def test_scan_order_plain_against_an_f64_scan(s, l):
+    vals = _table(s, l, s)
+    want = torch.cumsum(vals.double(), 0)
+    got = taa.scan_order_plain(vals)
+    assert got.dtype == torch.float32 and got.shape == (s, l)
+    tol = taa.scan_tolerance(float(want.abs().max()), s, 1)
+    assert float((got.double() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("s,l,reps", [(1, 1, 1), (63, 5, 3), (65, 127, 1), (200, 333, 3),
+                                      (129, 128, 2)])
+def test_cumsum_off_the_tiles_matches_the_tpu_body(s, l, reps):
+    """The plain version and the kernels' order against ``cumsum_kernel``'s body
+    at shapes that cut the kernels' tiles: S past a whole chunk, L not a
+    multiple of 4, reps > 1."""
+    tab = _table(s, l, 7 * s + l)
+    want = np.asarray(cumsum_body(jnp.asarray(tab.numpy()), reps))
+    tol = taa.scan_tolerance(float(np.abs(want).max()) / reps, s, reps)
+    for got in (taa.cumsum_probe(tab, reps), taa._repeat_add(taa.scan_order_plain(tab), reps)):
+        assert got.shape == (s, l) and np.abs(got.numpy() - want).max() <= tol
+
+
+@pytest.mark.parametrize("s,l,reps", [(1, 1, 1), (63, 5, 3), (65, 127, 2), (200, 333, 3)])
+def test_piece_off_the_tiles_matches_the_tpu_body(s, l, reps):
+    """The piece at the same shapes, with the boundaries of (j)'s edge cases
+    (in any order, empty segments, end == S); the kernels' scan order gives
+    the same."""
+    rng = np.random.default_rng(s + l)
+    tab = _table(s, l, s)
+    ids = torch.from_numpy(rng.integers(0, s, (s, 1)).astype(np.int32))
+    coef = torch.from_numpy(rng.random((s, 1), dtype=np.float32))
+    begin, end = (torch.from_numpy(a[:, None])
+                  for a in chip_smoke._scan_boundaries(s, np.random.default_rng(s)))
+    want = np.asarray(piece_body(*(jnp.asarray(a.numpy()) for a in (ids, coef, begin, end, tab)),
+                                 reps))
+    cs = taa.piece_scan(ids, coef, tab)
+    tol = taa.scan_tolerance(float(cs.abs().max()), s, reps)
+    got = taa.piece_probe(ids, coef, begin, end, tab, reps)
+    assert got.shape == (s, l) and np.abs(got.numpy() - want).max() <= tol
+    vals = tab[ids.reshape(-1).long()] * coef
+    cs_order = torch.cat([torch.zeros(1, l), taa.scan_order_plain(vals)])
+    b, e = begin.reshape(-1).long(), end.reshape(-1).long()
+    ordered = taa._repeat_add(cs_order[e] - cs_order[b], reps)
+    assert np.abs(ordered.numpy() - want).max() <= tol
+    assert not got[::5].any() and not ordered[::5].any()
 
 
 def test_probe_inputs_follow_the_script():
