@@ -1113,11 +1113,7 @@ def phase_probes(errs):
     m = idx.numel()
     log(f"(i) probes at table [{rows}, {d}], m={m}, mb={mb}: launches {launches}; {_clocks()}")
     errs["gather_probe"] = _gather_check(idx, h)
-    got = probes.scatter_probe(idx_sorted, coef, h, mb)
-    errs["scatter_probe"] = check("scatter_probe", got,
-                                  probes.scatter_probe_plain(idx_sorted, coef, h, mb))
-    if not torch.equal(got, probes.scatter_probe(idx_sorted, coef, h, mb)):
-        raise AssertionError("scatter_probe differs between two runs")
+    errs["scatter_probe"] = _scatter_check(idx_sorted, coef, h, mb)
     plain_a = cuda_ms(lambda: probes.gather_probe_plain(idx, h), 5)
     plain_b = cuda_ms(lambda: probes.scatter_probe_plain(idx_sorted, coef, h, mb), 5)
     lib_a, _ = _library_ms(lambda: (lambda: h.index_select(0, idx).sum(0)), 10)
@@ -1157,6 +1153,12 @@ def phase_probes(errs):
         f"from the memory with no reuse")
     a["above_shared"] = _gather_above_shared()
     _gather_edges()
+    b = out["scatter_probe"]
+    b.update(_own_process_launches("_scatter_trace()")["scatter_probe"])
+    log(f"  scatter_probe: device {b['trace_device_us']:.2f} us a launch by the trace in a process "
+        f"of its own, {b['device_us']:.2f} us by this process's (_device_us); bound "
+        f"{bound_b[0] * 1e3:.2f} us ({bound_b[1]})")
+    _scatter_edges()
     return out
 
 
@@ -1235,6 +1237,62 @@ def _gather_edges() -> None:
                                      f"{rows} rows")
         log(f"  gather_probe [{rows}, {d}] ({kernels.gather_probe_path(rows)} counts): the ids "
             f"{rows} and -1 each make the result NaN")
+
+
+def _scatter_check(idx, coef, h, mb: int, label: str = "") -> float:
+    """Probe B against its plain version run on CPU copies, which adds in the
+    TPU loop's order: bit for bit, and the same bits on two calls. Returns
+    the max abs error, 0."""
+    import torch
+
+    from cuda_gcn_torch.probes import gather as probes
+
+    got = probes.scatter_probe(idx, coef, h, mb)
+    want = probes.scatter_probe_plain(idx.cpu(), coef.cpu(), h.cpu(), mb)
+    err = float((got.cpu() - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"scatter_probe [{h.shape[0]}, {h.shape[1]}] mb={mb}{label}: not the "
+                             f"TPU loop's bits (max abs difference {err:.3e})")
+    if not torch.equal(got, probes.scatter_probe(idx, coef, h, mb)):
+        raise AssertionError(f"scatter_probe{label} differs between two runs")
+    log(f"  scatter_probe [{h.shape[0]}, {h.shape[1]}] mb={mb}{label}: bit for bit the plain "
+        f"version on CPU copies (the TPU loop's order), two runs equal")
+    return err
+
+
+def _scatter_edges() -> None:
+    """(i), probe B off its main case: d = 41; h 4 bytes past a 16-byte
+    boundary (a contiguous view of a flat buffer at offset 1: 4 values a warp
+    apart); mb 0 and 1; every term in one row; each held bit for bit. Then
+    ids that are not sorted (a swapped pair) or leave the table (an id of
+    rows first, one of -1 last; the rest sorted) make every element NaN."""
+    import torch
+
+    from cuda_gcn_torch.probes import gather as probes
+
+    rows, m, mb = 16384, 1 << 20, probes.SCATTER_MAX
+    x = probes.make_inputs(rows, m, 41, 0, "cuda")
+    _scatter_check(x["idx_sorted"], x["coef"], x["h"], mb, " (d 41)")
+    x = probes.make_inputs(rows, m, 128, 0, "cuda")
+    idx, coef, h = x["idx_sorted"], x["coef"], x["h"]
+    flat = torch.empty(h.numel() + 1, device="cuda")
+    flat[1:] = h.reshape(-1)
+    off = flat[1:].view(rows, 128)
+    if off.data_ptr() % 16 != 4:
+        raise AssertionError("the offset view of h is not 4 bytes past a 16-byte boundary")
+    _scatter_check(idx, coef, off, mb, " (h 4 bytes past a 16-byte boundary)")
+    for n in (0, 1):
+        _scatter_check(idx, coef, h, n)
+    _scatter_check(torch.full_like(idx, 617), coef, h, mb, " (every term in row 617)")
+    faults = {"a swapped pair": idx.clone(), f"an id of {rows}": idx.clone(),
+              "an id of -1": idx.clone()}
+    faults["a swapped pair"][[100, 30000]] = idx[[30000, 100]]
+    faults[f"an id of {rows}"][mb - 1] = rows
+    faults["an id of -1"][0] = -1
+    for what, bad in faults.items():
+        if not bool(torch.isnan(probes.scatter_probe(bad, coef, h, mb)).all()):
+            raise AssertionError(f"scatter_probe did not make the result NaN for {what}")
+        log(f"  scatter_probe: {what} makes every element of the result NaN")
 
 
 TAA_ITERS = 5  # the probe entry points' default
@@ -1432,7 +1490,7 @@ def phase_taa_probes(errs):
     for name in ("A2", "C", "D", "X"):
         log(f"    {name}: {res[name]['ms']:.4f} ms = {res[name]['ns_per_row']:.3f} ns/row "
             f"over {res[name]['rows']} rows")
-    for kernel, row in _scan_launches(s, reps).items():
+    for kernel, row in _own_process_launches(f"_scan_trace({s}, {reps})").items():
         out[kernel].update(row)
     _scan_edges()
     return out
@@ -1462,20 +1520,14 @@ def _kernel_records(fn) -> dict:
     return out
 
 
-def _scan_trace(s: int, reps: int) -> None:
-    """Prints, as one JSON line, ``_kernel_records`` of each scan's wrapper on
-    ``taa.make_inputs(s)``, ``reps`` reps: the traces taken, up to
-    ``SCAN_TRACE_TRIES``, until one kept a whole number of records a call of
-    every kernel. ``_scan_launches`` runs it in a process of its own."""
+def _traces(calls: dict) -> dict:
+    """{kernel: [``_kernel_records`` of a trace, ...]} for each wrapper call of
+    ``calls`` ({kernel: fn}): the traces taken, up to ``SCAN_TRACE_TRIES``,
+    until one kept a whole number of records a call of every kernel."""
     import torch
 
-    from cuda_gcn_torch.probes import taa
-
-    x = taa.make_inputs(s, device="cuda")
-    tab, ids, coef, begin, end = (x[k] for k in ("tab", "ids", "coef", "begin", "end"))
     got = {}
-    for kernel, fn in (("cumsum_cols", lambda: taa.cumsum_probe(tab, reps)),
-                       ("piece", lambda: taa.piece_probe(ids, coef, begin, end, tab, reps))):
+    for kernel, fn in calls.items():
         fn()
         torch.cuda.synchronize()
         got[kernel] = []
@@ -1483,24 +1535,49 @@ def _scan_trace(s: int, reps: int) -> None:
             got[kernel].append(_kernel_records(fn))
             if all(n % PROFILED_CALLS == 0 for n, _ in got[kernel][-1].values()):
                 break
-    print(json.dumps(got), flush=True)
+    return got
 
 
-def _scan_launches(s: int, reps: int) -> dict:
-    """(j): the kernels that one call of each scan's wrapper runs on the card,
-    by name, from a profiler trace of ``PROFILED_CALLS`` calls (``_scan_trace``,
-    in a process of its own: late in a full run a trace in this process has
-    kept 12-14 of 20 records). Fails unless the last trace holds one kernel
-    with exactly ``PROFILED_CALLS`` records: one CUDA launch a call."""
+def _scan_trace(s: int, reps: int) -> None:
+    """Prints, as one JSON line, ``_traces`` of each scan's wrapper on
+    ``taa.make_inputs(s)``, ``reps`` reps. ``_own_process_launches`` runs it in
+    a process of its own."""
+    from cuda_gcn_torch.probes import taa
+
+    x = taa.make_inputs(s, device="cuda")
+    tab, ids, coef, begin, end = (x[k] for k in ("tab", "ids", "coef", "begin", "end"))
+    print(json.dumps(_traces({
+        "cumsum_cols": lambda: taa.cumsum_probe(tab, reps),
+        "piece": lambda: taa.piece_probe(ids, coef, begin, end, tab, reps)})), flush=True)
+
+
+def _scatter_trace() -> None:
+    """Prints, as one JSON line, ``_traces`` of probe B's wrapper at the
+    script's shape (``gather.run``'s inputs, seed 0)."""
+    from cuda_gcn_torch.probes import gather as probes
+
+    x = probes.make_inputs(16384, 1 << 20, 128, 0, "cuda")
+    idx, coef, h = x["idx_sorted"], x["coef"], x["h"]
+    print(json.dumps(_traces({"scatter_probe": lambda: probes.scatter_probe(
+        idx, coef, h, probes.SCATTER_MAX)})), flush=True)
+
+
+def _own_process_launches(call: str) -> dict:
+    """The kernels that one call of each wrapper that ``chip_smoke.<call>``
+    traces runs on the card, by name, from a profiler trace of
+    ``PROFILED_CALLS`` calls taken in a process of its own (late in a full run
+    a trace in this process has kept 12-14 of 20 records). Fails unless the
+    last trace of each holds one kernel with exactly ``PROFILED_CALLS``
+    records: one CUDA launch a call. Returns {kernel: {cuda_launches_per_call,
+    trace_device_us}}, the device us a record of that trace."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
-    res = subprocess.run([sys.executable, "-c",
-                          f"import chip_smoke; chip_smoke._scan_trace({s}, {reps})"],
+    res = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
                          cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
                          text=True, timeout=600)
     if res.returncode:
-        raise AssertionError(f"the scans' trace: rc {res.returncode}\n{res.stderr[-4000:]}")
+        raise AssertionError(f"the trace {call}: rc {res.returncode}\n{res.stderr[-4000:]}")
     out = {}
     for kernel, traces in json.loads(res.stdout.strip().splitlines()[-1]).items():
         for i, split in enumerate(traces):
@@ -1513,7 +1590,8 @@ def _scan_launches(s: int, reps: int) -> dict:
                                  f"{PROFILED_CALLS} records in {PROFILED_CALLS} calls: "
                                  f"{traces[-1]}")
         log(f"  {kernel}: one CUDA launch a call")
-        out[kernel] = {"cuda_launches_per_call": 1}
+        out[kernel] = {"cuda_launches_per_call": 1,
+                       "trace_device_us": last[0][1] / PROFILED_CALLS}
     return out
 
 

@@ -50,22 +50,53 @@
 // indexes as torch does: it raises for an id >= rows). Nothing is written
 // outside the histograms.
 //
-// scatter_probe: the TPU loop's read-modify-writes become a segmented sum:
-// one warp per output row finds its segment of the sorted idx by binary
-// search and adds the segment's terms in index order, lanes over features.
-// Every output row has one writer (rows with no term are written 0): no
-// atomics, deterministic. Products and sums are rounded separately (no FMA),
-// as the TPU loop's out += coef * g rounds them. Bound: bytes.
+// scatter_probe: the TPU loop's read-modify-writes become a segmented sum in
+// one cooperative launch, each row written once. Its bound is bytes: ids,
+// coefficients, the min(mb, rows) rows of h that the terms name and out, once
+// (17.3 MB at the defaults, 5.2 us).
+// * Split: the ids idx[:mb] are cut into tiles of equal numbers of ids, one a
+//   CTA (more, taken in turn, where a tile would pass kScatterMaxIds), and a
+//   row is added by the tile that holds its first id, whole: no search, and
+//   the 1,021 busy rows of the probe (64 terms each) spread over every SM.
+//   probes.gather.scatter_split_plain restates the split.
+// * Marks: a tile reads its ids once, coalesced, and marks where neighbouring
+//   ids differ: its rows' first terms (compacted by warp ballots, in order).
+//   The same read checks that the ids rise and lie in [0, rows).
+// * Busy rows: a warp a row, 4 features a lane (one 16-byte load a term where
+//   d % 4 == 0 and h and out are 16-byte aligned, else 4 values 32 apart);
+//   32 coefficients a load, broadcast by shuffle; 16 terms' rows of h in
+//   flight before the first add (8 on the 4-byte path). The warp of a tile's
+//   last row first reads on past the tile to that row's end. Terms are added in index order from 0, the
+//   product and the sum rounded apart (no FMA), as the TPU loop's
+//   out += coef * g rounds them: the same bits as that loop, on every run.
+// * Empty rows: one between two busy rows is written 0 by the warp of the one
+//   before it; the rows before the first id and after the last go in even
+//   shares to the CTAs, stored right after the marks so that they drain
+//   while the busy rows are added. No row is written twice, so nothing
+//   orders the writes.
+// * Faults: a CTA that met an id out of order or out of range sets its flag
+//   (a scratch int a CTA, allocated by the wrapper; each CTA writes its own);
+//   after the launch's one grid barrier every CTA reads the flags and, if one
+//   is set, writes NaN to an even share of out.
+// What is left above the bound: a busy row is a chain of in-order adds that
+// no design may split (64 terms at the probe's shape, four batches of loads
+// from L2 deep), and the terms read every row of h four times (mb = 4 rows:
+// 33.5 MB of L2 reads against 8.4 MB of h). Deeper batches (24, 32 terms)
+// and rows staged in shared memory measured slower on the H100.
+// No atomics and nothing falls back: a launch the card refuses returns its
+// error.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int kWarps = 8;   // warps per CTA of scatter
 constexpr int kSteps = 4;   // 32-wide feature steps per pass: 128 features
 constexpr int kWidth = 32 * kSteps;
-constexpr int kIlp = 4;     // terms in flight per warp of scatter
 constexpr int kCountThreads = 1024;
 constexpr int kCountIlp = 4;        // 16-byte id loads in flight per counting thread
 constexpr int kContractRows = 128;  // table rows a chunk of the contraction
@@ -272,54 +303,239 @@ gather_contract_kernel(const int* __restrict__ counts, int n_counts,
   }
 }
 
-// first i in [0, n) with idx[i] >= key
-__device__ __forceinline__ int first_at_least(const int* __restrict__ idx, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (idx[mid] < key) lo = mid + 1;
-    else hi = mid;
+constexpr int kScatterWarps = 8;
+constexpr int kScatterThreads = 32 * kScatterWarps;
+constexpr int kScatterBatch = 16;      // terms' rows of h in flight a warp
+constexpr int kScatterMinCtas = 2;     // CTAs an SM (kernels.SCATTER_CTAS)
+constexpr int kScatterMaxIds = 2048;   // ids a tile at most (kernels.SCATTER_TILE_IDS)
+constexpr int kMaxDevices = 64;
+static_assert(kScatterBatch <= 32, "a coefficient a lane");
+
+struct ScatterParams {
+  const int* idx;
+  const float* coef;
+  const float* h;
+  float* out;
+  int* flags;  // a fault flag a CTA
+  int rows, mb, d, tiles, per;  // per: ids a tile
+};
+
+// the 4 features of the lane in the 128 from f0: f0 + 4 lane + s (kVec) or
+// f0 + 32 s + lane
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int f0, int lane, int d) {
+  if (kVec) {
+    const int f = f0 + 4 * lane;
+    return f < d ? __ldg(reinterpret_cast<const float4*>(row + f)) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  return lo;
+  float v[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int f = f0 + 32 * s + lane;
+    v[s] = f < d ? __ldg(row + f) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-scatter_kernel(const int* __restrict__ idx, const float* __restrict__ coef,
-               const float* __restrict__ h, float* __restrict__ out, int rows, int mb,
-               int d) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const int lo = first_at_least(idx, mb, r), hi = first_at_least(idx, mb, r + 1);
-  float* orow = out + (int64_t)r * d;
+template <bool kVec>
+__device__ __forceinline__ void store4(float* row, int f0, int lane, int d, float4 v) {
+  if (kVec) {
+    const int f = f0 + 4 * lane;
+    if (f < d) *reinterpret_cast<float4*>(row + f) = v;
+    return;
+  }
+  const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int f = f0 + 32 * s + lane;
+    if (f < d) row[f] = a[s];
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void fill_row(const ScatterParams& p, int64_t r, float v, int lane) {
+  for (int f0 = 0; f0 < p.d; f0 += kWidth)
+    store4<kVec>(p.out + r * p.d, f0, lane, p.d, make_float4(v, v, v, v));
+}
+
+__device__ __forceinline__ void add_term(float4& acc, float w, float4 v) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(w, v.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(w, v.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(w, v.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(w, v.w));
+}
+
+// out[r] = the sum over the terms j in [s, e), in order from 0, of
+// coef[j] * h[j mod rows]: a warp the row, 4 features a lane; 32
+// coefficients a load, broadcast by shuffle, and kScatterBatch rows of h in
+// flight before the first add (half as many where a row is 4 loads a lane,
+// within the registers of 2 CTAs an SM; a batch of whole terms takes no
+// predicates)
+template <bool kVec>
+__device__ void scatter_row(const ScatterParams& p, int r, int s, int e, int lane) {
+  constexpr int kBatch = kVec ? kScatterBatch : kScatterBatch / 2;  // 4 loads a term: half
+  const int rows = p.rows, d = p.d;
   for (int f0 = 0; f0 < d; f0 += kWidth) {
-    float acc[kSteps] = {0.f, 0.f, 0.f, 0.f};
-    for (int i0 = lo; i0 < hi; i0 += kIlp) {
-      float wk[kIlp];
-      float hv[kIlp][kSteps];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = s; j < e; j += 32) {
+      const int n = min(32, e - j);
+      const float c = lane < n ? __ldg(p.coef + j + lane) : 0.f;
+      const int hr = (int)(((unsigned)j + lane) % (unsigned)rows);  // below 2^32
+      for (int t0 = 0; t0 < n; t0 += kBatch) {
+        float4 v[kBatch];
+        if (n - t0 >= kBatch) {
 #pragma unroll
-      for (int u = 0; u < kIlp; ++u) {
-        const int i = i0 + u;
-        wk[u] = i < hi ? coef[i] : 0.f;
-        const float* hrow = h + (int64_t)(i % rows) * d;
+          for (int u = 0; u < kBatch; ++u)
+            v[u] = load4<kVec>(p.h + (int64_t)__shfl_sync(0xffffffffu, hr, t0 + u) * d, f0, lane, d);
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-          const int f = f0 + s * 32 + lane;
-          hv[u][s] = (i < hi && f < d) ? hrow[f] : 0.f;
+          for (int u = 0; u < kBatch; ++u)
+            add_term(acc, __shfl_sync(0xffffffffu, c, t0 + u), v[u]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int row = __shfl_sync(0xffffffffu, hr, (t0 + u) & 31);
+            v[u] = t0 + u < n ? load4<kVec>(p.h + (int64_t)row * d, f0, lane, d)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const float w = __shfl_sync(0xffffffffu, c, (t0 + u) & 31);
+            if (t0 + u < n) add_term(acc, w, v[u]);
+          }
         }
       }
-#pragma unroll
-      for (int u = 0; u < kIlp; ++u)
-#pragma unroll
-        for (int s = 0; s < kSteps; ++s)
-          if (i0 + u < hi) acc[s] = __fadd_rn(acc[s], __fmul_rn(wk[u], hv[u][s]));
     }
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const int f = f0 + s * 32 + lane;
-      if (f < d) orow[f] = acc[s];
+    store4<kVec>(p.out + (int64_t)r * d, f0, lane, d, acc);
+  }
+}
+
+// Tile t's rows: those whose first term lies in [t per, (t + 1) per), into
+// starts / rows_of (the row's first term and its id, in order); starts[n] is
+// the tile's end, where the last row may not end. Reads the tile's ids once,
+// coalesced; sets fault if one is out of [0, rows) or below the one before
+// it. Returns the number of rows.
+__device__ int mark_tile(const ScatterParams& p, int t, int* starts, int* rows_of, int* warp_n,
+                         bool& fault) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = (int)min64((int64_t)t * p.per, p.mb);
+  const int hi = (int)min64((int64_t)lo + p.per, p.mb);
+  int n = 0;
+  for (int c0 = lo; c0 < hi; c0 += kScatterThreads) {
+    const int j = c0 + threadIdx.x;
+    const bool in = j < hi;
+    const int v = in ? __ldg(p.idx + j) : 0;
+    const int prev = in && j > 0 ? __ldg(p.idx + j - 1) : INT_MIN;
+    if (in && (v < 0 || v >= p.rows || prev > v)) fault = true;
+    const bool start = in && prev != v;
+    const unsigned ballot = __ballot_sync(0xffffffffu, start);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int at = n;
+    for (int w = 0; w < kScatterWarps; ++w) {
+      if (w < warp) at += warp_n[w];
+      n += warp_n[w];
+    }
+    if (start) {
+      at += __popc(ballot & ((1u << lane) - 1));
+      starts[at] = j;
+      rows_of[at] = v;
+    }
+    __syncthreads();  // warp_n is rewritten by the next chunk
+  }
+  if (threadIdx.x == 0) starts[n] = hi;
+  __syncthreads();
+  return n;
+}
+
+// The end of row r's terms from e on (the first id that is not r, read on by
+// the warp until the id changes) and the id there, or last + 1 at the end
+__device__ __forceinline__ void row_end(const ScatterParams& p, int r, int e, int last, int lane,
+                                        int& end, int& next) {
+  for (;; e += 32) {
+    const int v = e + lane < p.mb ? __ldg(p.idx + e + lane) : last + 1;
+    const unsigned b = __ballot_sync(0xffffffffu, v != r);
+    if (b) {
+      const int k = __ffs(b) - 1;
+      end = e + k;
+      next = __shfl_sync(0xffffffffu, v, k);
+      return;
     }
   }
+}
+
+// Every row is written once before the barrier: a busy row by a warp of the
+// CTA whose tile holds its first id; an empty row between two busy ones by
+// the warp of the one before it; and the rows before the first id and after
+// the last, in an even share a CTA. After the barrier, if a CTA met a fault,
+// each CTA writes NaN to its even share of all rows.
+template <bool kVec>
+__global__ void __launch_bounds__(kScatterThreads, kScatterMinCtas)
+scatter_kernel(const ScatterParams p) {
+  __shared__ int starts[kScatterMaxIds + 1];
+  __shared__ int rows_of[kScatterMaxIds];
+  __shared__ int warp_n[kScatterWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = p.mb ? __ldg(p.idx) : p.rows, last = p.mb ? __ldg(p.idx + p.mb - 1) : p.rows - 1;
+  bool fault = false;
+  int t = blockIdx.x;
+  int n = t < p.tiles ? mark_tile(p, t, starts, rows_of, warp_n, fault) : 0;
+  {  // the rows outside [first, last]: k < first is row k, else row k + last - first + 1
+    const int64_t outer = (int64_t)first + (p.rows - 1 - (int64_t)last);
+    const int64_t k1 = (int64_t)(blockIdx.x + 1) * outer / gridDim.x;
+    for (int64_t k = (int64_t)blockIdx.x * outer / gridDim.x + warp; k < k1; k += kScatterWarps) {
+      const int64_t r = k < first ? k : k + last - first + 1;
+      if (r >= 0 && r < p.rows) fill_row<kVec>(p, r, 0.f, lane);
+    }
+  }
+  while (t < p.tiles) {
+    for (int q = warp; q < n; q += kScatterWarps) {
+      const int r = rows_of[q];
+      int end = starts[q + 1], next = q + 1 < n ? rows_of[q + 1] : 0;
+      if (q + 1 == n) row_end(p, r, end, last, lane, end, next);  // may run past the tile
+      if (r < 0 || r >= p.rows) continue;  // a fault: out is made NaN below
+      scatter_row<kVec>(p, r, starts[q], end, lane);
+      for (int z = r + 1; z < next && z < p.rows; ++z) fill_row<kVec>(p, z, 0.f, lane);
+    }
+    __syncthreads();  // starts and rows_of are refilled by the next tile
+    t += gridDim.x;
+    if (t < p.tiles) n = mark_tile(p, t, starts, rows_of, warp_n, fault);
+  }
+  const int any = __syncthreads_or(fault);
+  if (threadIdx.x == 0) p.flags[blockIdx.x] = any;
+  cooperative_groups::this_grid().sync();
+  int bad = 0;
+  for (int b = threadIdx.x; b < gridDim.x; b += kScatterThreads) bad |= p.flags[b];
+  if (!__syncthreads_or(bad)) return;
+  const int64_t r0 = (int64_t)blockIdx.x * p.rows / gridDim.x;
+  const int64_t r1 = (int64_t)(blockIdx.x + 1) * p.rows / gridDim.x;
+  for (int64_t r = r0 + warp; r < r1; r += kScatterWarps)
+    fill_row<kVec>(p, r, __int_as_float(0x7fc00000), lane);  // NaN: ids out of order or range
+}
+
+bool aligned(const void* q, int bytes) { return reinterpret_cast<uintptr_t>(q) % bytes == 0; }
+
+// one cooperative launch of `ctas` CTAs, at most as many as the card keeps
+// resident (read once a device)
+template <bool kVec>
+cudaError_t launch_scatter(ScatterParams p, int ctas, cudaStream_t stream) {
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scatter_kernel<kVec>,
+                                                        kScatterThreads, 0);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(scatter_kernel<kVec>),
+                                     dim3(ctas < resident[dev] ? ctas : resident[dev]),
+                                     dim3(kScatterThreads), args, 0, stream);
 }
 
 }  // namespace
@@ -366,11 +582,23 @@ extern "C" int gather_probe(const void* idx, const void* h, void* counts, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// flags: int32 scratch of `ctas` values (none needs clearing); the ids are
+// cut into max(ctas, ceil(mb / 2048)) tiles
 extern "C" int scatter_probe(const void* idx, const void* coef, const void* h, void* out,
-                             int rows, int mb, int d, void* stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  scatter_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(coef),
-      static_cast<const float*>(h), static_cast<float*>(out), rows, mb, d);
-  return static_cast<int>(cudaGetLastError());
+                             void* flags, int rows, int mb, int d, int ctas, void* stream) {
+  if (rows < 1 || mb < 0 || d < 1 || ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ScatterParams p;
+  p.idx = static_cast<const int*>(idx);
+  p.coef = static_cast<const float*>(coef);
+  p.h = static_cast<const float*>(h);
+  p.out = static_cast<float*>(out);
+  p.flags = static_cast<int*>(flags);
+  p.rows = rows;
+  p.mb = mb;
+  p.d = d;
+  p.tiles = (int)std::max<int64_t>(ctas, ((int64_t)mb + kScatterMaxIds - 1) / kScatterMaxIds);
+  p.per = (int)std::max<int64_t>(1, ((int64_t)mb + p.tiles - 1) / p.tiles);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = d % 4 == 0 && aligned(h, 16) && aligned(out, 16);
+  return static_cast<int>(vec ? launch_scatter<true>(p, ctas, s) : launch_scatter<false>(p, ctas, s));
 }

@@ -57,7 +57,7 @@ _ENTRY = {
                  [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "gather_probe": ("gather_probe", "gather_probe",
                      [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
-    "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "scatter_probe": ("gather_probe", "scatter_probe", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "taa_rows": ("taa_probe", "taa_rows",
                  [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "taa_lanes": ("taa_probe", "taa_lanes",
@@ -473,9 +473,24 @@ def gather_probe(idx, h) -> torch.Tensor:
     return out
 
 
+# Probe B (csrc/gather_probe.cu) is one cooperative launch of SCATTER_CTAS
+# CTAs, 2 an SM, all resident, over tiles of at most SCATTER_TILE_IDS ids
+# (``probes.gather.scatter_split_plain`` restates how they share the work).
+SCATTER_CTAS = 2 * H100_SMS
+SCATTER_TILE_IDS = 2048
+
+
 def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
-    """Launch probe B: out[idx[i]] += coef[i] · h[i mod rows] for i < mb, idx
-    sorted ascending, into a new [rows, d] tensor in f32."""
+    """Launch probe B: out[idx[i]] += coef[i] · h[i mod rows] for i < mb into
+    a new [rows, d] tensor in f32, each row's terms added in index order from
+    0, the product and the sum rounded apart (the TPU loop's bits).
+
+    ``idx[:mb]`` must be sorted ascending, with ids in [0, rows): the kernel
+    checks both and, if either fails, writes NaN to every element of out (the
+    plain version sums ids in any order and raises for one outside the
+    table). Its scratch, an int32 fault flag for each of SCATTER_CTAS, lies
+    past the end of out in one allocation (a call's host time exceeds its
+    device time, and an allocation is a good part of it)."""
     dev = _on_cuda(h, "scatter_probe")
     _check(idx, "idx", torch.int32, dev)
     _check(coef, "coef", torch.float32, dev)
@@ -483,13 +498,14 @@ def scatter_probe(idx, coef, h, mb: int) -> torch.Tensor:
     if h.dim() != 2:
         raise ValueError(f"h must be [rows, d], got {tuple(h.shape)}")
     rows, d = h.shape
-    if not 0 <= mb <= min(idx.numel(), coef.numel()):
+    if not 0 <= mb <= min(idx.numel(), coef.numel()) or mb >= 2**31:
         raise ValueError(f"scatter_probe: mb={mb} exceeds the {idx.numel()} ids")
-    out = torch.empty(rows, d, dtype=torch.float32, device=h.device)
     if rows == 0 or d == 0:
-        return out
+        return torch.empty(rows, d, dtype=torch.float32, device=h.device)
+    buf = torch.empty(rows * d + SCATTER_CTAS, dtype=torch.float32, device=h.device)
+    out = buf[:rows * d].view(rows, d)
     _call("scatter_probe", idx.data_ptr(), coef.data_ptr(), h.data_ptr(), out.data_ptr(),
-          rows, mb, d, _stream(dev))
+          out.data_ptr() + 4 * rows * d, rows, mb, d, SCATTER_CTAS, _stream(dev))
     return out
 
 

@@ -18,11 +18,16 @@ shared memory where a table's counts fit a block's, else in device memory;
 count. That reads the 4 MB of ids and the 8 MB table of the defaults once,
 which is what the bytes bound counts, where gathering the rows moves 537 MB;
 the card's random row gather is timed by kernel 3 and ``taa_rows`` instead.
-Probe B adds each sorted segment in index order, one warp per output row. A
-tensor on the CPU takes the plain PyTorch version; a CUDA tensor launches the
-kernel or raises. The entry point runs on the card and prints each kernel's
-time beside the card's name and power limit, per id for A (the function's
-time over its ids, not a rate of row gathers) and per row for B.
+Probe B's kernel takes idx[:mb] sorted, with ids in [0, rows) (it writes NaN
+to all of out otherwise; the plain version sums ids in any order and raises
+for one outside the table). It is one cooperative launch: the ids are cut
+into tiles of equal numbers of ids (``scatter_split_plain`` restates the cut)
+and each row's terms are added in index order, one warp a row; a row with no
+id is written 0. A tensor on the CPU takes the plain PyTorch version; a CUDA
+tensor launches the kernel or raises. The entry point runs on the card and
+prints each kernel's time beside the card's name and power limit, per id for
+A (the function's time over its ids, not a rate of row gathers) and per row
+for B.
 """
 
 from __future__ import annotations
@@ -65,11 +70,28 @@ def gather_probe(idx: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def scatter_probe_plain(idx: torch.Tensor, coef: torch.Tensor, h: torch.Tensor,
                         mb: int) -> torch.Tensor:
-    """Plain version of probe B: [rows, d] in f32."""
+    """Plain version of probe B: [rows, d] in f32, the terms added in index
+    order (sorted or not); an id outside [0, rows) raises."""
     rows = h.shape[0]
     i = torch.arange(mb, device=h.device)
     out = torch.zeros(rows, h.shape[1], dtype=torch.float32, device=h.device)
     return out.index_add_(0, idx[:mb].long(), coef[:mb, None] * h[i % rows].float())
+
+
+def scatter_split_plain(idx, mb: int, rows: int, ctas: int) -> np.ndarray:
+    """The work split of probe B's kernel, restated: [tiles, 2] int64 ranges
+    [lo, hi) of terms, tiles = max(ctas, ceil(mb / 2048)). The ids are cut
+    every ceil(mb / tiles) ids, and each cut moves on to the next row's first
+    id: tile t adds the rows whose first id it holds, whole, in order (CTA b
+    takes the tiles b, b + ctas, ...). A row with no id is written 0: by the
+    tile of the busy row before it, or, before the first id and after the
+    last, by the CTAs in even shares."""
+    ids = np.asarray(idx[:mb], dtype=np.int64)
+    tiles = max(ctas, -(-mb // kernels.SCATTER_TILE_IDS))
+    firsts = np.r_[np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]]) if mb else [], mb]
+    cuts = np.minimum(np.arange(tiles + 1, dtype=np.int64) * max(1, -(-mb // tiles)), mb)
+    at = firsts[np.searchsorted(firsts, cuts)].astype(np.int64)
+    return np.stack([at[:-1], at[1:]], axis=1)
 
 
 def scatter_probe(idx: torch.Tensor, coef: torch.Tensor, h: torch.Tensor,

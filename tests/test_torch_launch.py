@@ -267,6 +267,38 @@ def test_gather_probe_passes_its_scratch_and_path(recorder, monkeypatch, rows, p
     assert tuple(out.shape) == (1, d) and out.dtype == torch.float32
 
 
+@pytest.mark.parametrize("rows,mb,d", [
+    (16384, 1 << 16, 128), (16384, 1 << 16, 41), (64, 1000, 8), (300, 0, 8), (1, 1, 3),
+    (1 << 20, 1 << 16, 16)])
+def test_scatter_probe_passes_a_flag_a_cta(recorder, monkeypatch, rows, mb, d):
+    """One wrapper call is one C call: with the ids, coefficients and table it
+    passes the output, its scratch (an int32 fault flag for each of the
+    SCATTER_CTAS CTAs, which each writes before any reads, right past out's
+    end in the one allocation), the shape and the number of CTAs; nothing is
+    cleared."""
+    idx, coef, h = fake(max(mb, 1), dtype=I32), fake(max(mb, 1)), fake(rows, d)
+    made = {}
+
+    def spy(real):
+        def make(*args, **kwargs):
+            t = real(*args, **kwargs)
+            made[t.data_ptr()] = (real.__name__, tuple(t.shape), t.dtype)
+            return t
+        return make
+
+    monkeypatch.setattr(torch, "empty", spy(torch.empty))
+    monkeypatch.setattr(torch, "zeros", spy(torch.zeros))
+    out = kernels.scatter_probe(idx, coef, h, mb)
+    assert [c[0] for c in recorder] == ["scatter_probe"]
+    call = recorder[0][1]
+    assert call[:4] == (idx.data_ptr(), coef.data_ptr(), h.data_ptr(), out.data_ptr())
+    assert made == {out.data_ptr(): ("empty", (rows * d + kernels.SCATTER_CTAS,), torch.float32)}
+    assert call[4] == out.data_ptr() + 4 * rows * d and out.is_contiguous()
+    assert out.untyped_storage().nbytes() == 4 * (rows * d + kernels.SCATTER_CTAS)
+    assert call[5:] == (rows, mb, d, kernels.SCATTER_CTAS, 7000)
+    assert tuple(out.shape) == (rows, d) and out.dtype == torch.float32
+
+
 class FakeCuda(torch.Tensor):
     """A tensor on the CPU that answers as one on CUDA device 0."""
 
