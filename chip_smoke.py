@@ -241,7 +241,8 @@ def _device_us(fn) -> float:
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+        if (dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", ""))
+                and not getattr(evt, "is_user_annotation", False)):
             total += dev_us
     return total / PROFILED_CALLS
 
@@ -674,8 +675,8 @@ def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)", **dtypes)
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0 and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
+        if (dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", ""))
+                and not getattr(evt, "is_user_annotation", False)):
             kernels_ms[evt.key] = kernels_ms.get(evt.key, 0.0) + dev_us / 1e3
     busy = sum(kernels_ms.values())
     log(f"{label} profile of {epochs} warm fused epochs: wall {wall_ms / epochs:.2f} "
@@ -2778,7 +2779,8 @@ def _busy(fn) -> tuple[float, float]:
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+        if (dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", ""))
+                and not getattr(evt, "is_user_annotation", False)):
             busy += dev_us / 1e3
     return busy, wall
 
@@ -3225,7 +3227,8 @@ def _port_kernel_ms(prof) -> dict:
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
+        if (dev_us > 0 and "CUDA" in str(getattr(evt, "device_type", ""))
+                and not getattr(evt, "is_user_annotation", False)):
             key = next((o for o in own if o in evt.key), "other")
             out[key] = out.get(key, 0.0) + dev_us / 1e3
     return out

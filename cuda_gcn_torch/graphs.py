@@ -24,7 +24,11 @@ epoch's launches leave the host as one graph launch. Its rules:
   under capture runs nothing. The capture's counts are taken back and added
   again at every replay, so that ``kernels.launches`` (and any other counter
   dict passed in) holds what the card ran;
-* no fallback: a capture or a replay that fails raises.
+* no fallback: a capture or a replay that fails raises;
+* spans (utils/profiling.py ``span``): the eager epoch is ``graphs.eager`` and
+  the capture, after the wait for the work before it, ``graphs.capture``, in
+  the trace of a profiler that records meanwhile; a replay is the trace's
+  ``cudaGraphLaunch`` and has none of its own.
 
 A CUDA graph does not outlive its process, so nothing of it is primed
 (train.prime_cache).
@@ -35,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from cuda_gcn_torch import kernels
+from cuda_gcn_torch.utils.profiling import span
 
 
 class EpochGraph:
@@ -61,7 +66,8 @@ class EpochGraph:
                 self.capture()
             self.replay()
         else:
-            self.step()
+            with span("graphs.eager"):
+                self.step()
         self.epochs += 1
 
     def capture(self) -> None:
@@ -74,19 +80,20 @@ class EpochGraph:
             graph.register_generator_state(gen)
         before = [dict(c) for c in self.counters]
         torch.cuda.synchronize()
-        try:
-            with torch.cuda.stream(torch.cuda.Stream()):
-                graph.capture_begin()
-                try:
-                    self.step()
-                finally:
-                    graph.capture_end()
-        finally:
-            after = [dict(c) for c in self.counters]
-            for c, b in zip(self.counters, before):
-                c.update(b)  # the capture ran nothing
-        self.deltas = [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
-                       for a, b in zip(after, before)]
+        with span("graphs.capture"):
+            try:
+                with torch.cuda.stream(torch.cuda.Stream()):
+                    graph.capture_begin()
+                    try:
+                        self.step()
+                    finally:
+                        graph.capture_end()
+            finally:
+                after = [dict(c) for c in self.counters]
+                for c, b in zip(self.counters, before):
+                    c.update(b)  # the capture ran nothing
+            self.deltas = [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
+                           for a, b in zip(after, before)]
         self.graph = graph
 
     def replay(self) -> None:

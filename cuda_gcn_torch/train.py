@@ -53,6 +53,13 @@ epochs; a single epoch runs the stepwise train and eval steps. With
 ``time_ops`` it times every per-op phase afterwards (utils/profiling.py
 ``populate_op_timers``). ``prime_cache`` builds the libraries that a run
 loads (:447-500).
+
+Spans (utils/profiling.py ``span``, recorded only while a torch.profiler
+session records): ``train.create_state``; ``train.epochs`` around each chunked
+runner, with ``train.chunk_read`` around every read of a chunk's rows and
+``train.trailing_eval`` (the fused loop) or ``train.stop_flag`` (the
+early-stopping loop) inside it; ``train.eval`` around every ``eval_step``.
+graphs.py adds ``graphs.eager`` and ``graphs.capture``.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from cuda_gcn_torch.models.gcn import GCN
 from cuda_gcn_torch.ops import adam
 from cuda_gcn_torch.ops import matmul as matmul_ops
 from cuda_gcn_torch.ops.loss import l2_penalty, masked_cross_entropy, strict_accuracy
+from cuda_gcn_torch.utils.profiling import span
 from cuda_gcn_torch.utils.timer import TMR_TEST, TMR_TRAIN, timers
 
 
@@ -92,12 +100,13 @@ def create_state(cfg: GCNConfig, device: str | torch.device | None = None) -> Tr
     (the same weights on every device), zero f32 Adam moments, and a dropout
     generator on the device."""
     device = resolve_device(device)
-    model = GCN(cfg.layer_dims(), torch.Generator().manual_seed(cfg.seed),
-                getattr(torch, cfg.param_dtype)).to(device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed + 1)
-    return TrainState(model=model, opt=adam.init(dict(model.named_parameters())),
-                      generator=generator)
+    with span("train.create_state"):
+        model = GCN(cfg.layer_dims(), torch.Generator().manual_seed(cfg.seed),
+                    getattr(torch, cfg.param_dtype)).to(device)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(cfg.seed + 1)
+        return TrainState(model=model, opt=adam.init(dict(model.named_parameters())),
+                          generator=generator)
 
 
 def make_truth(split: np.ndarray, label: np.ndarray, current_split: int,
@@ -134,8 +143,9 @@ def train_step(state: TrainState, graph: Graph, x, truth, *, dropout_rate: float
 @torch.no_grad()
 def eval_step(model: GCN, graph: Graph, x, truth, *, weight_decay: float):
     """Evaluation forward (training=false): (loss incl. L2, acc) (gcn.cpp:120-128)."""
-    loss, _, acc = model.loss_fn(graph, x, truth, weight_decay=weight_decay)
-    return loss, acc
+    with span("train.eval"):
+        loss, _, acc = model.loss_fn(graph, x, truth, weight_decay=weight_decay)
+        return loss, acc
 
 
 def _fused_epoch(state: TrainState, graph: Graph, x, truth_train, truth_val, *,
@@ -306,29 +316,32 @@ def chunked_fused_epochs(epoch, trailing_eval, state, nnz: int, *, epochs: int,
     counter less its value at the start, minus one, computed on the device;
     the trailing eval fills row ``epochs``. ``graphed``: run the iterations
     as an ``EpochGraph``. Returns the realigned metrics [epochs, 4]."""
-    device = state.opt.step.device
-    buf = torch.zeros(epochs + 1, 4, device=device)
-    base = state.opt.step.clone()
+    with span("train.epochs"):
+        device = state.opt.step.device
+        buf = torch.zeros(epochs + 1, 4, device=device)
+        base = state.opt.step.clone()
 
-    def step():
-        row = epoch()
-        _put_row(buf, state.opt.step - base - 1, row)
+        def step():
+            row = epoch()
+            _put_row(buf, state.opt.step - base - 1, row)
 
-    run = _epoch_runner(step, state, graphed, counters)
-    done = 0
+        run = _epoch_runner(step, state, graphed, counters)
+        done = 0
 
-    def run_one(k):
-        nonlocal done
-        for _ in range(k):
-            run()
-        done += k
-        return buf[done - k:done].T.cpu().numpy()
+        def run_one(k):
+            nonlocal done
+            for _ in range(k):
+                run()
+            done += k
+            with span("train.chunk_read"):
+                return buf[done - k:done].T.cpu().numpy()
 
-    run_chunked_loop(run_one, epochs, chunk, nnz, times_out=times_out)
-    if not epochs:
-        return torch.zeros(0, 4, device=device)
-    buf[epochs, 2:] = torch.stack(trailing_eval())
-    return torch.stack([buf[:-1, 0], buf[:-1, 1], buf[1:, 2], buf[1:, 3]], dim=1)
+        run_chunked_loop(run_one, epochs, chunk, nnz, times_out=times_out)
+        if not epochs:
+            return torch.zeros(0, 4, device=device)
+        with span("train.trailing_eval"):
+            buf[epochs, 2:] = torch.stack(trailing_eval())
+            return torch.stack([buf[:-1, 0], buf[:-1, 1], buf[1:, 2], buf[1:, 3]], dim=1)
 
 
 def chunked_es_epochs(epoch, state, nnz: int, *, epochs: int, es_window: int,
@@ -341,35 +354,38 @@ def chunked_es_epochs(epoch, state, nnz: int, *, epochs: int, es_window: int,
     at the 1-based epoch e = Adam's step counter less its value at the start,
     on the device; the host reads the flag after each epoch. Returns (metrics
     [epochs run, 4], stopped)."""
-    device = state.opt.step.device
-    buf = torch.full((epochs, 4), float("inf"), device=device)
-    ring = torch.full((es_window,), float("inf"), device=device)
-    stop = torch.zeros((), dtype=torch.bool, device=device)
-    base = state.opt.step.clone()
+    with span("train.epochs"):
+        device = state.opt.step.device
+        buf = torch.full((epochs, 4), float("inf"), device=device)
+        ring = torch.full((es_window,), float("inf"), device=device)
+        stop = torch.zeros((), dtype=torch.bool, device=device)
+        base = state.opt.step.clone()
 
-    def step():
-        row = epoch()
-        e = state.opt.step - base
-        _put_row(buf, e - 1, row)
-        ring.index_copy_(0, ((e - 1) % es_window).long().view(1), row[2:3])
-        torch.logical_and(e >= es_window, row[2] > ring.mean(), out=stop)
+        def step():
+            row = epoch()
+            e = state.opt.step - base
+            _put_row(buf, e - 1, row)
+            ring.index_copy_(0, ((e - 1) % es_window).long().view(1), row[2:3])
+            torch.logical_and(e >= es_window, row[2] > ring.mean(), out=stop)
 
-    run = _epoch_runner(step, state, graphed, counters)
-    done = 0
+        run = _epoch_runner(step, state, graphed, counters)
+        done = 0
 
-    def run_one(k):
-        nonlocal done
-        n, stopped = 0, False
-        while n < k and not stopped:
-            run()
-            n += 1
-            stopped = bool(stop)  # the 4-byte flag: the host's one read an epoch
-        done += n
-        return buf[done - n:done].T.cpu().numpy(), n, stopped
+        def run_one(k):
+            nonlocal done
+            n, stopped = 0, False
+            while n < k and not stopped:
+                run()
+                n += 1
+                with span("train.stop_flag"):
+                    stopped = bool(stop)  # the 4-byte flag: the host's one read an epoch
+            done += n
+            with span("train.chunk_read"):
+                return buf[done - n:done].T.cpu().numpy(), n, stopped
 
-    _, stopped = run_chunked_loop(run_one, epochs, chunk, nnz, passes_per_epoch=6,
-                                  times_out=times_out)
-    return buf[:done], stopped
+        _, stopped = run_chunked_loop(run_one, epochs, chunk, nnz, passes_per_epoch=6,
+                                      times_out=times_out)
+        return buf[:done], stopped
 
 
 def run_epochs_chunked(state: TrainState, graph: Graph, x, truth_train, truth_val, *,

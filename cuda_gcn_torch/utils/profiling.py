@@ -1,9 +1,14 @@
-"""Profiling (cuda_gcn_tpu/utils/profiling.py): a torch.profiler trace, a
-speed-of-light model of one aggregation pass, and per-op device times.
+"""Profiling (cuda_gcn_tpu/utils/profiling.py): a torch.profiler trace, the
+program's spans in it, a speed-of-light model of one aggregation pass, and
+per-op device times.
 
 * ``trace(logdir)`` — a context manager around ``torch.profiler`` that writes
   ``<logdir>/trace.json``, a Chrome trace of the host and, on the card, of
   every kernel;
+* ``span(name)`` — a named range of the program's host code (train.py,
+  graphs.py) in that trace, on the clock of its kernel and copy records: a
+  ``torch.profiler.record_function`` while a profiler session records, and
+  nothing but one read of the profiler's flag otherwise;
 * ``spmm_speed_of_light`` — the least time of one pass on the card: a random
   row gather moves at least ``max(row_bytes, GATHER_TRANSACTION_BYTES)`` per
   edge from HBM, dense tiles stream at ``hbm_gbps``; and the share of that
@@ -20,6 +25,7 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # The least a random row gather moves from HBM: one 32-byte L2 sector (the
 # H100's L2 line is four such sectors, each filled on its own; NVIDIA's CUDA C++
@@ -41,6 +47,23 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# what ``span`` returns while no profiler records: reusable, it does nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks ``name`` in the trace of any torch.profiler
+    session that records meanwhile (``trace`` above, or the benchmark's), as a
+    ``user_annotation`` event. With no session it enters nothing: the check is
+    one read of the flag torch.profiler sets while it records, so a span on a
+    per-epoch path costs well under a microsecond when nobody traces. A span
+    neither synchronises nor touches the device, so it moves no launch and no
+    random draw."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def spmm_speed_of_light(nnz: int, dim: int, measured_s: float,
