@@ -156,6 +156,16 @@ Phases, each of which raises (exit code not 0) when it fails:
     ``device`` naming the card, ``sol_fraction_lower_bound`` in (0, 1.05],
     a finite ``test_acc``; kernels 1 and 2 launched 4 · 100 + 2 times each in
     its measured run (its stderr).
+(v) the dense layer-0 kernel (csrc/layer0_pair.cu, run after (j)): at
+    ``LAYER0_EDGES`` (both of its ways through x) and at synth-reddit (f32,
+    bf16) and pubmed sizes, xd bit for bit the plain version's
+    (``ops.matmul.layer0_pair_plain``, whose mask is Philox's), the keep
+    share within 5 sigma of 1 - p, zt and ze within the f32 sums' bound of
+    f64 products of the kernel's own xd and of x, the train-only launch and a
+    second launch equal to the first; the masks of an ``EpochGraph``'s
+    epochs equal to the eager epochs' of the same seed, and fresh each
+    epoch; then timed by events and the profiler beside its bytes bound, the
+    plain version and the six launches of dropout and two cuBLAS products.
 
 ``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
 of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
@@ -172,7 +182,8 @@ steady ms an epoch with the capture left out.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
-call) and the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
+call), the dense layer-0 kernel (``layer0_pair``, with its times at the
+``LAYER0_SHAPES``) and the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
 ``csr_spmm_bf16``, ``ell_spmm_bf16``; kernels 1-3 carry their (n) numbers
 under ``synth_reddit4x``, kernels 1 and 2 their (p) numbers under ``sharded``), and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and prints no result.
@@ -195,6 +206,9 @@ PEAK_BF16_FLOPS = 989e12
 EPOCHS = 10               # main-path epochs
 WIDTHS = (16, 32, 41, 82)  # pass widths of the main path: pair 32/82, backward 16/41
 ATOL, RTOL = 1e-5, 1e-4    # f32; only the summation order differs from the plain version
+# the port's device kernels, by a part of their names
+PORT_KERNELS = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials",
+                "layer0_flat", "layer0_pair")
 
 
 def log(msg: str) -> None:
@@ -592,9 +606,10 @@ def phase_main_path(dataset):
         raise AssertionError(f"train loss did not fall: {losses}")
     expected = 4 * EPOCHS + 2 + 2
     log(f"  launches {launches}; expected {expected} each for bsr_tile and csr_spmm "
-        f"(4 per epoch + 2 trailing eval + 2 test eval), 0 for the others")
-    if any(v != (expected if k in ("bsr_tile", "csr_spmm") else 0)
-           for k, v in launches.items()):
+        f"(4 per epoch + 2 trailing eval + 2 test eval), layer0_pair {EPOCHS} (one an "
+        f"epoch: the dense layer 0 in training), 0 for the others")
+    if any(v != (expected if k in ("bsr_tile", "csr_spmm") else EPOCHS if k == "layer0_pair"
+                 else 0) for k, v in launches.items()):
         raise AssertionError("a kernel did not run on every adjacency pass")
     return launches
 
@@ -682,7 +697,7 @@ def phase_profile(graph, dataset, epochs: int = 3, label: str = "(f)", **dtypes)
     log(f"{label} profile of {epochs} warm fused epochs: wall {wall_ms / epochs:.2f} "
         f"ms/epoch, device busy {busy / epochs:.2f} ms/epoch ({busy / wall_ms:.3f} of wall)")
     ranked = sorted(kernels_ms.items(), key=lambda kv: -kv[1])
-    own = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials")
+    own = PORT_KERNELS
     for i, (name, ms) in enumerate(ranked):  # the top 8, and every kernel of the port
         if i < 8 or any(key in name for key in own):
             log(f"  {ms / epochs:9.3f} ms/epoch  {name[:110]}")
@@ -999,9 +1014,10 @@ def phase_pallas_path(errs):
     if not res.history[-1]["train_loss"] < res.history[0]["train_loss"]:
         raise AssertionError("train loss did not fall on the pallas path")
     expected = 4 * PUBMED_EPOCHS + 2 + 2
-    log(f"  launches {launches}; expected ell_spmm {expected}, every other kernel 0")
-    if launches["ell_spmm"] != expected or any(
-            v for k, v in launches.items() if k != "ell_spmm"):
+    log(f"  launches {launches}; expected ell_spmm {expected}, layer0_pair {PUBMED_EPOCHS} (one "
+        f"an epoch), every other kernel 0")
+    if launches["ell_spmm"] != expected or launches["layer0_pair"] != PUBMED_EPOCHS or any(
+            v for k, v in launches.items() if k not in ("ell_spmm", "layer0_pair")):
         raise AssertionError("the pallas path did not run every pass through kernel 3")
 
     phase_steady(graph, ds, " (synth-pubmed, pallas)")
@@ -2198,14 +2214,14 @@ def phase_bf16(dataset, errs):
     del ell_graph
     torch.cuda.empty_cache()
 
-    launches = {"bsr": _bf16_run(dataset, "bsr", EPOCHS, {"bsr_tile": 4 * EPOCHS + 4,
-                                                          "csr_spmm": 4 * EPOCHS + 4},
-                                 "synth-reddit bsr, compute bf16", **bf)}
-    _bf16_run(dataset, "bsr", EPOCHS, {"bsr_tile": 4 * EPOCHS + 4, "csr_spmm": 4 * EPOCHS + 4},
-              "synth-reddit bsr, compute and param bf16", compute_dtype="bfloat16",
-              param_dtype="bfloat16")
+    bsr = {"bsr_tile": 4 * EPOCHS + 4, "csr_spmm": 4 * EPOCHS + 4, "layer0_pair": EPOCHS}
+    launches = {"bsr": _bf16_run(dataset, "bsr", EPOCHS, bsr, "synth-reddit bsr, compute bf16",
+                                 **bf)}
+    _bf16_run(dataset, "bsr", EPOCHS, bsr, "synth-reddit bsr, compute and param bf16",
+              compute_dtype="bfloat16", param_dtype="bfloat16")
     launches["ell"] = _bf16_run(raw, "ell", REDDIT_ELL_EPOCHS,
-                                {"ell_spmm": 4 * REDDIT_ELL_EPOCHS + 4},
+                                {"ell_spmm": 4 * REDDIT_ELL_EPOCHS + 4,
+                                 "layer0_pair": REDDIT_ELL_EPOCHS},
                                 "synth-reddit ell, compute bf16", **bf)
     del raw
 
@@ -2391,7 +2407,7 @@ def phase_reddit4x(errs):
     # two run_epochs calls (2 warm-up epochs and e timed), each with its trailing eval
     _counted(f"{name} dense", lambda: steady.__setitem__("dense", phase_steady(
         graph, ds, f" {name}, dense f32 features", epochs=e)),
-        {"bsr_tile": 4 * (2 + e) + 4, "csr_spmm": 4 * (2 + e) + 4})
+        {"bsr_tile": 4 * (2 + e) + 4, "csr_spmm": 4 * (2 + e) + 4, "layer0_pair": 2 + e})
     peak_dense = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2399,7 +2415,7 @@ def phase_reddit4x(errs):
     t0 = time.perf_counter()
     _counted(f"{name} graph", lambda: train.run_epochs_chunked(
         train.create_state(cfg, "cuda"), graph, xd, *truths, epochs=e, **kw).cpu(),
-        {"bsr_tile": 4 * e + 2, "csr_spmm": 4 * e + 2})
+        {"bsr_tile": 4 * e + 2, "csr_spmm": 4 * e + 2, "layer0_pair": e})
     graph_s = time.perf_counter() - t0
     peak_graph = torch.cuda.max_memory_allocated()
     del xd
@@ -2455,7 +2471,7 @@ def phase_reddit4x(errs):
     setup["segment_build_s"] = time.perf_counter() - t0
     _counted(f"{name} segment", lambda: steady.__setitem__("segment dense", phase_steady(
         graph, ds, f" {name}, backend segment, dense f32 features", epochs=e)),
-        {"csr_spmm": 4 * (2 + e) + 4})
+        {"csr_spmm": 4 * (2 + e) + 4, "layer0_pair": 2 + e})
     result["host_peak_gb"] = _host_gb()
     del graph, ds
     torch.cuda.empty_cache()
@@ -2656,8 +2672,8 @@ def phase_native(dataset, device: str = "cuda") -> dict:
     losses = [float(line.split()[1].split("=")[1]) for line in lines[4:4 + NATIVE_CLI_EPOCHS]]
     ok = ok and all(np.isfinite(losses))
     # segment backend: kernel 2 on every adjacency pass, 4 an epoch and 2 for
-    # each of the trailing and the test eval
-    expected = {"csr_spmm": 4 * NATIVE_CLI_EPOCHS + 4}
+    # each of the trailing and the test eval; the dense layer 0 once an epoch
+    expected = {"csr_spmm": 4 * NATIVE_CLI_EPOCHS + 4, "layer0_pair": NATIVE_CLI_EPOCHS}
     log(f"  cli.main reddit --backend segment: rc {rc}, train losses {losses}; launches "
         f"{launches}; expected {expected}, 0 for the others")
     if not ok or any(v != expected.get(k, 0) for k, v in launches.items()):
@@ -2710,7 +2726,8 @@ def phase_cli_extras():
         _counted("(o) resumed run", lambda: printed_out.append(main(
             "--epochs", "2", "--load-checkpoint", path["half.npz"], "--save-checkpoint",
             path["end.npz"], "--metrics-jsonl", path["end.jsonl"], "--metrics-csv",
-            path["end.csv"], "--timing")), {"bsr_tile": passes, "csr_spmm": passes})
+            path["end.csv"], "--timing")),
+            {"bsr_tile": passes, "csr_spmm": passes, "layer0_pair": 2})
         out = printed_out[0]
         full = [json.loads(line) for line in open(path["full.jsonl"])]
         end = [json.loads(line) for line in open(path["end.jsonl"])]
@@ -3222,7 +3239,7 @@ def _compare(label: str, got: dict, want: dict) -> str:
 def _port_kernel_ms(prof) -> dict:
     """Device ms of every kernel of the port seen by the profiler, by name."""
     out = {}
-    own = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials")
+    own = PORT_KERNELS
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -3475,6 +3492,9 @@ def _prime_cli():
     import os
     import shutil
 
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.data import native
+
     root = os.path.dirname(os.path.abspath(__file__))
     cache = os.path.join(root, "build", "prime_check")
     shutil.rmtree(cache, ignore_errors=True)
@@ -3499,8 +3519,9 @@ def _prime_cli():
     log(f"  then --compilation-cache (same) --epochs 3 with the compilers refused: rc "
         f"{again.returncode} in {run_s:.1f} s; "
         + " | ".join(line for line in again.stdout.splitlines() if line.startswith("epoch=3")))
-    if prime.returncode or again.returncode or after != built or len(primed) != 9 \
-            or not primed[-1].startswith("primed 8 programs"):
+    programs = len(kernels.SOURCES) + len(native.SOURCES)
+    if prime.returncode or again.returncode or after != built or len(primed) != programs + 1 \
+            or not primed[-1].startswith(f"primed {programs} programs"):
         raise AssertionError(f"--prime-cache / --compilation-cache failed:\n{prime.stdout}"
                              f"{prime.stderr}\n{again.stdout}{again.stderr}")
     shutil.rmtree(cache, ignore_errors=True)
@@ -3581,7 +3602,7 @@ def phase_graphs(dataset):
     cfg, graph, x, truths = train.prepare(cfg, dataset, "cuda")
     out["synth-reddit bsr"] = _graph_against_eager(
         "synth-reddit bsr 602-16-41", graph, x, (truths[1], truths[2]), cfg, e,
-        {"bsr_tile": 4 * e + 2, "csr_spmm": 4 * e + 2})
+        {"bsr_tile": 4 * e + 2, "csr_spmm": 4 * e + 2, "layer0_pair": e})
     del graph, x, truths
     torch.cuda.empty_cache()
 
@@ -3590,7 +3611,7 @@ def phase_graphs(dataset):
     cfg, graph, x, truths = train.prepare(cfg, pubmed, "cuda")
     out["synth-pubmed pallas"] = _graph_against_eager(
         "synth-pubmed pallas 500-16-3", graph, x, (truths[1], truths[2]), cfg, e,
-        {"ell_spmm": 4 * e + 2})
+        {"ell_spmm": 4 * e + 2, "layer0_pair": e})
     es_cfg = GCNConfig(graphsum_backend="ell", seed=0, **GRAPH_ES)
     es_cfg, graph, x, truths = train.prepare(es_cfg, pubmed, "cuda")
     out["early stopping"] = _es_against_eager(graph, x, (truths[1], truths[2]), es_cfg)
@@ -3797,6 +3818,191 @@ def phase_bench_scaling() -> dict:
     return doc
 
 
+# (v) the dense layer-0 kernel. Edge cases: (rows, F, H, dtype, rate, element
+# offset of x in its buffer), each way (kernels.layer0_path). Flat: F = 67 and
+# 5 (a warp's columns ending inside a group of 4, warps with none), H below
+# 16, bf16, the correctly rounded division at rate 0.3, a last block of fewer
+# than 32 rows. Chunked: F = 3,703 (58 chunks of W, more than one piece of
+# shared memory at H = 16); H 32, 41, 64 and 100 (a launch per 64 columns);
+# x off 16 bytes, bf16 rows 2 bytes off a 4-byte boundary (an offset of one
+# element; at odd F every other row); row counts no multiple of 128.
+LAYER0_EDGES = (
+    (1000, 67, 16, "float32", 0.5, 0), (70, 5, 16, "float32", 0.5, 0),
+    (777, 602, 6, "float32", 0.3, 0), (1001, 602, 16, "bfloat16", 0.3, 0),
+    (300, 3703, 16, "float32", 0.5, 0), (500, 602, 41, "bfloat16", 0.5, 1),
+    (129, 101, 100, "bfloat16", 0.3, 1), (64, 602, 32, "float32", 0.5, 1),
+    (333, 602, 16, "float32", 0.5, 2), (256, 500, 64, "bfloat16", 0.5, 0),
+    (1, 1, 1, "float32", 0.5, 0))
+LAYER0_SHAPES = (("synth-reddit", 232965, 602, "float32"), ("synth-reddit", 232965, 602, "bfloat16"),
+                 ("synth-pubmed", 19717, 500, "float32"))
+LAYER0_MASK_ROWS = 20000  # rows of a full-size x whose mask is held to the plain version's
+LAYER0_ITERS = 20
+
+
+def _layer0_inputs(n, f, h, dtype, offset, seed):
+    """x [n, f] (3% of it nonzero, as synth-reddit's features; from element
+    ``offset`` of its buffer), an f32 W scaled as Glorot's, and two int64 seeds
+    drawn as the op draws them."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.rand(offset + n * f, generator=gen, device="cuda")
+    buf = torch.where(torch.rand(buf.shape, generator=gen, device="cuda") < 0.03, buf, 0.0)
+    x = buf.to(getattr(torch, dtype))[offset:].view(n, f)
+    w = torch.randn(f, h, generator=gen, device="cuda") * (2.0 / (f + h)) ** 0.5
+    seeds = torch.empty(2, dtype=torch.int64, device="cuda").random_(generator=gen)
+    return x, w, seeds
+
+
+def _layer0_check(label, x, w, seeds, rate, mask_rows=None) -> dict:
+    """The kernel against the plain version: xd bit for bit (every value 0 or
+    x / (1 - p) correctly rounded, the plain version's Philox mask), on the
+    first ``mask_rows`` rows where given; the keep share of x's nonzeros
+    within 5 sigma of 1 - p; zt and ze against f64 products of the kernel's
+    own xd and of x, within the f32 sums' bound (F·2^-23 of Σ|terms|) and one
+    rounding to x's type; the train-only launch and a second launch equal to
+    the first bit for bit."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.ops.matmul import layer0_pair_plain
+
+    xd, zt, ze = kernels.layer0_pair(x, w, seeds, rate, True)
+    xd2, zt2, _ = kernels.layer0_pair(x, w, seeds, rate, False)
+    torch.cuda.synchronize()
+    rows = x.shape[0] if mask_rows is None else min(mask_rows, x.shape[0])
+    want_xd = layer0_pair_plain(x[:rows], w, seeds, rate, False)[0]
+    if not torch.equal(xd[:rows], want_xd):
+        bad = int((xd[:rows] != want_xd).sum())
+        raise AssertionError(f"(v) {label}: xd differs from the plain version at {bad} elements")
+    if not (torch.equal(xd, xd2) and torch.equal(zt, zt2)):
+        raise AssertionError(f"(v) {label}: the train-only launch differs from the pair's")
+    nz = x != 0
+    kept = int((xd != 0).sum())
+    q, total = kernels.dropout_keep(rate)[0], int(nz.sum())
+    z = (kept - q * total) / max((q * (1 - q) * total) ** 0.5, 1e-30)
+    if abs(z) > 5 or int((xd[~nz] != 0).sum()):
+        raise AssertionError(f"(v) {label}: keep share {kept}/{total} reads {z:.2f} sigma")
+    wr = w.to(x.dtype).double()
+    unit = 2.0 ** -8 if x.dtype == torch.bfloat16 else 2.0 ** -24
+    worst = 0.0
+    for name, got, a in (("zt", zt, xd), ("ze", ze, x)):
+        ref = a.double() @ wr
+        tol = x.shape[1] * 2.0 ** -23 * (a.double().abs() @ wr.abs()) + unit * ref.abs() + 1e-30
+        ratio = float(((got.double() - ref).abs() / tol).max()) if got.numel() else 0.0
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            raise AssertionError(f"(v) {label}: {name} off its f64 product, {ratio:.3f} of the bound")
+    again = kernels.layer0_pair(x, w, seeds, rate, True)
+    if not all(torch.equal(a, b) for a, b in zip(again, (xd, zt, ze))):
+        raise AssertionError(f"(v) {label}: a second launch differs")
+    path = kernels.layer0_path(x.shape[1], x.element_size(), True, x.data_ptr())
+    log(f"  {label} ({path}): xd equal to the plain version on {rows} rows, keep {kept}/{total} "
+        f"({z:+.2f} sigma), products at {worst:.3f} of their bound, repeatable, ok")
+    return dict(keep_z=z, err_of_bound=worst)
+
+
+def _layer0_graph_masks(seed: int = 11) -> None:
+    """Through the op as training calls it: the mask of each of 3 epochs of an
+    ``EpochGraph`` (eager, then capture and replays) equals the mask a fresh
+    generator of the same seed draws eagerly, epoch by epoch, and consecutive
+    epochs' masks differ."""
+    import torch
+
+    from cuda_gcn_torch import graphs
+    from cuda_gcn_torch.ops.matmul import layer0_dense_pair
+
+    x, w, _ = _layer0_inputs(19717, 500, 16, "float32", 0, 3)
+    w.requires_grad_(True)
+    seen = torch.zeros_like(x)
+
+    def keep(t):
+        if t.shape == x.shape:
+            seen.copy_(t)
+        return t
+
+    def run(gen):
+        def step():
+            with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+                layer0_dense_pair(x, w, 0.5, gen, True)
+        return step
+
+    masks = {}
+    for how in ("graph", "eager"):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        step = run(gen)
+        fn = graphs.EpochGraph(step, (gen,), ()).run if how == "graph" else step
+        masks[how] = []
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            masks[how].append(seen != 0)
+    same = [torch.equal(a, b) for a, b in zip(masks["graph"], masks["eager"])]
+    differ = [not torch.equal(a, b) for a, b in zip(masks["graph"], masks["graph"][1:])]
+    log(f"  a captured step and its replays draw the eager epochs' masks {same}; consecutive "
+        f"epochs' masks differ {differ}")
+    if not all(same) or not all(differ):
+        raise AssertionError("(v) the graph's masks are not the eager epochs' fresh masks")
+
+
+def phase_layer0_pair() -> dict:
+    """(v) the dense layer-0 kernel (csrc/layer0_pair.cu): checked against its
+    plain version at ``LAYER0_EDGES`` and at full size, replays of a captured
+    step against eager epochs, then timed at ``LAYER0_SHAPES`` (events and the
+    profiler's device time) beside its bound (bytes: x read once, xd written
+    once, the products written once; 4·N·F·H f32 operations), the plain
+    version and the six launches the model ran before (dropout's rand,
+    compare, scale and where, and cuBLAS's two products)."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.device import resolve_device
+    from cuda_gcn_torch.ops.dropout import dropout
+    from cuda_gcn_torch.ops.matmul import dense_matmul, layer0_dense_pair, layer0_pair_plain
+
+    resolve_device("cuda")  # TF32 off for the yardstick and the f64-checked products
+    log(f"(v) the dense layer-0 kernel; {_clocks()}")
+    for i, (n, f, h, dtype, rate, offset) in enumerate(LAYER0_EDGES):
+        x, w, seeds = _layer0_inputs(n, f, h, dtype, offset, 100 + i)
+        _layer0_check(f"[{n}, {f}] x [{f}, {h}] {dtype} p={rate} at element {offset}",
+                      x, w, seeds, rate)
+    _layer0_graph_masks()
+    rows = {}
+    for label, n, f, dtype in LAYER0_SHAPES:
+        h, rate = 16, 0.5
+        x, w, seeds = _layer0_inputs(n, f, h, dtype, 0, 7)
+        key = f"{label} {dtype}"
+        check = _layer0_check(key, x, w, seeds, rate, LAYER0_MASK_ROWS)
+        item = x.element_size()
+        nbytes = 2 * n * f * item + 2 * n * h * item + 4 * f * h
+        bound, by = _bound(nbytes, 4 * n * f * h)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        wg = w.clone().requires_grad_(True)
+        fns = {
+            "pair": lambda: kernels.layer0_pair(x, w, seeds, rate, True),
+            "train": lambda: kernels.layer0_pair(x, w, seeds, rate, False),
+            "op": lambda: layer0_dense_pair(x, wg, rate, gen, True, with_eval=True),
+            "six_launches": lambda: (dense_matmul(dropout(x, rate, gen, True), w),
+                                     dense_matmul(x, w)),
+        }
+        ms = {k: cuda_ms(fn, LAYER0_ITERS) for k, fn in fns.items()}
+        ms["plain"] = cuda_ms(lambda: layer0_pair_plain(x, w, seeds, rate, True), 3)
+        dev_us = _device_us(fns["pair"])
+        rows[key] = dict(n=n, f=f, h=h, dtype=dtype, ms=ms["pair"], train_ms=ms["train"],
+                         op_ms=ms["op"], device_us=dev_us, bound_ms=bound, bound_by=by,
+                         share_of_bound=bound / ms["pair"], plain_ms=ms["plain"],
+                         library_ms=ms["six_launches"], **check)
+        log(f"  {key} [{n}, {f}] x [{f}, {h}]: pair {ms['pair']:.4f} ms (device "
+            f"{dev_us / 1e3:.4f} ms by the profiler), train half alone {ms['train']:.4f}, the "
+            f"op with its seed draw {ms['op']:.4f}; bound {bound:.4f} ms ({by}, "
+            f"{nbytes / 1e9:.3f} GB): {100 * bound / ms['pair']:.1f}% of it; plain version "
+            f"{ms['plain']:.3f} ms; dropout + two cuBLAS products {ms['six_launches']:.4f} ms")
+        del x, w, seeds, wg, fns
+        torch.cuda.empty_cache()
+    log(f"  {_clocks()}")
+    return dict(rows=rows, launches=kernels.launches["layer0_pair"])
+
+
 def main() -> int:
     import torch
 
@@ -3855,6 +4061,7 @@ def main() -> int:
     reddit, ell_split = phase_ell_reddit(errs)
     probe_rows = phase_probes(errs)
     taa_rows = phase_taa_probes(errs)
+    layer0_pair = phase_layer0_pair()
     text_launches = phase_text_entry()
     cli_timers = phase_cli_extras()
     shard = phase_sharded()
@@ -3910,6 +4117,15 @@ def main() -> int:
         kernels_line.append({"name": name, "route": "cuda",
                              "source": "cuda_gcn_torch/csrc/taa_probe.cu",
                              "replaces": replaces[name], **line})
+    reddit_f32 = layer0_pair["rows"]["synth-reddit float32"]
+    kernels_line.append({
+        "name": "layer0_pair", "route": "cuda", "source": "cuda_gcn_torch/csrc/layer0_pair.cu",
+        "replaces": "none: XLA fuses the dropout into the layer-0 product "
+                    "(cuda_gcn_tpu/models/gcn.py:32-48)",
+        "launches": layer0_pair["launches"], "ms": reddit_f32["ms"],
+        "plain_ms": reddit_f32["plain_ms"], "bound_ms": reddit_f32["bound_ms"],
+        "bound_by": reddit_f32["bound_by"], "library_ms": reddit_f32["library_ms"],
+        "device_us": reddit_f32["device_us"], "shapes": layer0_pair["rows"]})
     kernels_line += _bf16_kernel_lines(bf16)
     for line in kernels_line:  # (t): the benchmark entry's measured run
         if line["name"] in bench_run["launches"]:

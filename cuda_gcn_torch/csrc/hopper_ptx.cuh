@@ -1,6 +1,7 @@
 // Thin wrappers over the Hopper (sm_90a) PTX that kernel 1 is built from:
 // mbarriers, TMA tensor loads, and the warpgroup matrix multiply wgmma with
-// both operands read from shared memory through matrix descriptors.
+// both operands read from shared memory through matrix descriptors; and the
+// bulk copies that the dense layer-0 kernel (layer0_pair.cu) streams with.
 
 #pragma once
 
@@ -73,6 +74,47 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- bulk copies (the TMA without a tensor map) ------------------------------
+
+// `bytes` (a multiple of 16, both addresses on 16 bytes) global -> shared;
+// they are counted on the barrier as they land.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (as above) shared -> global, in this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's writes to shared memory before the bulk copies (the
+// async proxy) that later read it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------

@@ -19,10 +19,11 @@ done once: each C function is bound with its argtypes when its library is
 loaded, devices are compared by index, and a refusal is worded only when
 there is one.
 
-Kernels 1-3 take f32 or bf16 activations (``ACT_DTYPES``): each C entry gets a
-dtype code (``dtype_code``, ``spmm_code``) and runs the variant built for it,
-with f32 sums and the output in h's type. A type that has no variant is
-refused here, and by the C entry; nothing is cast to reach another variant.
+Kernels 1-3 and the dense layer-0 kernel (``layer0_pair``) take f32 or bf16
+activations (``ACT_DTYPES``): each C entry gets a dtype code (``dtype_code``,
+``spmm_code``) and runs the variant built for it, with f32 sums and the
+output in h's type. A type that has no variant is refused here, and by the C
+entry; nothing is cast to reach another variant.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -37,6 +39,7 @@ import subprocess
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +67,9 @@ _ENTRY = {
                   [_P, _L, _L, _L, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "cumsum_cols": ("taa_probe", "cumsum_cols", [_P, _P, _P, _I, _I, _I, _P]),
     "piece": ("taa_probe", "piece", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "layer0_pair": ("layer0_pair", "layer0_pair",
+                    [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, ctypes.c_float,
+                     ctypes.c_float, _I, ctypes.c_uint32, _I, _I, _I, _P]),
 }
 SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
@@ -694,3 +700,86 @@ def piece(ids, coef, begin, end, tab, reps: int = 1) -> torch.Tensor:
           tab.data_ptr(), out.data_ptr(), cs.data_ptr(), totals.data_ptr(), s, l, reps,
           _stream(dev))
     return out
+
+
+# The dense layer-0 kernel (csrc/layer0_pair.cu): a launch computes
+# LAYER0_COLS output columns (W's columns past H zero-filled); a wider W takes
+# a launch per LAYER0_COLS columns.
+LAYER0_COLS = 16
+
+
+# The flat way: a CTA of LAYER0_FLAT_WARPS computing warps (and one that
+# copies) over blocks of 32 rows.
+LAYER0_FLAT_WARPS = 8
+LAYER0_PATHS = ("chunked", "flat")
+
+
+def layer0_flat_smem(f: int, itemsize: int, with_eval: bool) -> int:
+    """Shared memory of the flat way: two stages, each a block of 32 rows and
+    16 bytes a masked read past it may touch; W whole, its rows zero-filled to
+    a multiple of 8; the computing warps' partial sums, a row of them padded to
+    an odd number of words; the stages' four barriers."""
+    stage = -(-32 * f * itemsize // 16) * 16 + 16
+    sums = 4 * LAYER0_FLAT_WARPS * 32 * ((2 if with_eval else 1) * LAYER0_COLS + 1)
+    return 2 * stage + 4 * -(-f // 8) * 8 * LAYER0_COLS + sums + 4 * 8
+
+
+def layer0_path(f: int, itemsize: int, with_eval: bool, x_ptr: int) -> str:
+    """Which way the dense layer-0 kernel takes through x: 'flat' (blocks of 32
+    whole rows as one range, W whole) where its shared memory fits a block's
+    and x starts on 16 bytes, else 'chunked' (chunks of 64 columns)."""
+    if x_ptr % 16 == 0 and layer0_flat_smem(f, itemsize, with_eval) <= SMEM_BLOCK_BYTES:
+        return "flat"
+    return "chunked"
+
+
+def dropout_keep(rate: float) -> tuple[float, float, int, int, int]:
+    """The layer-0 kernel's dropout at ``rate`` (0 < rate <= 1): q = 1 - rate
+    in f32 (torch compares its uniforms with q in f32); 1/q; whether q is a
+    power of two (then x·(1/q) is x/q exactly); the bits of a uniform an
+    element takes, 8 where q·2^8 is a whole number (rate 0.5: 16 elements a
+    Philox call, ``ops.matmul.layer0_keep``) and else 32; and the threshold
+    below which those bits keep their element, q·2^bits (rounded at 32 bits):
+    the keep share is q."""
+    q = float(np.float32(1.0 - rate))
+    pow2 = q > 0.0 and math.frexp(q)[0] == 0.5
+    bits = 8 if (q * 256.0).is_integer() else 32
+    thresh = int(q * 256.0) if bits == 8 else min(round(q * 2.0**32), 2**32 - 1)
+    return q, (1.0 / q if pow2 else 0.0), int(pow2), thresh, bits
+
+
+def layer0_pair(x, w, seeds, rate: float, with_eval: bool):
+    """Launch the dense layer-0 kernel on x [N, F] (f32 or bf16) and f32 W
+    [F, H]: returns (xd, zt, ze), xd = x with dropout at ``rate`` (the mask
+    drawn in the kernel by Philox under ``seeds``, two int64 on the device:
+    key and counter offset), zt = xd @ W and, when ``with_eval``, ze = x @ W,
+    else None; all in x's type, the products summed in f32 (W rounded to bf16
+    for bf16 x)."""
+    dev = _on_cuda(x, "layer0_pair")
+    if x.dtype not in ACT_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _check(x, "x", x.dtype, dev)
+    _check(w, "w", torch.float32, dev)
+    _check(seeds, "seeds", torch.int64, dev)
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1] or seeds.numel() != 2:
+        raise ValueError(f"layer0_pair: x [N, F], W [F, H] and 2 seeds, got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, {seeds.numel()}")
+    if not 0.0 < rate <= 1.0:
+        raise ValueError(f"layer0_pair: dropout rate must lie in (0, 1], got {rate}")
+    (n, f), h = x.shape, w.shape[1]
+    xd = torch.empty_like(x)
+    zt = torch.empty(n, h, dtype=x.dtype, device=x.device)
+    ze = torch.empty_like(zt) if with_eval else None
+    if n == 0 or h == 0:
+        return xd, zt, ze
+    if f == 0:
+        return xd, zt.zero_(), None if ze is None else ze.zero_()
+    q, inv_q, pow2, thresh, bits = dropout_keep(rate)
+    x_ptr = x.data_ptr()
+    path = LAYER0_PATHS.index(layer0_path(f, x.element_size(), with_eval, x_ptr))
+    for h_off in range(0, h, LAYER0_COLS):
+        _call("layer0_pair", x_ptr, w.data_ptr(), seeds.data_ptr(), xd.data_ptr(),
+              zt.data_ptr(), None if ze is None else ze.data_ptr(), n, f, h, h_off,
+              min(LAYER0_COLS, h - h_off), path, q, inv_q, pow2, thresh, bits,
+              int(h_off == 0), dtype_code(x.dtype), _stream(dev))
+    return xd, zt, ze

@@ -3,14 +3,26 @@ sparse over the CSR feature matrix as the reference program does
 (``SparseMatmul``, src/seq/module.cpp:47-77).
 
 ``dense_matmul`` is a plain product outside any TPU kernel, so it stays a
-library call; device.resolve_device turns TF32 and reduced-precision bf16
-reductions off, so f32 runs in full f32 and bf16 sums in f32. Its result is in
-x's type (cuda_gcn_tpu/ops/matmul.py:52). Where the JAX package multiplies
-bf16 x by f32 W (compute bf16, param f32), it promotes inside the dot to an f32
-product of bf16 x and rounds it to bf16; here W is rounded to bf16 instead and
-the product is one bf16 GEMM with f32 sums: it reads bf16 x once, with no
-[N, F] f32 copy of it (561 MB on synth-reddit), and differs from JAX's by
-about one rounding of W.
+library call where it stands alone: the eval-only product, the hidden layers,
+and every product of a CPU tensor. device.resolve_device turns TF32 and
+reduced-precision bf16 reductions off, so f32 runs in full f32 and bf16 sums in
+f32. Its result is in x's type (cuda_gcn_tpu/ops/matmul.py:52). Where the JAX
+package multiplies bf16 x by f32 W (compute bf16, param f32), it promotes
+inside the dot to an f32 product of bf16 x and rounds it to bf16; here W is
+rounded to bf16 instead and the product is one bf16 GEMM with f32 sums: it
+reads bf16 x once, with no [N, F] f32 copy of it (561 MB on synth-reddit), and
+differs from JAX's by about one rounding of W.
+
+``layer0_dense_pair`` is layer 0 on dense x: dropout(x) @ W and, for the fused
+epoch's pair, x @ W. In training on the card it is one launch of the dense
+layer-0 kernel (csrc/layer0_pair.cu), which draws the mask itself (Philox,
+``layer0_keep`` restates it), writes the dropped operand xd once and both
+products from one read of x, with W rounded to x's type as above; the
+backward's dW = xdᵀ·g stays a plain product of the saved xd, the one tensor of
+x's shape kept for it. Without dropout (eval, or rate 0) and on the CPU it is
+``ops/dropout.dropout`` and ``dense_matmul``, bit for bit the model's layer 0
+before the kernel: the mask is torch's there, and the kernel's is another
+draw of the same distribution.
 
 ``csr_matmul`` keeps X as CSR values: out[i] = Σ_{nnz j in row i} values[j] ·
 W[cols[j]]. In the JAX package it is XLA (a gather and a sorted segment sum);
@@ -58,11 +70,117 @@ import numpy as np
 import torch
 
 from cuda_gcn_torch import kernels
+from cuda_gcn_torch.ops.dropout import dropout
 from cuda_gcn_torch.ops.ell import WorkList, csr_work_list
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[N, F] @ [F, H] in x's type, summed in f32: W is cast to x's type."""
     return torch.matmul(x, w if w.dtype == x.dtype else w.to(x.dtype))
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def philox4x32(key, ctr: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 (Salmon et al., SC'11), as the dense layer-0 kernel draws
+    it: ``ctr`` [..., 4] int64 of 32-bit words under ``key`` (two 32-bit ints)
+    -> [..., 4] int64 of 32-bit words, on ``ctr``'s device. An int64 product
+    keeps the low 64 bits of the 32 x 32-bit one (it wraps), whose high word
+    the mask takes."""
+    c0, c1, c2, c3 = ctr.unbind(-1)
+    k0, k1 = key
+    for _ in range(10):
+        p0, p1 = c0 * _PHILOX_M[0], c2 * _PHILOX_M[1]
+        c0, c1, c2, c3 = (((p1 >> 32) & _U32) ^ c1 ^ k0, p1 & _U32,
+                          ((p0 >> 32) & _U32) ^ c3 ^ k1, p0 & _U32)
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def layer0_keep(seeds, n: int, f: int, rate: float, device=None) -> torch.Tensor:
+    """The dense layer-0 kernel's mask, [n, f] bool on ``device``. Each
+    element takes ``bits`` of a uniform (``kernels.dropout_keep(rate)``) and is
+    kept where they lie below the threshold. A Philox call under the key
+    seeds[0], at the counter (c as two words, then the offset seeds[1] as two),
+    draws 128 bits: at 32 bits an element, call c = row·⌈f/4⌉ + column/4
+    covers 4 columns of a row, a word each; at 8 bits, call c = pair·⌈f/8⌉ +
+    column/8 covers 8 columns of rows r and r + 16 of a block of 32 (pair =
+    block·16 + r), words 0-1 the lower row's, 2-3 the upper's, 4 columns a
+    word, a byte each from the lowest."""
+    seed, offset = (int(v) % 2**64 for v in seeds)
+    _, _, _, thresh, bits = kernels.dropout_keep(rate)
+    cols = 4 if bits == 32 else 8
+    units = -(-f // cols)
+    lines = n if bits == 32 else -(-n // 32) * 16  # rows, or row pairs
+    g = torch.arange(lines * units, dtype=torch.int64, device=device)
+    ctr = torch.stack([g & _U32, g >> 32, torch.full_like(g, offset & _U32),
+                       torch.full_like(g, offset >> 32)], dim=-1)
+    u = philox4x32((seed & _U32, seed >> 32), ctr).reshape(lines, units, 4)
+    if bits == 32:
+        vals = u.reshape(n, units * 4)
+    else:
+        u = torch.stack([(u >> (8 * e)) & 0xFF for e in range(4)], dim=-1)  # [pairs, units, 4, 4]
+        u = u.reshape(-1, 16, units, 2, 8)  # [blocks, pair in block, units, lower/upper, column]
+        vals = u.permute(0, 3, 1, 2, 4).reshape(-1, units * 8)[:n]  # row = block·32 + 16·upper + r
+    return vals[:, :f] < thresh
+
+
+def layer0_pair_plain(x, w, seeds, rate: float, with_eval: bool):
+    """Plain version of ``kernels.layer0_pair``, on x's device: the kernel's
+    mask (``layer0_keep``), xd = x / (1 - rate) in f32 where kept, rounded to
+    x's type, and the products of xd and x with W (rounded to x's type) summed
+    in f64 and rounded once to x's type: (xd, zt, ze or None)."""
+    # q as a device tensor: ATen on the card multiplies by the reciprocal of a
+    # host scalar, and divides by a tensor (correctly rounded)
+    q = torch.tensor(kernels.dropout_keep(rate)[0], device=x.device)
+    keep = layer0_keep(seeds.tolist(), x.shape[0], x.shape[1], rate, x.device)
+    xd = torch.where(keep, x.float() / q, torch.zeros((), device=x.device)).to(x.dtype)
+    wr = w.to(x.dtype).double()
+    zt = (xd.double() @ wr).to(x.dtype)
+    return xd, zt, (x.double() @ wr).to(x.dtype) if with_eval else None
+
+
+class _Layer0Pair(torch.autograd.Function):
+    """The dense layer-0 kernel, differentiated in W: it saves xd alone."""
+
+    @staticmethod
+    def forward(ctx, w, x, rate, generator, with_eval):
+        # the kernel's Philox key and counter offset, drawn on the device from
+        # the job's generator: a CUDA graph that registers it draws anew at
+        # each replay, and the host reads nothing
+        seeds = torch.empty(2, dtype=torch.int64, device=x.device).random_(generator=generator)
+        xd, zt, ze = kernels.layer0_pair(x, w.detach().float(), seeds, rate, with_eval)
+        ctx.save_for_backward(xd)
+        ctx.w_dtype = w.dtype
+        if ze is None:
+            return zt
+        ctx.mark_non_differentiable(ze)
+        return zt, ze
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        (xd,) = ctx.saved_tensors
+        return xd.t().mm(g).to(ctx.w_dtype), None, None, None, None
+
+
+def layer0_dense_pair(x: torch.Tensor, w: torch.Tensor, rate: float,
+                      generator: torch.Generator | None, training: bool,
+                      with_eval: bool = False):
+    """dropout(x) @ W for dense x [N, F], in x's type; with ``with_eval`` the
+    pair (that, x @ W), the second without a gradient. A CUDA tensor in
+    training at a rate above 0 takes the dense layer-0 kernel (W's gradient
+    only: x is data); everything else ``dropout`` and ``dense_matmul``."""
+    if x.device.type == "cpu" or not training or rate <= 0.0:
+        zt = dense_matmul(dropout(x, rate, generator, training), w)
+        if not with_eval:
+            return zt
+        with torch.no_grad():
+            return zt, dense_matmul(x, w)
+    if x.requires_grad:
+        raise ValueError("layer0_dense_pair differentiates W only; x requires a gradient")
+    return _Layer0Pair.apply(w, x, rate, generator, with_eval)
 
 
 @dataclasses.dataclass

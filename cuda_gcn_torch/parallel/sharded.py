@@ -60,7 +60,7 @@ from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.data.dataset import GCNDataset, reorder_dataset
 from cuda_gcn_torch.data.graph import (DENSE_BACKEND_MAX_NODES, Graph, _residual_csr)
 from cuda_gcn_torch.device import resolve_device
-from cuda_gcn_torch.models.gcn import _layer0_transform
+from cuda_gcn_torch.models.gcn import _layer0_transform, layer0_pair
 from cuda_gcn_torch.ops import adam
 from cuda_gcn_torch.ops.bsr import tile_plan
 from cuda_gcn_torch.ops.dropout import dropout
@@ -297,13 +297,10 @@ def _forward(model, inputs: ShardedInputs, dropout_rate: float, generator,
 def _forward_pair(model, inputs: ShardedInputs, dropout_rate: float, generator,
                   halo_dtype: str):
     """The fused train (dropout) and eval forwards on the slab (:301-332)."""
-    ht = he = inputs.x
     weights = model.weights()
     for i, w in enumerate(weights):
         if i == 0:
-            zt = _layer0_transform(ht, w, dropout_rate, generator, True)
-            with torch.no_grad():
-                ze = _layer0_transform(he, w, 0.0, None, False)
+            zt, ze = layer0_pair(inputs.x, w, dropout_rate, generator)
         else:
             zt = dense_matmul(dropout(ht, dropout_rate, generator, True), w)
             with torch.no_grad():

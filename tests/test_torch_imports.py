@@ -217,6 +217,8 @@ def _wrapper_calls():
                                                _meta(s, l, dtype=torch.bfloat16))),
         ("cumsum_cols", lambda: ttaa.cumsum_probe(_meta(s, l), 2)),
         ("piece", lambda: ttaa.piece_probe(*piece_args, _meta(s, l), 2)),
+        ("layer0_pair", lambda: tmm.layer0_dense_pair(_meta(60, 12), _meta(12, 16), 0.5, None,
+                                                      True, with_eval=True)),
         ("taa_rows", lambda: tdyn.sublane_gather(_meta(s, 4, **i32), _meta(s, l))),
         ("csr_spmm", lambda: tmm.csr_matmul(feats.values, feats, _meta(12, 16))),
         ("ell_spmm", lambda: tmm.csr_matmul_dw(feats, feats.values, _meta(60, 16))),
@@ -229,8 +231,11 @@ def test_device_tensors_go_to_the_launchers(monkeypatch):
     _forbid_plain(monkeypatch)
     seen = []
     calls = _wrapper_calls()
+    # the dense layer-0 launcher's (xd, zt, ze), which its autograd Function unpacks
+    made = {"layer0_pair": lambda: (_meta(60, 12), _meta(60, 16), _meta(60, 16))}
     for name, _ in calls:
-        monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n))
+        monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n) or
+                            made.get(_n, lambda: None)())
     for _, call in calls:
         call()
     assert seen == [name for name, _ in calls]

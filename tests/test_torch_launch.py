@@ -354,6 +354,9 @@ def _valid():
         "piece": (kernels.piece, dict(ids=fake(s, 1, dtype=I32), coef=fake(s, 1),
                                       begin=fake(s, 1, dtype=I32), end=fake(s, 1, dtype=I32),
                                       tab=fake(s, l), reps=2)),
+        "layer0_pair": (kernels.layer0_pair, dict(x=fake(60, 12), w=fake(12, 16),
+                                                  seeds=fake(2, dtype=torch.int64), rate=0.5,
+                                                  with_eval=True)),
     }
 
 
@@ -361,13 +364,13 @@ def _valid():
 # main operand (cumsum_cols has only the one); dtype and contiguity: any.
 _DEVICE = {"bsr_tile": "ptr", "csr_spmm": "coef", "ell_spmm": "coef", "gather_probe": "idx",
            "scatter_probe": "coef", "taa_rows": "idx", "taa_lanes": "idx",
-           "cumsum_cols": "tab", "piece": "coef"}
+           "cumsum_cols": "tab", "piece": "coef", "layer0_pair": "w"}
 _DTYPE = {"bsr_tile": "h", "csr_spmm": "cols", "ell_spmm": "work_dst", "gather_probe": "h",
           "scatter_probe": "idx", "taa_rows": "tab", "taa_lanes": "idx", "cumsum_cols": "tab",
-          "piece": "end"}
+          "piece": "end", "layer0_pair": "seeds"}
 _STRIDED = {"bsr_tile": "tiles", "csr_spmm": "out", "ell_spmm": "coef", "gather_probe": "h",
             "scatter_probe": "h", "taa_rows": "tab", "taa_lanes": "tab", "cumsum_cols": "tab",
-            "piece": "tab"}
+            "piece": "tab", "layer0_pair": "x"}
 
 
 def _shape_fault(name):
@@ -380,7 +383,8 @@ def _shape_fault(name):
             "taa_rows": dict(strides=(5, 0, 1)),                # runs past the indices
             "taa_lanes": dict(steps=4),                         # a step more than idx holds
             "cumsum_cols": dict(tab=fake(5)),
-            "piece": dict(begin=fake(s + 1, 1, dtype=I32))}[name]
+            "piece": dict(begin=fake(s + 1, 1, dtype=I32)),
+            "layer0_pair": dict(w=fake(13, 16))}[name]             # not [F, H]
 
 
 @pytest.mark.parametrize("name", list(kernels.launches))
@@ -390,7 +394,8 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
     assert [c[0] for c in recorder] == [name]
     call = recorder[0][1]
     assert call[-1] == 7000  # the current stream of device 0, read at the call
-    assert out.dtype == torch.float32 and out.data_ptr() in call
+    for o in out if isinstance(out, tuple) else (out,):  # layer0_pair: (xd, zt, ze)
+        assert o.dtype == torch.float32 and o.data_ptr() in call
     if name in ("csr_spmm", "ell_spmm"):  # d = 16 and torch's aligned bases: 16-byte loads
         assert call[12:14] == (16, 4)
     if name == "taa_rows":
@@ -400,6 +405,9 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
     if name == "cumsum_cols":  # out, then the scan's totals in an allocation of their own
         assert call[:2] == (args["tab"].data_ptr(), out.data_ptr()) and call[2] != out.data_ptr()
         assert call[3:6] == (64, 128, 2)
+    if name == "layer0_pair":  # 16 columns in one flat launch; dropout 0.5: xd = 2x where kept,
+        # 8 bits of a uniform an element, kept below 128
+        assert call[6:] == (60, 12, 16, 0, 16, 1, 0.5, 2.0, 1, 128, 8, 1, 0, 7000)
     if name == "piece":  # the [S+1, L] scan and its totals, each in an allocation of its own
         assert call[4:6] == (args["tab"].data_ptr(), out.data_ptr()) and call[8:11] == (64, 128, 2)
         assert call[6] != call[7] and out.data_ptr() not in call[6:8]
