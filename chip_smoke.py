@@ -158,14 +158,17 @@ Phases, each of which raises (exit code not 0) when it fails:
     its measured run (its stderr).
 (v) the dense layer-0 kernel (csrc/layer0_pair.cu, run after (j)): at
     ``LAYER0_EDGES`` (both of its ways through x) and at synth-reddit (f32,
-    bf16) and pubmed sizes, xd bit for bit the plain version's
+    bf16) and pubmed sizes, on every row: each xd value 0 or x / (1 - p),
+    nonzero only where x is, and bit for bit the plain version's
     (``ops.matmul.layer0_pair_plain``, whose mask is Philox's), the keep
     share within 5 sigma of 1 - p, zt and ze within the f32 sums' bound of
     f64 products of the kernel's own xd and of x, the train-only launch and a
     second launch equal to the first; the masks of an ``EpochGraph``'s
     epochs equal to the eager epochs' of the same seed, and fresh each
-    epoch; then timed by events and the profiler beside its bytes bound, the
-    plain version and the six launches of dropout and two cuBLAS products.
+    epoch; then timed by events, and on the device by the profiler in a
+    process of its own (events where that reads below the bound), beside its
+    bytes bound, the plain version and the six launches of dropout and two
+    cuBLAS products.
 
 ``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
 of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
@@ -1516,9 +1519,10 @@ def phase_taa_probes(errs):
 SCAN_TRACE_TRIES = 3
 
 
-def _kernel_records(fn) -> dict:
+def _kernel_records(fn, idle_s: float = 0.0) -> dict:
     """{kernel name: [records, device us]} of the kernels that torch.profiler
-    saw in ``PROFILED_CALLS`` calls of ``fn`` (no user annotations)."""
+    saw in ``PROFILED_CALLS`` calls of ``fn`` (no user annotations); the trace
+    stops ``idle_s`` seconds after the card has finished them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1526,6 +1530,7 @@ def _kernel_records(fn) -> dict:
         for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
+        time.sleep(idle_s)
     out = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
@@ -3835,8 +3840,9 @@ LAYER0_EDGES = (
     (1, 1, 1, "float32", 0.5, 0))
 LAYER0_SHAPES = (("synth-reddit", 232965, 602, "float32"), ("synth-reddit", 232965, 602, "bfloat16"),
                  ("synth-pubmed", 19717, 500, "float32"))
-LAYER0_MASK_ROWS = 20000  # rows of a full-size x whose mask is held to the plain version's
+LAYER0_H, LAYER0_RATE = 16, 0.5  # W's columns and the dropout rate at LAYER0_SHAPES
 LAYER0_ITERS = 20
+LAYER0_IDLE_S = 0.1  # the idle time before a diagnostic trace in this process stops
 
 
 def _layer0_inputs(n, f, h, dtype, offset, seed):
@@ -3854,10 +3860,10 @@ def _layer0_inputs(n, f, h, dtype, offset, seed):
     return x, w, seeds
 
 
-def _layer0_check(label, x, w, seeds, rate, mask_rows=None) -> dict:
-    """The kernel against the plain version: xd bit for bit (every value 0 or
-    x / (1 - p) correctly rounded, the plain version's Philox mask), on the
-    first ``mask_rows`` rows where given; the keep share of x's nonzeros
+def _layer0_check(label, x, w, seeds, rate) -> dict:
+    """The kernel against the plain version, on every row: each xd value 0 or
+    x / (1 - p) correctly rounded, and nonzero only where x is; xd bit for bit
+    the plain version's (its Philox mask); the keep share of x's nonzeros
     within 5 sigma of 1 - p; zt and ze against f64 products of the kernel's
     own xd and of x, within the f32 sums' bound (F·2^-23 of Σ|terms|) and one
     rounding to x's type; the train-only launch and a second launch equal to
@@ -3870,18 +3876,26 @@ def _layer0_check(label, x, w, seeds, rate, mask_rows=None) -> dict:
     xd, zt, ze = kernels.layer0_pair(x, w, seeds, rate, True)
     xd2, zt2, _ = kernels.layer0_pair(x, w, seeds, rate, False)
     torch.cuda.synchronize()
-    rows = x.shape[0] if mask_rows is None else min(mask_rows, x.shape[0])
-    want_xd = layer0_pair_plain(x[:rows], w, seeds, rate, False)[0]
-    if not torch.equal(xd[:rows], want_xd):
-        bad = int((xd[:rows] != want_xd).sum())
+    q = kernels.dropout_keep(rate)[0]
+    # a device tensor: ATen divides by it correctly rounded
+    scaled = torch.where(xd != 0, x.float() / torch.tensor(q, device=x.device), 0.0).to(x.dtype)
+    nz = x != 0
+    if not torch.equal(xd, scaled) or int((xd[~nz] != 0).sum()):
+        bad = int((xd != scaled).sum()) + int((xd[~nz] != 0).sum())
+        raise AssertionError(f"(v) {label}: {bad} xd values are neither 0 nor x / (1 - p), "
+                             f"or lie where x is 0")
+    del scaled
+    want_xd = layer0_pair_plain(x, w, seeds, rate, False)[0]
+    if not torch.equal(xd, want_xd):
+        bad = int((xd != want_xd).sum())
         raise AssertionError(f"(v) {label}: xd differs from the plain version at {bad} elements")
+    del want_xd
     if not (torch.equal(xd, xd2) and torch.equal(zt, zt2)):
         raise AssertionError(f"(v) {label}: the train-only launch differs from the pair's")
-    nz = x != 0
     kept = int((xd != 0).sum())
-    q, total = kernels.dropout_keep(rate)[0], int(nz.sum())
+    total = int(nz.sum())
     z = (kept - q * total) / max((q * (1 - q) * total) ** 0.5, 1e-30)
-    if abs(z) > 5 or int((xd[~nz] != 0).sum()):
+    if abs(z) > 5:
         raise AssertionError(f"(v) {label}: keep share {kept}/{total} reads {z:.2f} sigma")
     wr = w.to(x.dtype).double()
     unit = 2.0 ** -8 if x.dtype == torch.bfloat16 else 2.0 ** -24
@@ -3897,7 +3911,8 @@ def _layer0_check(label, x, w, seeds, rate, mask_rows=None) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(again, (xd, zt, ze))):
         raise AssertionError(f"(v) {label}: a second launch differs")
     path = kernels.layer0_path(x.shape[1], x.element_size(), True, x.data_ptr())
-    log(f"  {label} ({path}): xd equal to the plain version on {rows} rows, keep {kept}/{total} "
+    log(f"  {label} ({path}): every xd value 0 or x / (1 - p), equal to the plain version on "
+        f"all {x.shape[0]} rows, keep {kept}/{total} "
         f"({z:+.2f} sigma), products at {worst:.3f} of their bound, repeatable, ok")
     return dict(keep_z=z, err_of_bound=worst)
 
@@ -3945,14 +3960,32 @@ def _layer0_graph_masks(seed: int = 11) -> None:
         raise AssertionError("(v) the graph's masks are not the eager epochs' fresh masks")
 
 
+def _layer0_trace() -> None:
+    """Prints, as one JSON line, ``_traces`` of the kernel's pair launch at
+    each of ``LAYER0_SHAPES``. ``_own_process_launches`` runs it in a process
+    of its own."""
+    from cuda_gcn_torch import kernels
+
+    calls = {}
+    for label, n, f, dtype in LAYER0_SHAPES:
+        x, w, seeds = _layer0_inputs(n, f, LAYER0_H, dtype, 0, 7)
+        calls[f"{label} {dtype}"] = (
+            lambda x=x, w=w, seeds=seeds: kernels.layer0_pair(x, w, seeds, LAYER0_RATE, True))
+    print(json.dumps(_traces(calls)), flush=True)
+
+
 def phase_layer0_pair() -> dict:
     """(v) the dense layer-0 kernel (csrc/layer0_pair.cu): checked against its
     plain version at ``LAYER0_EDGES`` and at full size, replays of a captured
-    step against eager epochs, then timed at ``LAYER0_SHAPES`` (events and the
-    profiler's device time) beside its bound (bytes: x read once, xd written
-    once, the products written once; 4·N·F·H f32 operations), the plain
-    version and the six launches the model ran before (dropout's rand,
-    compare, scale and where, and cuBLAS's two products)."""
+    step against eager epochs, then timed at ``LAYER0_SHAPES`` beside its bound
+    (bytes: x read once, xd written once, the products written once; 4·N·F·H
+    f32 operations), the plain version and the six launches the model ran
+    before (dropout's rand, compare, scale and where, and cuBLAS's two
+    products). Its time by CUDA events, and on the device by the profiler in a
+    process of its own (``_layer0_trace``); a device time below the bound is
+    replaced by the events' and ``device_by`` says so. Traces in this process,
+    stopped at once and after ``LAYER0_IDLE_S`` of idle, log the records they
+    kept. ``launches`` counts this phase's launches alone."""
     import torch
 
     from cuda_gcn_torch import kernels
@@ -3962,6 +3995,7 @@ def phase_layer0_pair() -> dict:
 
     resolve_device("cuda")  # TF32 off for the yardstick and the f64-checked products
     log(f"(v) the dense layer-0 kernel; {_clocks()}")
+    kernels.reset_launches()
     for i, (n, f, h, dtype, rate, offset) in enumerate(LAYER0_EDGES):
         x, w, seeds = _layer0_inputs(n, f, h, dtype, offset, 100 + i)
         _layer0_check(f"[{n}, {f}] x [{f}, {h}] {dtype} p={rate} at element {offset}",
@@ -3969,10 +4003,10 @@ def phase_layer0_pair() -> dict:
     _layer0_graph_masks()
     rows = {}
     for label, n, f, dtype in LAYER0_SHAPES:
-        h, rate = 16, 0.5
+        h, rate = LAYER0_H, LAYER0_RATE
         x, w, seeds = _layer0_inputs(n, f, h, dtype, 0, 7)
         key = f"{label} {dtype}"
-        check = _layer0_check(key, x, w, seeds, rate, LAYER0_MASK_ROWS)
+        check = _layer0_check(key, x, w, seeds, rate)
         item = x.element_size()
         nbytes = 2 * n * f * item + 2 * n * h * item + 4 * f * h
         bound, by = _bound(nbytes, 4 * n * f * h)
@@ -3987,20 +4021,31 @@ def phase_layer0_pair() -> dict:
         }
         ms = {k: cuda_ms(fn, LAYER0_ITERS) for k, fn in fns.items()}
         ms["plain"] = cuda_ms(lambda: layer0_pair_plain(x, w, seeds, rate, True), 3)
-        dev_us = _device_us(fns["pair"])
+        kept = {f"idle {idle} s": sum(n for n, _ in _kernel_records(fns["pair"], idle).values())
+                for idle in (0.0, LAYER0_IDLE_S)}
+        log(f"  {key}: traces in this process kept "
+            + ", ".join(f"{n} of {PROFILED_CALLS} records ({k})" for k, n in kept.items()))
         rows[key] = dict(n=n, f=f, h=h, dtype=dtype, ms=ms["pair"], train_ms=ms["train"],
-                         op_ms=ms["op"], device_us=dev_us, bound_ms=bound, bound_by=by,
+                         op_ms=ms["op"], bound_ms=bound, bound_by=by,
                          share_of_bound=bound / ms["pair"], plain_ms=ms["plain"],
-                         library_ms=ms["six_launches"], **check)
-        log(f"  {key} [{n}, {f}] x [{f}, {h}]: pair {ms['pair']:.4f} ms (device "
-            f"{dev_us / 1e3:.4f} ms by the profiler), train half alone {ms['train']:.4f}, the "
-            f"op with its seed draw {ms['op']:.4f}; bound {bound:.4f} ms ({by}, "
-            f"{nbytes / 1e9:.3f} GB): {100 * bound / ms['pair']:.1f}% of it; plain version "
-            f"{ms['plain']:.3f} ms; dropout + two cuBLAS products {ms['six_launches']:.4f} ms")
+                         library_ms=ms["six_launches"], records_in_process=kept, **check)
+        log(f"  {key} [{n}, {f}] x [{f}, {h}]: pair {ms['pair']:.4f} ms, train half alone "
+            f"{ms['train']:.4f}, the op with its seed draw {ms['op']:.4f}; bound {bound:.4f} ms "
+            f"({by}, {nbytes / 1e9:.3f} GB): {100 * bound / ms['pair']:.1f}% of it; plain "
+            f"version {ms['plain']:.3f} ms; dropout + two cuBLAS products "
+            f"{ms['six_launches']:.4f} ms")
         del x, w, seeds, wg, fns
         torch.cuda.empty_cache()
+    launches = kernels.launches["layer0_pair"]
+    for key, row in _own_process_launches("_layer0_trace()").items():
+        dev_us, by = row["trace_device_us"], "profiler"
+        if dev_us < rows[key]["bound_ms"] * 1e3:
+            log(f"  {key}: the profiler's {dev_us:.2f} us lie below the bound; events taken")
+            dev_us, by = rows[key]["ms"] * 1e3, "events"
+        rows[key].update(device_us=dev_us, device_by=by)
+        log(f"  {key}: device {dev_us / 1e3:.4f} ms by the {by}")
     log(f"  {_clocks()}")
-    return dict(rows=rows, launches=kernels.launches["layer0_pair"])
+    return dict(rows=rows, launches=launches)
 
 
 def main() -> int:
@@ -4122,10 +4167,11 @@ def main() -> int:
         "name": "layer0_pair", "route": "cuda", "source": "cuda_gcn_torch/csrc/layer0_pair.cu",
         "replaces": "none: XLA fuses the dropout into the layer-0 product "
                     "(cuda_gcn_tpu/models/gcn.py:32-48)",
-        "launches": layer0_pair["launches"], "ms": reddit_f32["ms"],
-        "plain_ms": reddit_f32["plain_ms"], "bound_ms": reddit_f32["bound_ms"],
-        "bound_by": reddit_f32["bound_by"], "library_ms": reddit_f32["library_ms"],
-        "device_us": reddit_f32["device_us"], "shapes": layer0_pair["rows"]})
+        "launches": launches["layer0_pair"], "launches_smoke": layer0_pair["launches"],
+        "ms": reddit_f32["ms"], "plain_ms": reddit_f32["plain_ms"],
+        "bound_ms": reddit_f32["bound_ms"], "bound_by": reddit_f32["bound_by"],
+        "library_ms": reddit_f32["library_ms"], "device_us": reddit_f32["device_us"],
+        "device_by": reddit_f32["device_by"], "shapes": layer0_pair["rows"]})
     kernels_line += _bf16_kernel_lines(bf16)
     for line in kernels_line:  # (t): the benchmark entry's measured run
         if line["name"] in bench_run["launches"]:

@@ -9,7 +9,8 @@ and the plain product without dropout. The kernel's arithmetic is held in
 its authors) at a counter of (row, column / 4), every kept value exactly
 x / (1 - p), the keep share at 1 - p. The autograd Function around the kernel
 is driven with the plain version in its place: it saves xd alone, nothing of
-[N, H], and W's gradient is xdᵀ·g.
+[N, H], and W's gradient is xdᵀ·g. So is chip_smoke's card check of xd,
+which fails on one wrong value in the last row.
 """
 
 import numpy as np
@@ -320,3 +321,32 @@ def test_chip_smoke_edges_take_both_ways():
                                 True, offset * torch.empty((), dtype=getattr(torch, dtype)).element_size())
             for n, f, h, dtype, rate, offset in chip_smoke.LAYER0_EDGES}
     assert ways == {"flat", "chunked"}
+
+
+@pytest.mark.parametrize("fault", ["none", "scale", "where_x_is_0", "mask"])
+def test_chip_smoke_check_reads_every_row(monkeypatch, fault):
+    """The card check holds every row of xd: with the plain version in the
+    kernel's place it passes, and one wrong value in the last row (a wrong
+    scale, a value where x is 0, a dropped value the mask keeps) fails it."""
+    import chip_smoke
+
+    def launch(x, w, seeds, rate, with_eval):
+        xd, zt, ze = tmm.layer0_pair_plain(x, w, seeds, rate, with_eval)
+        row, col = xd[-1], x[-1]
+        if fault == "scale":
+            row[col != 0] *= 1.5
+        elif fault == "where_x_is_0":
+            row[col == 0] = 1.0
+        elif fault == "mask":
+            row[row != 0] = 0.0
+        return xd, zt, ze
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(kernels, "layer0_pair", launch)
+    x, w = _inputs(1000, 67, 16, torch.float32)
+    x[-1, :4] = 1.0  # the last row keeps a value at this seed
+    if fault == "none":
+        chip_smoke._layer0_check("plain", x, w, SEEDS, 0.5)
+    else:
+        with pytest.raises(AssertionError, match="xd"):
+            chip_smoke._layer0_check(fault, x, w, SEEDS, 0.5)
