@@ -1,9 +1,9 @@
-"""graphsum_roofline (%): the least time of the slice's adjacency passes
-(benchmark/roofline.py) over the device time of the program's aggregation
-kernels, found by name. With sparse features the layer-0 product and dW run
-on kernels 2 and 3 as well, so their least time joins the count."""
+"""graphsum_roofline (%): the least time of the slice's adjacency passes (the
+family's ``job_work`` part 'aggregation') over the device time of the
+program's aggregation kernels, found by name. With sparse features the
+layer-0 product and dW run on kernels 2 and 3 as well, so their least time
+(the part 'layer0_spmm', which a family gives only then) joins the count."""
 
-from benchmark import roofline
 from benchmark.trace import base_name
 
 # ops/graphsum.py -> bsr_tile.cu (with its split pre-pass), csr_spmm.cu,
@@ -18,9 +18,5 @@ def read(ctx):
     device_s = ctx.slice.kernel_s(lambda n: base_name(n) in KERNELS)
     if device_s <= 0:
         return None
-    parts = ("aggregation", "layer0") if ctx.shapes.feature_matmul == "sparse" else ("aggregation",)
-    least = 0.0
-    for e in ctx.job_epochs:
-        work = roofline.job(ctx.shapes, e, ctx.early_stopping)
-        least += sum(work[p].least_s(ctx.shapes.dtype) for p in parts)
-    return 100.0 * least / device_s
+    least = ctx.least_s(("aggregation", "layer0_spmm"))
+    return None if least is None else 100.0 * least / device_s

@@ -3,15 +3,16 @@
     python3 -m benchmark.readings --workload <cell> --seeds 1-12 [--control-seeds 1-3]
         [--out PATH]
 
-In one process: ``train.prepare`` once, then for each seed the program's
-first steps through the window's own calls (program.check_steps, the check
-seed a run of that ``--seed`` would draw), the program freed; then, as a
-run does (reference.follow with the program's dropout masks), the reference
-in float32 for each seed, and for the control seeds the control
-(reference.py's TF32 products) and each fault of reference.FAULTS planted in
-the reference, each judged against the float32 reference by
-compare.numbers. Prints one JSON object; ``--out`` also writes it there.
-The benchmark's own runs do not run this.
+In one process, through the cell's family (``families/<family>.py``): its
+``prepare`` once, then for each seed the program's first steps through the
+window's own calls (``check_steps``, the check seed a run of that ``--seed``
+would draw), the program freed; then, as a run does (``follow`` with what
+the program drew at random), the reference in float32 for each seed, and
+for the control seeds the control (the family's ``CONTROL`` precision) and
+each of the family's ``FAULTS`` planted in the reference, each judged
+against the float32 reference by the family's ``numbers``. Prints one JSON
+object; ``--out`` also writes it there. The benchmark's own runs do not run
+this.
 """
 
 from __future__ import annotations
@@ -35,51 +36,50 @@ def collect(workload: str, seeds: list[int], control_seeds: list[int],
             device: str = "cuda") -> dict:
     import torch
 
-    from benchmark import compare, data, program, reference, registry
+    from benchmark import data, registry
     from benchmark.run import job_seed
 
     bench = registry.spec()
     entry = next(w for w in bench["workloads"] if w["name"] == workload)
     config = registry.config(entry["config"])
     traffic = registry.traffic(entry["traffic"])
+    family = registry.family(registry.family_name(config))
     graph, _ = data.load_graph(config)
     t0 = time.perf_counter()
-    prep = program.prepare(config, traffic, graph, device)
-    out = {"workload": workload, "backend": prep.graph.backend, "prepare_s":
-           time.perf_counter() - t0, "sound": {}, "control": {},
-           "faults": {f: {} for f in reference.FAULTS}}
+    prep = family.prepare(config, traffic, graph, device)
+    out = {"workload": workload, "family": registry.family_name(config),
+           "prepare_s": time.perf_counter() - t0, "sound": {}, "control": {},
+           "faults": {f: {} for f in family.FAULTS}}
     if device == "cuda":
         out["device"] = torch.cuda.get_device_name(0)
     every = sorted(set(seeds) | set(control_seeds))
-    prog = {s: program.check_steps(prep, graph, job_seed(s, "check")) for s in every}
+    prog = {s: family.check_steps(prep, graph, job_seed(s, "check")) for s in every}
     del prep
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    model = config["model"]
-    prob = reference.build_problem(graph, (model["hidden_dim"],), traffic["feature_matmul"],
-                                   device)
+    inputs = family.reference_inputs(graph, config, traffic, device)
     t0 = time.perf_counter()
     for s in every:
-        seed, masks = job_seed(s, "check"), prog[s].masks
-        ref = reference.follow(prob, model, seed, masks)
+        seed = job_seed(s, "check")
+        ref = family.follow(inputs, config, seed, prog[s])
         if s in seeds:
-            out["sound"][s] = compare.numbers(prog[s], ref)
+            out["sound"][s] = family.numbers(prog[s], ref)
         if s in control_seeds:
-            out["control"][s] = compare.numbers(
-                reference.follow(prob, model, seed, masks, precision="tf32"), ref)
-            for f in reference.FAULTS:
-                out["faults"][f][s] = compare.numbers(
-                    reference.follow(prob, model, seed, masks, fault=f), ref)
+            out["control"][s] = family.numbers(
+                family.follow(inputs, config, seed, prog[s], precision=family.CONTROL), ref)
+            for f in family.FAULTS:
+                out["faults"][f][s] = family.numbers(
+                    family.follow(inputs, config, seed, prog[s], fault=f), ref)
     out["reference_s"] = (time.perf_counter() - t0) / len(every)
     if out["sound"]:
         out["sound_max"] = {k: max(v[k] for v in out["sound"].values())
-                            for k in compare.NUMBERS}
+                            for k in family.NUMBERS}
     if out["control"]:
         out["control_min"] = {k: min(v[k] for v in out["control"].values())
-                              for k in compare.NUMBERS}
+                              for k in family.NUMBERS}
         out["faults_min"] = {f: {k: min(v[k] for v in out["faults"][f].values())
-                                 for k in compare.NUMBERS} for f in reference.FAULTS}
+                                 for k in family.NUMBERS} for f in family.FAULTS}
     return out
 
 

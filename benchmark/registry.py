@@ -1,8 +1,9 @@
 """Finding the benchmark's parts by name: ``BENCHMARK.json`` at the root of the
 checkout, and under ``benchmark/`` a file each configuration
 (``configs/<name>.json``), traffic mix (``traffic/<name>.json``), cell
-(``workloads/<name>.json``) and per-layer metric (``metrics/<name>.py``, a
-``read(ctx)`` that returns the metric or None)."""
+(``workloads/<name>.json``), per-layer metric (``metrics/<name>.py``, a
+``read(ctx)`` that returns the metric or None) and model family
+(``families/<name>.py``, families/__init__.py)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import importlib.util
 import json
 import os
 import re
+import sys
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -48,13 +50,36 @@ def workload(name: str) -> dict:
     return _json("workloads", name)
 
 
+def _module(kind: str, name: str):
+    path = _path(kind, name, ".py")
+    spec_ = importlib.util.spec_from_file_location(f"benchmark.{kind}.{name}", path)
+    module = importlib.util.module_from_spec(spec_)
+    sys.modules[spec_.name] = module  # a dataclass looks its module up while it is made
+    spec_.loader.exec_module(module)
+    return module
+
+
 def metric_reader(name: str):
     """The ``read`` function of ``metrics/<name>.py``."""
-    spec_ = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}",
-                                                   _path("metrics", name, ".py"))
-    module = importlib.util.module_from_spec(spec_)
-    spec_.loader.exec_module(module)
-    return module.read
+    return _module("metrics", name).read
+
+
+FAMILY_API = ("NUMBERS", "FAULTS", "CONTROL", "prepare", "run_job", "check_steps",
+              "reference_inputs", "follow", "numbers", "shapes", "job_work")
+
+
+def family_name(config: dict) -> str:
+    """The model family a configuration names (``model.family``), 'gcn' where none."""
+    return config["model"].get("family", "gcn")
+
+
+def family(name: str):
+    """The module ``families/<name>.py``, which gives every name of ``FAMILY_API``."""
+    module = _module("families", name)
+    missing = [a for a in FAMILY_API if not hasattr(module, a)]
+    if missing:
+        raise ValueError(f"family {name!r} lacks {', '.join(missing)}")
+    return module
 
 
 def cell_metrics(bench: dict, cell: str, kind: str) -> list[dict]:

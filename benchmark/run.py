@@ -2,17 +2,20 @@
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A run loads the configuration's graph (generated once a checkout,
-benchmark/data.py), calls ``train.prepare`` inside the span ``prepare_s``,
-and warms up on the cell's own shapes: the comparison's first steps at the
-cell's dropout (one epoch, then two from its state: an eager epoch and one
-capture each; program.check_steps), then one whole job. The window then runs training jobs back to back
-(benchmark/program.py ``run_job``), their seeds from the traffic's fixed pool
-of ``job_pool`` seeds in an order drawn from ``--seed`` (``window_seeds``),
-and closes at the first job end at or after ``--seconds``.
-With ``--trace 1`` the torch.profiler records the window's first
-``trace_jobs`` jobs (the traffic file's), and the run reports the cell's
-per-layer metrics from that slice; with ``--trace 0`` the end-to-end ones:
+A cell (``workloads/<name>.json``) names a configuration, whose model names
+its family (``families/<family>.py``, families/__init__.py), and a traffic
+mix. Everything that depends on the model is the family's; this file runs
+any family. A run loads the configuration's graph (generated once a
+checkout, benchmark/data.py), calls the family's ``prepare`` inside the span
+``prepare_s``, and warms up on the cell's own shapes: the comparison's first
+steps through the window's own calls (``check_steps``), then one whole job.
+The window then runs training jobs back to back (``run_job``), their seeds
+from the traffic's fixed pool of ``job_pool`` seeds in an order drawn from
+``--seed`` (``window_seeds``), and closes at the first job end at or after
+``--seconds``. With ``--trace 1`` the torch.profiler records the window's
+first ``trace_jobs`` jobs (the traffic file's), and the run reports the
+cell's per-layer metrics from that slice; with ``--trace 0`` the end-to-end
+ones:
 
 * ``setup_s``: the process's start to the window's start;
 * ``epoch_ms``: the window's seconds over the epochs its jobs trained (the
@@ -26,17 +29,20 @@ per-layer metrics from that slice; with ``--trace 0`` the end-to-end ones:
   further job (PERF.md), so a peak over the whole window would read how many
   jobs fit in it; ``memory_peak_bytes`` in ``device`` is that peak.
 
-Once the window has closed and the program's state is freed, the reference
-(benchmark/reference.py) follows the same first steps with the dropout masks
-the program drew, and compare.py judges the program's readings and masks; each number and its limit (the cell
-file's ``limits``) are the last lines on stderr and the ``checks`` key, last
-in the one JSON line on stdout. A run exits non-zero and prints no result
-without a card, without the program, or with JAX or the JAX package loaded.
+Once the window has closed and the program's state is freed, the family's
+reference (``follow``) follows the same first steps with what the program
+drew at random, and the family's ``numbers`` judge the program's readings
+against it; each number and its limit (the cell file's ``limits``, which
+name exactly the family's ``NUMBERS``) are the last lines on stderr and the
+``checks`` key, last in the one JSON line on stdout. A run exits non-zero
+and prints no result without a card, without the program, with JAX or the
+JAX package loaded, or for a cell whose limits name other numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import hashlib
 import itertools
@@ -87,11 +93,30 @@ def forbidden_loaded() -> list[str]:
 
 
 class Context:
-    """What a per-layer metric's ``read`` sees of a traced run."""
+    """What a per-layer metric's ``read`` sees of a traced run: the slice,
+    whether its kernel records match the program's launch counts, each
+    traced job's epochs, the family's shapes, and ``job_work``, a job's least
+    work by part (the family's ``job_work`` at these shapes) as a function of
+    its epochs, at the activations' type ``dtype``."""
 
-    def __init__(self, slice_, records_ok, job_epochs, shapes, early_stopping, prepare_s):
+    def __init__(self, slice_, records_ok, job_epochs, shapes, early_stopping, prepare_s,
+                 job_work=None, dtype="float32"):
         self.slice, self.records_ok, self.job_epochs = slice_, records_ok, job_epochs
         self.shapes, self.early_stopping, self.prepare_s = shapes, early_stopping, prepare_s
+        self.job_work, self.dtype = job_work, dtype
+
+    def least_s(self, parts) -> float | None:
+        """The least seconds of the traced jobs' work: each job's parts named
+        in ``parts`` that its work gives, each part's least time summed; None
+        where no job gives any of them."""
+        if self.job_work is None:
+            return None
+        least, found = 0.0, False
+        for e in self.job_epochs:
+            work = self.job_work(e)
+            found = found or any(p in work for p in parts)
+            least += sum(work[p].least_s(self.dtype) for p in parts if p in work)
+        return least if found else None
 
 
 def parse_args(argv):
@@ -103,16 +128,14 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
-def run_window(prep, seeds, seconds: float, trace_jobs: int, on_card: bool):
-    """Jobs back to back until the first job end at or after ``seconds``; the
-    profiler over the first ``trace_jobs`` of them. Returns (jobs as (ms,
-    epochs, finite), window seconds, set-up seconds, the device's peak of
-    allocated bytes by the end of the first job, the profiler or None, the
-    program's launches over the traced slice)."""
+def run_window(run_job, prep, seeds, seconds: float, trace_jobs: int, on_card: bool):
+    """Jobs (``run_job(prep, seed)``) back to back until the first job end at
+    or after ``seconds``; the profiler over the first ``trace_jobs`` of them.
+    Returns (jobs as (ms, epochs, finite), window seconds, set-up seconds,
+    the device's peak of allocated bytes by the end of the first job, the
+    profiler or None, the program's launches over the traced slice)."""
     import torch
     from cuda_gcn_torch import kernels
-
-    from benchmark import program
 
     prof = span = None
     first_peak = 0
@@ -131,7 +154,7 @@ def run_window(prep, seeds, seconds: float, trace_jobs: int, on_card: bool):
             span = torch.profiler.record_function(SLICE_SPAN)
             span.__enter__()
         t_job = time.perf_counter()
-        epochs, finite = program.run_job(prep, next(seeds))
+        epochs, finite = run_job(prep, next(seeds))
         t_end = time.perf_counter()
         jobs.append(((t_end - t_job) * 1e3, epochs, finite))
         if len(jobs) == 1 and on_card:
@@ -148,7 +171,7 @@ def run_window(prep, seeds, seconds: float, trace_jobs: int, on_card: bool):
 
 
 def traced_metrics(bench, cell: str, prof, launched, job_epochs, shapes, early_stopping,
-                   prepare_s):
+                   prepare_s, job_work, dtype):
     """(the cell's per-layer metrics, busy seconds, traced seconds, breakdown)
     from the profiler's trace of the slice."""
     from benchmark import registry, trace
@@ -160,7 +183,8 @@ def traced_metrics(bench, cell: str, prof, launched, job_epochs, shapes, early_s
     differ = trace.launches_match(sl, launched)
     for line in differ:
         log(f"trace records differ from the launch counts: {line}")
-    ctx = Context(sl, not differ, job_epochs, shapes, early_stopping, prepare_s)
+    ctx = Context(sl, not differ, job_epochs, shapes, early_stopping, prepare_s,
+                  job_work=job_work, dtype=dtype)
     metrics = {}
     for m in registry.cell_metrics(bench, cell, "per_layer"):
         value = registry.metric_reader(m["name"])(ctx)
@@ -175,7 +199,7 @@ def main(argv=None, device: str = "cuda") -> int:
     """A run on ``device``; the tests pass 'cpu', which skips the look for a
     card and runs the program's plain versions."""
     args = parse_args(argv)
-    from benchmark import compare, data, program, reference, registry, roofline
+    from benchmark import compare, data, program, registry
 
     bench = registry.spec()
     entry = next((w for w in bench["workloads"] if w["name"] == args.workload), None)
@@ -185,6 +209,13 @@ def main(argv=None, device: str = "cuda") -> int:
     cell = registry.workload(args.workload)
     config = registry.config(entry["config"])
     traffic = registry.traffic(entry["traffic"])
+    family_name = registry.family_name(config)
+    family = registry.family(family_name)
+    limits = cell["limits"]
+    if set(limits) != set(family.NUMBERS):
+        log(f"cell {args.workload!r}: its limits name {', '.join(sorted(limits))}; "
+            f"family {family_name!r} compares {', '.join(family.NUMBERS)}")
+        return 2
 
     import torch
 
@@ -211,21 +242,21 @@ def main(argv=None, device: str = "cuda") -> int:
     log(f"graph {config['name']}: {graph['num_nodes']} nodes, {len(graph['indices'])} nnz"
         + (" (generated now)" if generated else " (cached)"))
     t0 = time.perf_counter()
-    prep = program.prepare(config, traffic, graph, device)
+    prep = family.prepare(config, traffic, graph, device)
     if on_card:
         torch.cuda.synchronize()
     prepare_s = phases["prepare"] = time.perf_counter() - t0
-    log(f"prepare_s {prepare_s:.3f}: backend {prep.graph.backend}, tiles {prep.graph.num_tiles}")
+    log(f"prepare_s {prepare_s:.3f} (family {family_name})")
 
     # warm-up on the cell's own shapes: the comparison's steps, then one job
     check_seed = job_seed(args.seed, "check")
     t0 = time.perf_counter()
-    readings = program.check_steps(prep, graph, check_seed)
+    readings = family.check_steps(prep, graph, check_seed)
     phases["check"] = time.perf_counter() - t0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    program.run_job(prep, job_seed(args.seed, "warm"))
+    family.run_job(prep, job_seed(args.seed, "warm"))
     if on_card:
         torch.cuda.synchronize()
     phases["warm"] = time.perf_counter() - t0
@@ -233,8 +264,8 @@ def main(argv=None, device: str = "cuda") -> int:
 
     trace_jobs = int(traffic["trace_jobs"]) if args.trace else 0
     jobs, window_s, setup_s, first_peak, prof, launched = run_window(
-        prep, window_seeds(args.seed, int(traffic["job_pool"])), args.seconds, trace_jobs,
-        on_card)
+        family.run_job, prep, window_seeds(args.seed, int(traffic["job_pool"])), args.seconds,
+        trace_jobs, on_card)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     if on_card:
         log(f"device memory: peak allocated {first_peak / 2**30:.3f} GiB by the first job's "
@@ -249,14 +280,12 @@ def main(argv=None, device: str = "cuda") -> int:
 
     breakdown = None
     if args.trace:
-        f, h, c = prep.cfg.layer_dims()
-        shapes = roofline.Shapes(nodes=int(graph["num_nodes"]), nnz=len(graph["indices"]),
-                                 feature_nnz=len(graph["f_values"]), dims=(f, h, c),
-                                 dtype=config["compute_dtype"],
-                                 feature_matmul=traffic["feature_matmul"])
+        shapes = family.shapes(prep, graph, config, traffic)
+        early_stopping = bool(traffic.get("early_stopping", 0))
+        job_work = functools.partial(family.job_work, shapes, early_stopping=early_stopping)
         result_metrics, busy_s, traced_s, breakdown = traced_metrics(
             bench, args.workload, prof, launched, [e for _, e, _ in jobs[:trace_jobs]],
-            shapes, prep.early_stopping, prepare_s)
+            shapes, early_stopping, prepare_s, job_work, config["compute_dtype"])
         del prof
         dev.update(busy_s=busy_s, window_s=traced_s)
     else:
@@ -267,28 +296,24 @@ def main(argv=None, device: str = "cuda") -> int:
                           for m in registry.cell_metrics(bench, args.workload, "end_to_end")}
 
     # the reference, once the window has closed and the program's state is freed
-    model = config["model"]
     del prep
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    prob = reference.build_problem(graph, (model["hidden_dim"],), traffic["feature_matmul"],
-                                   device)
-    ref = reference.follow(prob, model, check_seed, readings.masks)
-    del prob
-    values = compare.numbers(readings, ref)
-    limits = cell["limits"]
+    inputs = family.reference_inputs(graph, config, traffic, device)
+    ref = family.follow(inputs, config, check_seed, readings)
+    del inputs
+    values = family.numbers(readings, ref)
     correct = compare.judge(values, limits) and failed == 0
-    log(f"reference {time.perf_counter() - t_ref:.2f} s; program losses {readings.train_loss}, "
-        f"reference {ref.train_loss}")
+    log(f"reference {time.perf_counter() - t_ref:.2f} s")
 
     bad = forbidden_loaded()
     if bad:
         log(f"modules of JAX or the JAX package are loaded: {', '.join(bad)}")
         return 3
     checks = {k: {"value": values[k] if values[k] < float("inf") else "inf", "limit": limits[k]}
-              for k in compare.NUMBERS}
+              for k in family.NUMBERS}
     checks["failed_jobs"] = {"value": failed, "limit": 0}
     for k, v in checks.items():
         log(f"check {k}: {v['value']!r} (limit {v['limit']!r})")

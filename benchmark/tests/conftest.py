@@ -42,7 +42,9 @@ def tiny_bench(tmp_path, monkeypatch):
         root = tmp_path / f"b-{backend}-{feature_matmul}-{early_stopping}"
         for d in ("configs", "traffic", "workloads"):
             (root / d).mkdir(parents=True)
-        shutil.copytree(os.path.join(BENCH_DIR, "metrics"), root / "metrics")
+        for d in ("metrics", "families"):
+            shutil.copytree(os.path.join(BENCH_DIR, d), root / d,
+                            ignore=shutil.ignore_patterns("__pycache__"))
         with open(os.path.join(BENCH_DIR, "configs", "gcn2-pubmed.json")) as f:
             cfg = json.load(f)
         cfg.update(name="tiny", graphsum_backend=backend)
@@ -71,12 +73,12 @@ def tiny_bench(tmp_path, monkeypatch):
     return make
 
 
-def run_tiny(capsys, trace=0, seed=2**31 + 12345):
-    """One run of the tiny cell on the CPU: (exit code, last stdout line as
+def run_tiny(capsys, trace=0, seed=2**31 + 12345, cell="tiny-cell"):
+    """One run of a tiny cell on the CPU: (exit code, last stdout line as
     JSON or None, stderr)."""
     from benchmark import run
 
-    rc = run.main(["--workload", "tiny-cell", "--seed", str(seed), "--seconds", "0.2",
+    rc = run.main(["--workload", cell, "--seed", str(seed), "--seconds", "0.2",
                    "--trace", str(trace)], device="cpu")
     out, err = capsys.readouterr()
     lines = out.strip().splitlines()

@@ -9,7 +9,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from benchmark import compare, data, reference, registry
+from benchmark import compare, data, registry
 from benchmark.run import job_seed
 
 SEEDS = (2**31 + 1, 2**31 + 2, 2**31 + 3)
@@ -24,19 +24,21 @@ def _cell(name):
 @pytest.mark.parametrize("name", ["pubmed-200ep"])
 def test_control_fails_on_the_cpu(name):
     cell, config, traffic = _cell(name)
+    family = registry.family(registry.family_name(config))
     graph = data.synth.make_synthetic(data.spec_of(config["graph"]), config["graph"]["seed"])
     model = config["model"]
-    prob = reference.build_problem(graph, (model["hidden_dim"],), traffic["feature_matmul"],
-                                   "cpu")
-    n, hidden = int(graph["num_nodes"]), model["hidden_dim"]
+    inputs = family.reference_inputs(graph, config, traffic, "cpu")
+    n = int(graph["num_nodes"])
     for seed in SEEDS:
         gen = torch.Generator().manual_seed(seed)  # masks as the program might draw them
         masks = [(torch.rand(len(graph["f_values"]), generator=gen) >= model["dropout"],
-                  torch.rand(n, hidden, generator=gen) >= model["dropout"])
-                 for _ in range(reference.STEPS)]
-        ref = reference.follow(prob, model, job_seed(seed, "check"), masks)
-        control = compare.numbers(
-            reference.follow(prob, model, job_seed(seed, "check"), masks, precision="tf32"), ref)
+                  *(torch.rand(n, h, generator=gen) >= model["dropout"]
+                    for h in family.hidden_dims(model)))
+                 for _ in range(family.STEPS)]
+        drawn = family.Readings([], [], 0.0, [], [], masks=masks)
+        ref = family.follow(inputs, config, job_seed(seed, "check"), drawn)
+        control = family.numbers(family.follow(inputs, config, job_seed(seed, "check"), drawn,
+                                               precision=family.CONTROL), ref)
         assert not compare.judge(control, cell["limits"]), control
 
 
@@ -45,10 +47,11 @@ def test_control_fails_on_the_cpu(name):
 def test_control_fails_at_the_cells_size(card, name):
     from benchmark import readings
 
-    cell, _, _ = _cell(name)
+    cell, config, _ = _cell(name)
+    family = registry.family(registry.family_name(config))
     out = readings.collect(name, list(SEEDS), list(SEEDS))
     for s in SEEDS:
         assert compare.judge(out["sound"][s], cell["limits"]), out["sound"][s]
         assert not compare.judge(out["control"][s], cell["limits"]), out["control"][s]
-        for fault in reference.FAULTS:
+        for fault in family.FAULTS:
             assert not compare.judge(out["faults"][fault][s], cell["limits"])

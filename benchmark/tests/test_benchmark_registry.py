@@ -9,7 +9,7 @@ import re
 
 import pytest
 
-from benchmark import compare, registry
+from benchmark import registry
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -34,7 +34,8 @@ def test_every_config_cell_and_metric_is_a_file(bench):
         cell = registry.workload(w["name"])
         assert (cell["config"], cell["traffic"], cell["why"]) == (w["config"], w["traffic"],
                                                                   w["why"])
-        assert set(cell["limits"]) == set(compare.NUMBERS)
+        family = registry.family(registry.family_name(registry.config(w["config"])))
+        assert set(cell["limits"]) == set(family.NUMBERS)
         registry.traffic(w["traffic"])
         assert w["chips"] == 1
     for m in bench["per_layer"]:

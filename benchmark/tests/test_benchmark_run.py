@@ -11,7 +11,7 @@ import types
 
 import pytest
 
-from benchmark import compare, run
+from benchmark import registry, run
 from benchmark.registry import ROOT
 from benchmark.tests.conftest import run_tiny
 
@@ -28,7 +28,7 @@ def test_last_line(tiny_bench, capsys):
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] >= 0
     assert set(line["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
-    assert list(line["checks"]) == [*compare.NUMBERS, "failed_jobs"]
+    assert list(line["checks"]) == [*registry.family("gcn").NUMBERS, "failed_jobs"]
     # the numbers and their limits are the last lines on stderr
     tail = err.strip().splitlines()[-len(line["checks"]):]
     assert [t.split()[1].rstrip(":") for t in tail] == list(line["checks"])

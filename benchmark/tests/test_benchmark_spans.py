@@ -1,6 +1,6 @@
 """The program's spans in a profiler trace on the card: two short jobs of the
 tiny cell (conftest.py ``tiny_bench``) through the window's own calls
-(program.run_job), under torch.profiler with the card's activity, read back
+(the gcn family's run_job), under torch.profiler with the card's activity, read back
 by trace.read as a traced run reads its slice.
 
     python3 -m pytest benchmark/tests -q -m card
@@ -28,19 +28,20 @@ def traced_jobs(path: str) -> tuple[trace.Slice, dict]:
     import torch
     from cuda_gcn_torch import kernels
 
-    from benchmark import data, program, registry
+    from benchmark import data, registry
 
     config = registry.config("tiny")
+    family = registry.family(registry.family_name(config))
     graph, _ = data.load_graph(config)
-    prep = program.prepare(config, registry.traffic("t"), graph, "cuda")
-    program.run_job(prep, 1)
+    prep = family.prepare(config, registry.traffic("t"), graph, "cuda")
+    family.run_job(prep, 1)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     before = dict(kernels.launches)
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(SLICE):
             for seed in range(JOBS):
-                program.run_job(prep, 2 + seed)
+                family.run_job(prep, 2 + seed)
             torch.cuda.synchronize()
     launched = {k: v - before.get(k, 0) for k, v in kernels.launches.items()}
     prof.export_chrome_trace(path)
