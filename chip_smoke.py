@@ -169,6 +169,17 @@ Phases, each of which raises (exit code not 0) when it fails:
     process of its own (events where that reads below the bound), beside its
     bytes bound, the plain version and the six launches of dropout and two
     cuBLAS products.
+(w) the GAT's attention kernels (csrc/gat_attention.cu, run after (v)):
+    ``gat_forward``, ``gat_rows`` and ``gat_cols`` against their plain
+    version (ops/attention.py) on synth-pubmed in f64 and on synth-reddit in
+    f32, at the paper's two layers (8 heads of 8, one of 41) and two more
+    shapes, with and without dropout, repeatable bit for bit; every head's
+    keep share of the kernel's own mask (read through the forward) within
+    4 sigma of 1 - p and equal row by row to ``attention_keep``'s; a captured
+    attention's replays drawing the eager epochs' fresh masks; each launch
+    timed by events beside its bytes bound and on the device in a process of
+    its own; two 100-epoch GAT jobs through the trainer, with their launches
+    counted and their epoch time.
 
 ``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
 of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
@@ -186,8 +197,9 @@ steady ms an epoch with the capture left out.
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
 call), the dense layer-0 kernel (``layer0_pair``, with its times at the
-``LAYER0_SHAPES``) and the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
-``csr_spmm_bf16``, ``ell_spmm_bf16``; kernels 1-3 carry their (n) numbers
+``LAYER0_SHAPES``), the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
+``csr_spmm_bf16``, ``ell_spmm_bf16``) and the GAT's three attention
+kernels (``gat_forward``, ``gat_rows``, ``gat_cols``; kernels 1-3 carry their (n) numbers
 under ``synth_reddit4x``, kernels 1 and 2 their (p) numbers under ``sharded``), and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and prints no result.
 """
@@ -4048,6 +4060,338 @@ def phase_layer0_pair() -> dict:
     return dict(rows=rows, launches=launches)
 
 
+# (w) the GAT's attention kernels (csrc/gat_attention.cu): the paper's two
+# layers on synth-reddit as (heads, features a head), its dropout and slope
+GAT_SHAPES = ((8, 8), (1, 41))
+GAT_RATE, GAT_SLOPE = 0.6, 0.2
+GAT_TOL = 1e-4     # of the largest |value| of the plain version: f32 sums in other orders
+GAT_KEEP_SIGMA = 4.0
+GAT_ITERS = 10
+GAT_EPOCHS = 100   # a job of the benchmark's reddit cells
+GAT_KERNELS = ("gat_forward", "gat_rows", "gat_cols")
+
+
+def _gat_prepared():
+    """synth-reddit as loaded, prepared for the GAT (the paper's settings, the
+    ell backend, the reverse-edge map): (cfg, graph, x, truths)."""
+    from cuda_gcn_torch import train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+
+    cfg = GCNConfig(model="gat", hidden_dim=8, dropout=GAT_RATE, learning_rate=0.005,
+                    graphsum_backend="ell")
+    return train.prepare(cfg, load_cached("synth-reddit"), "cuda")
+
+
+def _gat_inputs(n, heads, fh, seed):
+    """z and g [n, K·F'] and the scores sl, sr [n, K] (normal), and two int64
+    seeds drawn as the op draws them."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z, g = (torch.randn(n, heads * fh, generator=gen, device="cuda") for _ in range(2))
+    sl, sr = (torch.randn(n, heads, generator=gen, device="cuda") for _ in range(2))
+    seeds = torch.empty(2, dtype=torch.int64, device="cuda").random_(generator=gen)
+    return z, sl, sr, g, seeds
+
+
+def _gat_launch(emap, z, sl, sr, g, heads, rate, seeds):
+    """The three launches of a training layer: (out, stats, node, dsl, dz, dsr)."""
+    from cuda_gcn_torch import kernels
+
+    out, stats = kernels.gat_forward(emap.plan, emap.partial_rows, z, sl, sr, heads, GAT_SLOPE,
+                                     rate, seeds)
+    node, dsl = kernels.gat_rows(emap.plan, emap.partial_rows, g, z, sl, sr, stats, heads,
+                                 GAT_SLOPE, rate, seeds)
+    dz, dsr = kernels.gat_cols(emap.plan_t, emap.partial_rows_t, emap.rev, g, z, sr, node,
+                               heads, GAT_SLOPE, rate, seeds)
+    return out, stats, node, dsl, dz, dsr
+
+
+def _gat_check(label, emap, heads, fh, rate, seed) -> float:
+    """The three launches against the plain version (ops/attention.py, in
+    ``plain_dtype``: f64 on a small graph, f32 at full size), each output
+    within ``GAT_TOL`` of its largest value, and a second run equal bit for
+    bit. Returns the worst error over its tolerance."""
+    import torch
+
+    from cuda_gcn_torch.ops.attention import attention_backward_plain, attention_forward_plain
+
+    n = emap.plan.n_nodes
+    z, sl, sr, g, seeds = _gat_inputs(n, heads, fh, seed)
+    seeds = seeds if rate > 0 else None
+    got = _gat_launch(emap, z, sl, sr, g, heads, rate, seeds)
+    again = _gat_launch(emap, z, sl, sr, g, heads, rate, seeds)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"(w) {label}: a second run differs")
+    del again
+    out, stats, node, dsl, dz, dsr = got
+    dt = torch.float64 if emap.plan.nnz < 5_000_000 else torch.float32
+    want_out, want_stats = attention_forward_plain(emap, z.to(dt), sl.to(dt), sr.to(dt), heads,
+                                                   GAT_SLOPE, rate, seeds)
+    worst = 0.0
+    pairs = [("out", out, want_out), ("max", stats[..., 0], want_stats[..., 0]),
+             ("sum", stats[..., 1], want_stats[..., 1]), ("node.max", node[..., 1],
+                                                          want_stats[..., 0])]
+    del want_out
+    want = attention_backward_plain(emap, g.to(dt), z.to(dt), sl.to(dt), sr.to(dt), want_stats,
+                                    heads, GAT_SLOPE, rate, seeds)
+    pairs += list(zip(("dz", "dsl", "dsr"), (dz, dsl, dsr), want))
+    for name, a, b in pairs:
+        ratio = float((a.double() - b.double()).abs().max()) / (
+            GAT_TOL * max(float(b.double().abs().max()), 1e-30))
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            raise AssertionError(f"(w) {label}: {name} off the plain version, {ratio:.3f} of "
+                                 f"{GAT_TOL} of its largest value")
+    log(f"  {label}: out, max, sum, dz, dsl, dsr within {worst:.3f} of {GAT_TOL} of the "
+        f"plain version's largest values ({str(dt)[6:]}), repeatable, ok")
+    return worst
+
+
+def _gat_keep_counts(emap, heads, seeds):
+    """The kernel's kept weights of each row and head, read through the
+    forward itself: z = 1 and zero scores make every weight 1/deg, so out·deg·q
+    is the row's kept count. Returns (the kernel's counts, those of
+    ``attention_keep``) [n, K], int64."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.ops.attention import attention_keep
+
+    n = emap.plan.n_nodes
+    z = torch.ones(n, heads, device="cuda")
+    zero = torch.zeros(n, heads, device="cuda")
+    out, _ = kernels.gat_forward(emap.plan, emap.partial_rows, z, zero, zero, heads, GAT_SLOPE,
+                                 GAT_RATE, seeds, False)
+    deg = torch.zeros(n, device="cuda")
+    slot, row, _ = emap.edges()
+    deg.index_add_(0, row, torch.ones(len(row), device="cuda"))
+    q = kernels.gat_keep(GAT_RATE)[0]
+    got = torch.round(out.double() * deg.double()[:, None] * q).long()
+    want = torch.zeros(n, heads, dtype=torch.int64, device="cuda")
+    s = seeds.tolist()
+    for a in range(0, len(slot), 1 << 22):
+        keep = attention_keep(s, slot[a:a + (1 << 22)], heads, GAT_RATE)
+        want.index_add_(0, row[a:a + (1 << 22)], keep.long())
+    return got, want
+
+
+def _gat_masks(emap) -> dict:
+    """Every head's keep share over synth-reddit's slots, read from the
+    kernel, within ``GAT_KEEP_SIGMA`` of 1 - p and equal row by row to
+    ``attention_keep``'s; and the masks of 3 epochs of an ``EpochGraph``
+    (eager, then capture and replays) equal to eager draws of the same seed
+    and fresh each epoch."""
+    import torch
+
+    from cuda_gcn_torch import graphs, kernels
+    from cuda_gcn_torch.ops.attention import attention
+
+    q = kernels.gat_keep(GAT_RATE)[0]
+    shares = {}
+    for heads, _ in GAT_SHAPES:
+        seeds = torch.empty(2, dtype=torch.int64, device="cuda").random_(
+            generator=torch.Generator(device="cuda").manual_seed(heads))
+        got, want = _gat_keep_counts(emap, heads, seeds)
+        if not torch.equal(got, want):
+            raise AssertionError(f"(w) K={heads}: the kernel's kept counts differ from "
+                                 f"attention_keep's in {int((got != want).sum())} row-heads")
+        total = emap.plan.nnz
+        kept = got.sum(0).tolist()
+        zs = [(k - q * total) / (q * (1 - q) * total) ** 0.5 for k in kept]
+        shares[f"K={heads}"] = dict(kept=kept, slots=total, z=zs)
+        log(f"  K={heads}: keep share by head {[round(k / total, 6) for k in kept]} of "
+            f"{total} slots, {max(abs(v) for v in zs):.2f} sigma at most; equal to "
+            f"attention_keep row by row")
+        if max(abs(v) for v in zs) > GAT_KEEP_SIGMA:
+            raise AssertionError(f"(w) K={heads}: a keep share lies {max(map(abs, zs)):.2f} "
+                                 f"sigma from {q}")
+    n, heads = emap.plan.n_nodes, 8
+    z = torch.ones(n, heads, device="cuda")
+    zero = torch.zeros(n, heads, device="cuda")
+    seen = torch.zeros(n, heads, device="cuda")
+
+    def run(gen):
+        def step():
+            seen.copy_(attention(z, zero, zero, emap, heads, GAT_SLOPE, GAT_RATE, gen, True))
+        return step
+
+    masks = {}
+    for how in ("graph", "eager"):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        step = run(gen)
+        fn = graphs.EpochGraph(step, (gen,), ()).run if how == "graph" else step
+        masks[how] = []
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            masks[how].append(seen.clone())
+    same = [torch.equal(a, b) for a, b in zip(masks["graph"], masks["eager"])]
+    differ = [not torch.equal(a, b) for a, b in zip(masks["graph"], masks["graph"][1:])]
+    log(f"  a captured attention and its replays draw the eager epochs' masks {same}; "
+        f"consecutive epochs' masks differ {differ}")
+    if not all(same) or not all(differ):
+        raise AssertionError("(w) the graph's attention masks are not fresh eager draws")
+    return shares
+
+
+def _gat_bytes(emap, heads, fh) -> dict:
+    """Each launch's least bytes: its inputs read once and its outputs written
+    once (the columns and the row pointers of its plan, [n, K·F'] and [n, K]
+    tensors; the column pass also reads the reverse map)."""
+    n, d = emap.plan.n_nodes, heads * fh
+    index = 4 * emap.plan.nnz + 4 * (n + 1)
+    nd, nk = 4 * n * d, 4 * n * heads
+    return {"gat_forward": index + 2 * nd + 2 * nk + 2 * nk,
+            "gat_rows": index + 2 * nd + 4 * nk + 4 * nk + nk,
+            "gat_cols": index + 4 * emap.plan_t.nnz + 2 * nd + nk + 4 * nk + nd + nk}
+
+
+def _gat_trace() -> None:
+    """Prints, as one JSON line, ``_traces`` of each launch at the paper's
+    hidden layer on synth-reddit. ``_own_process_launches`` runs it in a
+    process of its own."""
+    from cuda_gcn_torch import kernels
+
+    _, graph, _, _ = _gat_prepared()
+    emap = graph.edge_map
+    heads, fh = GAT_SHAPES[0]
+    z, sl, sr, g, seeds = _gat_inputs(emap.plan.n_nodes, heads, fh, 3)
+    out, stats, node, *_ = _gat_launch(emap, z, sl, sr, g, heads, GAT_RATE, seeds)
+    print(json.dumps(_traces({
+        "gat_forward": lambda: kernels.gat_forward(emap.plan, emap.partial_rows, z, sl, sr,
+                                                   heads, GAT_SLOPE, GAT_RATE, seeds),
+        "gat_rows": lambda: kernels.gat_rows(emap.plan, emap.partial_rows, g, z, sl, sr, stats,
+                                             heads, GAT_SLOPE, GAT_RATE, seeds),
+        "gat_cols": lambda: kernels.gat_cols(emap.plan_t, emap.partial_rows_t, emap.rev, g, z,
+                                             sr, node, heads, GAT_SLOPE, GAT_RATE, seeds)})),
+          flush=True)
+
+
+def _gat_device_us() -> dict:
+    """The device us a call of each launch, from ``_gat_trace`` in a process
+    of its own: a launch is its item kernel and, where rows are split, the
+    partials' kernel, each with ``PROFILED_CALLS`` records."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._gat_trace()"],
+                         cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode:
+        raise AssertionError(f"the trace _gat_trace(): rc {res.returncode}\n{res.stderr[-4000:]}")
+    out = {}
+    for kernel, traces in json.loads(res.stdout.strip().splitlines()[-1]).items():
+        last = traces[-1]
+        log(f"  {kernel}: " + "; ".join(f"{name}: {n} records, {us / max(n, 1):.2f} us each"
+                                        for name, (n, us) in last.items()))
+        if not 1 <= len(last) <= 2 or any(n != PROFILED_CALLS for n, _ in last.values()):
+            raise AssertionError(f"{kernel}: the trace did not hold its kernels once a call: "
+                                 f"{last}")
+        out[kernel] = {"kernels": len(last),
+                       "device_us": sum(us for _, us in last.values()) / PROFILED_CALLS}
+    return out
+
+
+def phase_gat() -> dict:
+    """(w) the GAT's attention kernels: checked against their plain version
+    on synth-pubmed (f64; four layer shapes) and at full size on synth-reddit
+    (f32; its rows of up to 43,403 slots split into chunks),
+    both layers' shapes, with and without dropout; the kernel's masks read
+    back (keep shares, ``attention_keep`` row by row, fresh under replays);
+    each launch timed by events beside its bytes bound and on the device in a
+    process of its own; then a 100-epoch GAT job through the trainer: its
+    launches an epoch, its epoch time and its peak memory."""
+    import dataclasses
+
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.device import resolve_device
+
+    resolve_device("cuda")
+    log(f"(w) the GAT's attention kernels; {_clocks()}")
+    small = train.prepare(GCNConfig(model="gat", hidden_dim=8), load_cached("synth-pubmed"),
+                          "cuda")[1].edge_map
+    for heads, fh in GAT_SHAPES + ((3, 5), (1, 7)):
+        for rate in (0.0, GAT_RATE):
+            _gat_check(f"synth-pubmed K={heads} F'={fh} p={rate}", small, heads, fh, rate, 1)
+    t0 = time.perf_counter()
+    cfg, graph, x, truths = _gat_prepared()
+    emap = graph.edge_map
+    log(f"  synth-reddit prepared for the GAT in {time.perf_counter() - t0:.1f} s "
+        f"({emap.plan.n_partials} partials of {emap.plan.split_rows.numel()} split rows)")
+    worst = {}
+    for heads, fh in GAT_SHAPES:
+        for rate in (0.0, GAT_RATE):
+            worst[f"K={heads} p={rate}"] = _gat_check(
+                f"synth-reddit K={heads} F'={fh} p={rate}", emap, heads, fh, rate, 2)
+    torch.cuda.empty_cache()
+    shares = _gat_masks(emap)
+    rows = {}
+    for heads, fh in GAT_SHAPES:
+        z, sl, sr, g, seeds = _gat_inputs(emap.plan.n_nodes, heads, fh, 3)
+        out, stats, node, *_ = _gat_launch(emap, z, sl, sr, g, heads, GAT_RATE, seeds)
+        fns = {
+            "gat_forward": lambda: kernels.gat_forward(emap.plan, emap.partial_rows, z, sl, sr,
+                                                       heads, GAT_SLOPE, GAT_RATE, seeds),
+            "gat_forward eval": lambda: kernels.gat_forward(
+                emap.plan, emap.partial_rows, z, sl, sr, heads, GAT_SLOPE, 0.0, None, False),
+            "gat_rows": lambda: kernels.gat_rows(emap.plan, emap.partial_rows, g, z, sl, sr,
+                                                 stats, heads, GAT_SLOPE, GAT_RATE, seeds),
+            "gat_cols": lambda: kernels.gat_cols(emap.plan_t, emap.partial_rows_t, emap.rev, g,
+                                                 z, sr, node, heads, GAT_SLOPE, GAT_RATE, seeds)}
+        nbytes = _gat_bytes(emap, heads, fh)
+        for name, fn in fns.items():
+            ms = cuda_ms(fn, GAT_ITERS)
+            b = nbytes[name.split()[0]] - (8 * emap.plan.n_nodes * heads if "eval" in name
+                                           else 0)
+            bound = b / PEAK_BYTES_PER_S * 1e3
+            rows[f"{name} K={heads} F'={fh}"] = dict(ms=ms, bound_ms=bound, bytes=b)
+            log(f"  {name} K={heads} F'={fh}: {ms:.4f} ms, bound {bound:.4f} ms "
+                f"({b / 1e9:.3f} GB): {100 * bound / ms:.1f}% of it")
+        del z, sl, sr, g, out, stats, node, fns
+        torch.cuda.empty_cache()
+    device = _gat_device_us()
+    for name, d in device.items():
+        log(f"  {name} K=8 F'=8: device {d['device_us'] / 1e3:.4f} ms a call "
+            f"({d['kernels']} kernels)")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    times = []
+    for seed in (1, 2):
+        state = train.create_state(dataclasses.replace(cfg, seed=seed), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train.run_epochs_chunked(state, graph, x, truths[1], truths[2], epochs=GAT_EPOCHS,
+                                     **kw)
+        test = train.eval_step(state.model, graph, x, truths[3], weight_decay=cfg.weight_decay)
+        rows_m = m.cpu()
+        test_loss = float(test[0])
+        times.append((time.perf_counter() - t0) * 1e3 / GAT_EPOCHS)
+        log(f"  a {GAT_EPOCHS}-epoch GAT job (seed {seed}): {times[-1]:.3f} ms an epoch, first "
+            f"and last train loss {float(rows_m[0, 0]):.5f} {float(rows_m[-1, 0]):.5f}, last "
+            f"val acc {float(rows_m[-1, 3]):.5f}, test loss {test_loss:.5f}")
+        if not bool(torch.isfinite(rows_m).all()):
+            raise AssertionError("(w) the GAT job's metrics are not finite")
+        del state
+    launches = dict(kernels.launches)
+    want = {"gat_forward": 2 * (4 * GAT_EPOCHS + 2 + 2), "gat_rows": 2 * 2 * GAT_EPOCHS,
+            "gat_cols": 2 * 2 * GAT_EPOCHS, "layer0_pair": 2 * 4 * GAT_EPOCHS}
+    got = {k: launches[k] for k in want}
+    log(f"  launches of two jobs: {got} (expected {want}); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if got != want:
+        raise AssertionError(f"(w) the GAT jobs' launches {got} are not {want}")
+    log(f"  {_clocks()}")
+    return dict(rows=rows, device=device, worst=worst, shares=shares, epoch_ms=times,
+                launches=got, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
 def main() -> int:
     import torch
 
@@ -4107,6 +4451,7 @@ def main() -> int:
     probe_rows = phase_probes(errs)
     taa_rows = phase_taa_probes(errs)
     layer0_pair = phase_layer0_pair()
+    gat = phase_gat()
     text_launches = phase_text_entry()
     cli_timers = phase_cli_extras()
     shard = phase_sharded()
@@ -4173,6 +4518,13 @@ def main() -> int:
         "library_ms": reddit_f32["library_ms"], "device_us": reddit_f32["device_us"],
         "device_by": reddit_f32["device_by"], "shapes": layer0_pair["rows"]})
     kernels_line += _bf16_kernel_lines(bf16)
+    for name in GAT_KERNELS:  # (w): the GAT's attention kernels at both layers' shapes
+        rows = {k: v for k, v in gat["rows"].items() if k.split()[0] == name}
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": "cuda_gcn_torch/csrc/gat_attention.cu",
+            "replaces": "none in the JAX package (it has no attention model)",
+            "launches": gat["launches"][name], "ms": rows, "device_us": gat["device"][name],
+            "worst_err_of_tol": gat["worst"]})
     for line in kernels_line:  # (t): the benchmark entry's measured run
         if line["name"] in bench_run["launches"]:
             line["launches_bench"] = bench_run["launches"][line["name"]]

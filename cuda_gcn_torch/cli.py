@@ -9,6 +9,7 @@
         [--save-checkpoint PATH] [--load-checkpoint PATH]
         [--metrics-csv PATH] [--metrics-jsonl PATH] [--timing] [--build-kernels]
         [--platform cpu|tpu] [--compilation-cache DIR] [--prime-cache]
+        [--model gcn|gat]
 
 The nine hyperparameter overrides are those of the reference's usage string
 (src/main.cpp:15-49), positional or as flags, as cuda_gcn_tpu.cli takes them
@@ -55,6 +56,14 @@ gloo ranks on the CPU. With fewer cards than N it exits with the JAX CLI's
 message (cuda_gcn_tpu/cli.py:166-170). Rank 0 alone prints, saves and
 writes the history; ``--halo-dtype`` is the wire type of the halo rows.
 
+``--model gat`` trains the graph attention network (models/gat.py) in place
+of the GCN, with the paper's transductive settings (arXiv:1710.10903, §3.3)
+where the command gives none: 8 features a head (``hidden_dim``), dropout 0.6,
+learning rate 0.005; its heads (8 a hidden layer, 1 on the output layer),
+attention dropout (0.6) and LeakyReLU slope (0.2) are ``GCNConfig``'s
+defaults. It runs on the ``ell`` backend ('auto' picks it; another is refused), single
+device (``--mesh`` exits 1), without ``--timing``'s per-op phases.
+
 It runs on the card unless ``--device cpu`` is given.
 """
 
@@ -72,6 +81,8 @@ _POSITIONAL = ["num_nodes", "input_dim", "hidden_dim", "output_dim", "dropout",
                "learning_rate", "weight_decay", "epochs", "early_stopping"]
 _PARSER_INFERRED = {"num_nodes", "input_dim", "output_dim"}
 _FLOAT_FIELDS = {"dropout", "learning_rate", "weight_decay"}
+# ``--model gat``'s settings where the command gives none (arXiv:1710.10903, §3.3)
+GAT_DEFAULTS = {"hidden_dim": 8, "dropout": 0.6, "learning_rate": 0.005}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -120,6 +131,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--prime-cache", action="store_true",
                    help="build the libraries this run loads (nvcc kernels on the card, "
                         "g++ host code) and exit without training (train.prime_cache)")
+    p.add_argument("--model", default="gcn", choices=["gcn", "gat"],
+                   help="the network: the GCN, or the graph attention network "
+                        "(arXiv:1710.10903) with the paper's settings as defaults")
     for name in _POSITIONAL:
         typ = float if name in _FLOAT_FIELDS else int
         p.add_argument(f"--{name.replace('_', '-')}", type=typ, default=None)
@@ -131,8 +145,8 @@ def config_from_args(args: argparse.Namespace) -> GCNConfig:
     ``--flag`` form winning over its positional (cuda_gcn_tpu/cli.py:82-103)."""
     cfg = GCNConfig(seed=args.seed, graphsum_backend=args.backend,
                     compute_dtype=args.compute_dtype, halo_dtype=args.halo_dtype,
-                    feature_matmul=args.feature_matmul)
-    updates: dict = {}
+                    feature_matmul=args.feature_matmul, model=args.model)
+    updates: dict = dict(GAT_DEFAULTS) if args.model == "gat" else {}
     for name, value in zip(_POSITIONAL, args.overrides):
         typ = float if name in _FLOAT_FIELDS else int
         try:
@@ -218,9 +232,17 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.mesh:
         print(f"RUNNING ON {platform}")
+        if cfg.model != "gcn":
+            print(f"--mesh trains the GCN; --model {cfg.model} is single-device",
+                  file=sys.stderr)
+            return 1
         return _run_mesh(args, cfg, dataset, device, platform)
+    if cfg.model == "gat" and args.timing:
+        print("--timing's per-op phases are the GCN's; --model gat has none", file=sys.stderr)
+        return 1
     if backend == "auto":
-        backend = "dense" if dataset.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
+        backend = "ell" if cfg.model == "gat" else \
+            "dense" if dataset.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
     if backend == "bsr" and cached and os.path.exists(cached_permutation_path(name)):
         dataset, reorder = reorder_cached(dataset, name), "none"
     print(f"RUNNING ON {platform}")

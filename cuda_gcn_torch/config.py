@@ -8,6 +8,18 @@ package. ``feature_matmul`` selects dense or sparse (CSR) layer-0 features.
 ``halo_dtype`` (the wire type of the sharded trainer's halo rows,
 parallel/sharded.py) are each 'float32' or 'bfloat16'; another value is
 refused here, by name.
+
+``model`` picks the network: 'gcn' (models/gcn.py, the default and the JAX
+package's only model) or 'gat' (models/gat.py, Veličković et al.'s graph
+attention network, arXiv:1710.10903). The GAT reads ``hidden_dims`` (or
+``hidden_dim``) as the features of one head, ``heads`` as the heads of each
+layer (default: 8 on every hidden layer, 1 on the output layer; the hidden
+layers concatenate their heads, the output layer averages them),
+``attention_dropout`` as the dropout on the normalised attention weights
+and ``leaky_slope`` as the LeakyReLU's slope of the edge scores; the GCN reads
+none of them. The JAX package's ``GCNConfig`` has the other fields only. An
+unknown model is refused by name, and so is a GAT outside float32 (its
+attention kernels are f32) or with a head count a layer does not have.
 """
 
 from __future__ import annotations
@@ -15,6 +27,12 @@ from __future__ import annotations
 import dataclasses
 
 DTYPES = ("float32", "bfloat16")
+MODELS = ("gcn", "gat")
+# The fields the JAX package's config does not have: the GAT's.
+GAT_FIELDS = ("model", "heads", "attention_dropout", "leaky_slope")
+# The GAT's heads on each hidden layer where ``heads`` is None (the paper's
+# transductive setting, §3.3); the output layer has one.
+GAT_HIDDEN_HEADS = 8
 
 
 @dataclasses.dataclass
@@ -45,12 +63,34 @@ class GCNConfig:
     compute_dtype: str = "float32"
     halo_dtype: str = "bfloat16"
     bsr_budget_gb: float | None = None
+    model: str = "gcn"
+    heads: tuple[int, ...] | None = None
+    attention_dropout: float = 0.6
+    leaky_slope: float = 0.2
 
     def __post_init__(self):
         for field in ("compute_dtype", "param_dtype", "halo_dtype"):
             if getattr(self, field) not in DTYPES:
                 raise ValueError(f"{field} must be one of {DTYPES}, got "
                                  f"{getattr(self, field)!r}")
+        if self.model not in MODELS:
+            raise ValueError(f"model must be one of {MODELS}, got {self.model!r}")
+        if self.model == "gat":
+            if self.compute_dtype != "float32" or self.param_dtype != "float32":
+                raise ValueError("model 'gat' runs in float32 (compute_dtype and param_dtype)")
+            self.layer_heads()
+
+    def layer_heads(self) -> tuple[int, ...]:
+        """The GAT's heads of each layer: ``heads``, else ``GAT_HIDDEN_HEADS`` on
+        every hidden layer and one on the output layer."""
+        n_layers = len(self.layer_dims()) - 1
+        heads = self.heads if self.heads is not None else \
+            (GAT_HIDDEN_HEADS,) * (n_layers - 1) + (1,)
+        heads = tuple(int(k) for k in heads)
+        if len(heads) != n_layers or min(heads) < 1:
+            raise ValueError(f"heads must give each of the {n_layers} layers at least one "
+                             f"head, got {self.heads!r}")
+        return heads
 
     def layer_dims(self) -> tuple[int, ...]:
         hidden = self.hidden_dims if self.hidden_dims is not None else (self.hidden_dim,)

@@ -51,8 +51,8 @@ from cuda_gcn_torch.data import native_build
 from cuda_gcn_torch.data.dataset import CSR
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops.bsr import TilePlan, tile_plan
-from cuda_gcn_torch.ops.ell import (EllBucket, EllPlan, WorkList, csr_work_list, ell_plan,
-                                    pick_order)
+from cuda_gcn_torch.ops.ell import (EdgeMap, EllBucket, EllPlan, WorkList, csr_work_list,
+                                    ell_plan, pick_order)
 
 # 'auto' backend: dense below this node count, block-sparse tiles above
 # (cuda_gcn_tpu/data/graph.py:544).
@@ -104,6 +104,7 @@ class Graph:
     plan_t: TilePlan | None = None  # tiles grouped by block col (asymmetric)
     ell: EllPlan | None = None      # ELL packing of Â ('ell', 'pallas')
     ell_t: EllPlan | None = None    # ELL packing of Âᵀ (asymmetric only)
+    edge_map: EdgeMap | None = None  # the GAT's reverse-edge map (ops/ell.py ``edge_map``)
     build_s: dict = dataclasses.field(default_factory=dict)  # host seconds by build step
 
     @property

@@ -19,7 +19,9 @@ done once: each C function is bound with its argtypes when its library is
 loaded, devices are compared by index, and a refusal is worded only when
 there is one.
 
-Kernels 1-3 and the dense layer-0 kernel (``layer0_pair``) take f32 or bf16
+The GAT's attention kernels (``gat_forward``, ``gat_rows``, ``gat_cols``,
+csrc/gat_attention.cu) take f32 alone. Kernels 1-3 and the dense layer-0
+kernel (``layer0_pair``) take f32 or bf16
 activations (``ACT_DTYPES``): each C entry gets a dtype code (``dtype_code``,
 ``spmm_code``) and runs the variant built for it, with f32 sums and the
 output in h's type. A type that has no variant is refused here, and by the C
@@ -70,6 +72,18 @@ _ENTRY = {
     "layer0_pair": ("layer0_pair", "layer0_pair",
                     [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, ctypes.c_float,
                      ctypes.c_float, _I, ctypes.c_uint32, _I, _I, _I, _P]),
+    "gat_forward": ("gat_attention", "gat_forward",
+                    [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
+                     _P]),
+    "gat_rows": ("gat_attention", "gat_rows",
+                 [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
+                  _P]),
+    "gat_cols": ("gat_attention", "gat_cols",
+                 [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                  _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
+                  _P]),
 }
 SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
@@ -783,3 +797,154 @@ def layer0_pair(x, w, seeds, rate: float, with_eval: bool):
               min(LAYER0_COLS, h - h_off), path, q, inv_q, pow2, thresh, bits,
               int(h_off == 0), dtype_code(x.dtype), _stream(dev))
     return xd, zt, ze
+
+
+# The GAT's attention kernels (csrc/gat_attention.cu): a lane holds at most
+# GAT_LANE_FLOATS floats of its head, as STEPS pieces of VEC (the layouts built).
+GAT_LANE_FLOATS = 8
+
+
+def gat_layout(heads: int, fh: int, *bases: int) -> tuple[int, int, int, int]:
+    """The attention kernels' lane split for K = ``heads`` heads of F' = ``fh``
+    features, as (VEC, L2, G, STEPS): VEC the widest load (4, 2 or 1 floats)
+    that divides F' and aligns every base; L2 lanes a head, the least power of
+    two at which a lane holds at most ``GAT_LANE_FLOATS`` floats, as STEPS
+    pieces of VEC (a power of two); G = K·L2 lanes a slot, rounded up to a
+    power of two (32 / G slots side by side). A split past 32 lanes a slot is
+    refused."""
+    vec = next(v for v in (4, 2, 1) if fh % v == 0 and not any(b % (4 * v) for b in bases))
+    pieces = fh // vec
+    for l2 in (1, 2, 4, 8, 16, 32):
+        steps = 1 << (-(-pieces // l2) - 1).bit_length()
+        g = 1 << (heads * l2 - 1).bit_length()
+        if vec * steps <= GAT_LANE_FLOATS and g <= 32:
+            return vec, l2, g, steps
+    raise ValueError(f"the attention kernels take at most 32 lanes a slot and "
+                     f"{GAT_LANE_FLOATS} floats a lane; {heads} heads of {fh} features do "
+                     f"not fit")
+
+
+def gat_keep(rate: float) -> tuple[float, float, int]:
+    """The attention dropout at ``rate`` (0 <= rate < 1): q = 1 - rate in f32,
+    1/q in f32 (a kept weight is multiplied by it), and the threshold below
+    which a 32-bit word keeps its weight, q·2^32 rounded (at most 2^32 - 1)."""
+    q = float(np.float32(1.0 - rate))
+    return q, float(np.float32(1.0 / q)), min(round(q * 2.0**32), 2**32 - 1)
+
+
+def _gat_check(name, plan, partial_rows, tensors, heads: int, seeds):
+    """The launch's device index and the checks every attention launcher
+    makes: the work list and columns of ``plan``, its partials' rows, the f32
+    ``tensors`` {name: (tensor, rows, columns)}, the seeds."""
+    z = tensors["z"][0]
+    dev = _on_cuda(z, name)
+    for what in ("work_beg", "work_len", "work_dst", "split_rows", "split_ptr", "cols"):
+        _check(getattr(plan, what), what, torch.int32, dev)
+    _check(partial_rows, "partial_rows", torch.int32, dev)
+    for what, (t, rows, cols) in tensors.items():
+        _check(t, what, torch.float32, dev)
+        if t.numel() != rows * cols:
+            raise ValueError(f"{name}: {what} must be [{rows}, {cols}], got {tuple(t.shape)}")
+    if seeds is not None:
+        _check(seeds, "seeds", torch.int64, dev)
+        if seeds.numel() != 2:
+            raise ValueError(f"{name}: seeds must be 2 int64, got {seeds.numel()}")
+    n_items = plan.work_beg.numel()
+    if plan.work_len.numel() != n_items or plan.work_dst.numel() != n_items \
+            or plan.split_ptr.numel() != plan.split_rows.numel() + 1 \
+            or partial_rows.numel() != plan.n_partials or heads < 1:
+        raise ValueError(f"{name}: inconsistent work list")
+    return dev
+
+
+def _gat_common(plan, partial_rows):
+    return (plan.work_beg.data_ptr(), plan.work_len.data_ptr(), plan.work_dst.data_ptr(),
+            plan.work_beg.numel(), partial_rows.data_ptr(), plan.split_rows.data_ptr(),
+            plan.split_ptr.data_ptr(), plan.split_rows.numel(), plan.cols.data_ptr())
+
+
+def gat_forward(plan, partial_rows, z, sl, sr, heads: int, slope: float, rate: float,
+                seeds=None, with_stats: bool = True):
+    """Launch the attention's forward over ``plan`` (ops/ell.py ``EllPlan``,
+    row i gathering the rows of its slots): out [n, K·F'] from z [n, K·F'] and
+    the scores sl, sr [n, K], each row's softmax over its slots, the attention
+    dropout at ``rate`` under ``seeds`` (two int64 on the device; None: none);
+    with ``with_stats`` also each row's max and sum [n, K, 2], else None."""
+    n, k = plan.n_nodes, heads
+    d = z.shape[-1] if z.dim() == 2 else -1
+    if d % k or z.dim() != 2:
+        raise ValueError(f"gat_forward: z must be [n, K·F'] with K = {k}, got {tuple(z.shape)}")
+    dev = _gat_check("gat_forward", plan, partial_rows,
+                     {"z": (z, n, d), "sl": (sl, n, k), "sr": (sr, n, k)}, k, seeds)
+    out = torch.empty(n, d, dtype=torch.float32, device=z.device)
+    stats = torch.empty(n, k, 2, dtype=torch.float32, device=z.device) if with_stats else None
+    partial = torch.empty(plan.n_partials * (d + 2 * k), dtype=torch.float32, device=z.device)
+    if n == 0 or d == 0:
+        return out, stats
+    vec, l2, g, steps = gat_layout(k, d // k, z.data_ptr(), out.data_ptr(), partial.data_ptr())
+    _, inv_q, thresh = gat_keep(rate if seeds is not None else 0.0)
+    _call("gat_forward", *_gat_common(plan, partial_rows), z.data_ptr(), sl.data_ptr(),
+          sr.data_ptr(), None if seeds is None else seeds.data_ptr(), out.data_ptr(),
+          None if stats is None else stats.data_ptr(), partial.data_ptr(), plan.n_partials,
+          k, d // k, vec, l2, g, steps, slope, inv_q, thresh, _stream(dev))
+    return out, stats
+
+
+def gat_rows(plan, partial_rows, g, z, sl, sr, stats, heads: int, slope: float, rate: float,
+             seeds=None):
+    """Launch the backward's row pass over ``plan``: from g, the gradient of
+    the forward's out, node [n, K, 4] = (sl, the row's max, the reciprocal of
+    its sum, A) and dsl [n, K], the gradient of sl (A = Σ_j a·da, the
+    softmax's row term)."""
+    n, k = plan.n_nodes, heads
+    d = z.shape[-1] if z.dim() == 2 else -1
+    if d % k or z.dim() != 2:
+        raise ValueError(f"gat_rows: z must be [n, K·F'] with K = {k}, got {tuple(z.shape)}")
+    dev = _gat_check("gat_rows", plan, partial_rows,
+                     {"z": (z, n, d), "g": (g, n, d), "sl": (sl, n, k), "sr": (sr, n, k),
+                      "stats": (stats, n, 2 * k)}, k, seeds)
+    node = torch.empty(n, k, 4, dtype=torch.float32, device=z.device)
+    dsl = torch.empty(n, k, dtype=torch.float32, device=z.device)
+    partial = torch.empty(plan.n_partials * 3 * k, dtype=torch.float32, device=z.device)
+    if n == 0 or d == 0:
+        return node, dsl
+    vec, l2, gl, steps = gat_layout(k, d // k, z.data_ptr(), g.data_ptr())
+    _, inv_q, thresh = gat_keep(rate if seeds is not None else 0.0)
+    _call("gat_rows", *_gat_common(plan, partial_rows), g.data_ptr(), z.data_ptr(),
+          sl.data_ptr(), sr.data_ptr(), stats.data_ptr(),
+          None if seeds is None else seeds.data_ptr(), node.data_ptr(), dsl.data_ptr(),
+          partial.data_ptr(), k, d // k, vec, l2, gl, steps, slope, inv_q, thresh,
+          _stream(dev))
+    return node, dsl
+
+
+def gat_cols(plan_t, partial_rows_t, rev, g, z, sr, node, heads: int, slope: float,
+             rate: float, seeds=None):
+    """Launch the backward's column pass over ``plan_t``, the plan of Âᵀ
+    (row j, a slot for each i whose row holds j), with ``rev`` its reverse
+    map into the forward plan's slots: dz [n, K·F'], the aggregation's part of
+    z's gradient, and dsr [n, K], the gradient of sr."""
+    n, k = plan_t.n_nodes, heads
+    d = z.shape[-1] if z.dim() == 2 else -1
+    if d % k or z.dim() != 2:
+        raise ValueError(f"gat_cols: z must be [n, K·F'] with K = {k}, got {tuple(z.shape)}")
+    dev = _gat_check("gat_cols", plan_t, partial_rows_t,
+                     {"z": (z, n, d), "g": (g, n, d), "sr": (sr, n, k),
+                      "node": (node, n, 4 * k)}, k, seeds)
+    _check(rev, "rev", torch.int32, dev)
+    if rev.numel() != plan_t.cols.numel():
+        raise ValueError(f"gat_cols: rev must hold a slot for each of {plan_t.cols.numel()}")
+    dz = torch.empty(n, d, dtype=torch.float32, device=z.device)
+    dsr = torch.empty(n, k, dtype=torch.float32, device=z.device)
+    partial = torch.empty(plan_t.n_partials * (d + k), dtype=torch.float32, device=z.device)
+    if n == 0 or d == 0:
+        return dz, dsr
+    vec, l2, gl, steps = gat_layout(k, d // k, z.data_ptr(), g.data_ptr(), dz.data_ptr(),
+                                    partial.data_ptr())
+    _, inv_q, thresh = gat_keep(rate if seeds is not None else 0.0)
+    _call("gat_cols", *_gat_common(plan_t, partial_rows_t), rev.data_ptr(), g.data_ptr(),
+          z.data_ptr(), sr.data_ptr(), node.data_ptr(),
+          None if seeds is None else seeds.data_ptr(), dz.data_ptr(), dsr.data_ptr(),
+          partial.data_ptr(), plan_t.n_partials, k, d // k, vec, l2, gl, steps, slope,
+          inv_q, thresh, _stream(dev))
+    return dz, dsr

@@ -101,6 +101,10 @@ class GCN(nn.Module):
                 ht, he = torch.relu(ht), torch.relu(he)
         return ht, he
 
+    def l2_penalty(self, weight_decay: float) -> torch.Tensor:
+        """wd/2·||W1||²: the reference decays layer-1 weights only (gcn.cpp:98-105)."""
+        return l2_penalty(self.w1, weight_decay)
+
     def loss_fn(self, graph: Graph, x: torch.Tensor, truth: torch.Tensor, *,
                 weight_decay: float, dropout_rate: float = 0.0,
                 generator: torch.Generator | None = None, training: bool = False):
@@ -108,5 +112,5 @@ class GCN(nn.Module):
         returns (loss, logits, accuracy)."""
         logits = self(graph, x, dropout_rate=dropout_rate, generator=generator,
                       training=training)
-        loss = masked_cross_entropy(logits, truth) + l2_penalty(self.w1, weight_decay)
+        loss = masked_cross_entropy(logits, truth) + self.l2_penalty(weight_decay)
         return loss, logits, strict_accuracy(logits, truth)

@@ -1,0 +1,194 @@
+"""The GAT's multi-head graph attention (Veličković et al., arXiv:1710.10903,
+eqs. 1-4) over the ELL plan: csrc/gat_attention.cu on the card, the plain
+PyTorch version below on the CPU.
+
+For z [N, K·F'] (K heads of F' features side by side) and the scores
+sl = ⟨z_i, a_l⟩ and sr = ⟨z_j, a_r⟩ [N, K] of each head:
+
+    e_ij = LeakyReLU(sl_i + sr_j)                 for the slots j of row i
+    α_ij = exp(e_ij - max_j e_ij) / Σ_j exp(...)  the softmax over the row
+    out_i = Σ_j dropout(α_ij) · z_j               head by head, [N, K·F']
+
+The rows are Â's (the self-loop included), in the graph's ELL plan; the
+backward's transpose aggregation runs over the plan of Âᵀ (Â's own for a
+symmetric pattern) with the reverse-edge map (ops/ell.py ``EdgeMap``), so
+that nothing is scattered. The dropout of α is drawn in the kernels, keyed by
+two int64 that ``attention`` draws on the device from the job's generator
+(as the dense layer-0 kernel's are, ops/matmul.py ``_Layer0Pair``): a
+replayed CUDA graph draws a fresh mask, and the host reads nothing. The mask
+of forward slot s and head k is ``attention_keep``'s; a kept weight is scaled
+by 1/(1 - p).
+
+What the autograd Function keeps for the backward is z, sl, sr, each row's
+max and sum [N, K, 2] and the seeds: every weight is recomputed where it is
+needed, and no [S, K] tensor is made (671 MB at synth-reddit's 21M slots and
+8 heads). Its backward gives the gradients of z (the aggregation's part),
+sl and sr; the parts that pass through sl and sr into z and the attention
+vectors are ATen's, in the model (models/gat.py).
+
+A tensor on the CPU takes the plain versions (an edge list, ``index_add_``),
+one a kernel, in the kernels' formulas; a CUDA tensor launches the kernels or
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuda_gcn_torch import kernels
+from cuda_gcn_torch.ops.ell import EdgeMap
+from cuda_gcn_torch.ops.matmul import philox4x32
+
+_U32 = 0xFFFFFFFF
+
+
+def attention_keep(seeds, slots: torch.Tensor, heads: int, rate: float) -> torch.Tensor:
+    """The attention dropout's mask of the forward plan's ``slots``, [len, K]
+    bool on their device: head k of slot s keeps its weight where word k % 4
+    of the Philox4x32-10 call under the key seeds[0], at the counter (s·⌈K/4⌉
+    + k/4 as two words, then the offset seeds[1] as two), lies below
+    ``kernels.gat_keep(rate)``'s threshold."""
+    seed, offset = (int(v) % 2**64 for v in seeds)
+    thresh = kernels.gat_keep(rate)[2]
+    calls = -(-heads // 4)
+    c = (slots.long()[:, None] * calls
+         + torch.arange(calls, dtype=torch.int64, device=slots.device)).reshape(-1)
+    ctr = torch.stack([c & _U32, c >> 32, torch.full_like(c, offset & _U32),
+                       torch.full_like(c, offset >> 32)], dim=-1)
+    u = philox4x32((seed & _U32, seed >> 32), ctr).reshape(len(slots), calls * 4)
+    return u[:, :heads] < thresh
+
+
+def _leaky(e: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(e > 0, e, e * slope)
+
+
+def _weights(emap: EdgeMap, heads: int, rate: float, seeds, dtype):
+    """(slot, row, col) of the forward plan's edges and each edge-head's kept
+    weight scale [E, K]: 1/(1 - p) where kept, 0 where dropped, 1 without
+    dropout."""
+    slot, row, col = emap.edges()
+    if seeds is None:
+        return slot, row, col, torch.ones(len(slot), heads, dtype=dtype, device=slot.device)
+    inv_q = kernels.gat_keep(rate)[1]
+    keep = attention_keep(seeds.tolist(), slot, heads, rate)
+    return slot, row, col, torch.where(keep, inv_q, 0.0).to(dtype)
+
+
+def attention_forward_plain(emap: EdgeMap, z, sl, sr, heads: int, slope: float, rate: float,
+                            seeds=None):
+    """Plain version of ``kernels.gat_forward``: (out [N, K·F'], each row's
+    max and sum [N, K, 2])."""
+    n, d = z.shape
+    _, row, col, scale = _weights(emap, heads, rate, seeds, z.dtype)
+    e = _leaky(sl[row] + sr[col], slope)
+    m = z.new_full((n, heads), float("-inf")).scatter_reduce(
+        0, row[:, None].expand(-1, heads), e, "amax")
+    p = torch.exp(e - m[row])
+    den = z.new_zeros(n, heads).index_add_(0, row, p)
+    w = p / den[row] * scale
+    z3 = z.view(n, heads, d // heads)
+    out = torch.zeros_like(z3).index_add_(0, row, w[..., None] * z3[col])
+    return out.view(n, d), torch.stack([m, den], dim=-1)
+
+
+def attention_rows_plain(emap: EdgeMap, g, z, sl, sr, stats, heads: int, slope: float,
+                         rate: float, seeds=None):
+    """Plain version of ``kernels.gat_rows``: (node [N, K, 4] = (sl, the row's
+    max, the reciprocal of its sum, A = Σ_j α·da), dsl [N, K]), da the
+    gradient of a dropped weight, ⟨g_i, z_j⟩ head by head, times its scale;
+    a weight is exp(e - max) times the reciprocal, as in the kernels."""
+    n, d = z.shape
+    _, row, col, scale = _weights(emap, heads, rate, seeds, z.dtype)
+    ep = sl[row] + sr[col]
+    lam = torch.where(ep > 0, ep.new_ones(()), ep.new_full((), slope))
+    rden = 1.0 / stats[..., 1]
+    alpha = torch.exp(_leaky(ep, slope) - stats[row, :, 0]) * rden[row]
+    da = (g.view(n, heads, -1)[row] * z.view(n, heads, -1)[col]).sum(-1) * scale
+    a_sum = z.new_zeros(n, heads).index_add_(0, row, alpha * da)
+    dsl = z.new_zeros(n, heads).index_add_(0, row, alpha * (da - a_sum[row]) * lam)
+    return torch.stack([sl, stats[..., 0], rden, a_sum], dim=-1), dsl
+
+
+def attention_cols_plain(emap: EdgeMap, g, z, sr, node, heads: int, slope: float, rate: float,
+                         seeds=None):
+    """Plain version of ``kernels.gat_cols``: (dz [N, K·F'], the aggregation's
+    part of z's gradient, dsr [N, K]), each row i's terms read from ``node``."""
+    n, d = z.shape
+    _, row, col, scale = _weights(emap, heads, rate, seeds, z.dtype)
+    nd = node[row]
+    ep = nd[..., 0] + sr[col]
+    lam = torch.where(ep > 0, ep.new_ones(()), ep.new_full((), slope))
+    alpha = torch.exp(_leaky(ep, slope) - nd[..., 1]) * nd[..., 2]
+    g3 = g.view(n, heads, -1)
+    da = (g3[row] * z.view(n, heads, -1)[col]).sum(-1) * scale
+    dsr = z.new_zeros(n, heads).index_add_(0, col, alpha * (da - nd[..., 3]) * lam)
+    dz = torch.zeros_like(g3).index_add_(0, col, (alpha * scale)[..., None] * g3[row])
+    return dz.view(n, d), dsr
+
+
+def attention_backward_plain(emap: EdgeMap, g, z, sl, sr, stats, heads: int, slope: float,
+                             rate: float, seeds=None):
+    """Both passes of the backward, plain: (dz, dsl, dsr), the gradients of z
+    (the aggregation's part), sl and sr."""
+    node, dsl = attention_rows_plain(emap, g, z, sl, sr, stats, heads, slope, rate, seeds)
+    dz, dsr = attention_cols_plain(emap, g, z, sr, node, heads, slope, rate, seeds)
+    return dz, dsl, dsr
+
+
+def _forward(emap, z, sl, sr, heads, slope, rate, seeds, with_stats):
+    if z.device.type == "cpu":
+        return attention_forward_plain(emap, z, sl, sr, heads, slope, rate, seeds)
+    return kernels.gat_forward(emap.plan, emap.partial_rows, z, sl, sr, heads, slope, rate,
+                               seeds, with_stats)
+
+
+def _rows(emap, g, z, sl, sr, stats, heads, slope, rate, seeds):
+    if z.device.type == "cpu":
+        return attention_rows_plain(emap, g, z, sl, sr, stats, heads, slope, rate, seeds)
+    return kernels.gat_rows(emap.plan, emap.partial_rows, g, z, sl, sr, stats, heads, slope,
+                            rate, seeds)
+
+
+def _cols(emap, g, z, sr, node, heads, slope, rate, seeds):
+    if z.device.type == "cpu":
+        return attention_cols_plain(emap, g, z, sr, node, heads, slope, rate, seeds)
+    return kernels.gat_cols(emap.plan_t, emap.partial_rows_t, emap.rev, g, z, sr, node, heads,
+                            slope, rate, seeds)
+
+
+class _Attention(torch.autograd.Function):
+    """The attention, differentiated in z, sl and sr."""
+
+    @staticmethod
+    def forward(ctx, z, sl, sr, emap, heads, slope, rate, seeds):
+        z, sl, sr = z.contiguous(), sl.contiguous(), sr.contiguous()
+        out, stats = _forward(emap, z, sl, sr, heads, slope, rate, seeds, True)
+        ctx.save_for_backward(z, sl, sr, stats, seeds)
+        ctx.emap, ctx.heads, ctx.slope, ctx.rate = emap, heads, slope, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        z, sl, sr, stats, seeds = ctx.saved_tensors
+        emap, heads, slope, rate = ctx.emap, ctx.heads, ctx.slope, ctx.rate
+        g = g.contiguous()
+        node, dsl = _rows(emap, g, z, sl, sr, stats, heads, slope, rate, seeds)
+        dz, dsr = _cols(emap, g, z, sr, node, heads, slope, rate, seeds)
+        return dz, dsl, dsr, None, None, None, None, None
+
+
+def attention(z: torch.Tensor, sl: torch.Tensor, sr: torch.Tensor, emap: EdgeMap,
+              heads: int, slope: float, rate: float, generator: torch.Generator | None,
+              training: bool) -> torch.Tensor:
+    """out [N, K·F'] of z [N, K·F'] and the scores sl, sr [N, K] over the
+    graph's ``EdgeMap``; in training at a rate above 0 the weights take
+    dropout, its seeds drawn on the device from ``generator``. Differentiated
+    in z, sl and sr where one of them requires a gradient."""
+    seeds = None
+    if training and rate > 0.0:
+        seeds = torch.empty(2, dtype=torch.int64, device=z.device).random_(generator=generator)
+    if torch.is_grad_enabled() and (z.requires_grad or sl.requires_grad or sr.requires_grad):
+        return _Attention.apply(z, sl, sr, emap, heads, slope, rate, seeds)
+    return _forward(emap, z.contiguous(), sl.contiguous(), sr.contiguous(), heads, slope,
+                    rate, seeds, False)[0]

@@ -23,6 +23,14 @@ pad slots (col 0, coef 0) add nothing to a finite result and are skipped.
 
 A tensor on the CPU takes the plain PyTorch version below; a CUDA tensor
 launches the kernel (cuda_gcn_torch.kernels) or raises.
+
+``EdgeMap`` (``edge_map``) is what the GAT's attention kernels
+(ops/attention.py) read beside the plans: for every slot of the plan of Âᵀ
+(Â's own plan where Â is symmetric) the slot of the same edge in Â's plan,
+so that the backward's transpose aggregation gathers its weights and
+recomputes its dropout mask by slot instead of scattering with float
+atomics; and the output row of every partial sum of both plans. A GCN builds
+none.
 """
 
 from __future__ import annotations
@@ -268,3 +276,73 @@ def ell_spmm(plan: EllPlan, h: torch.Tensor) -> torch.Tensor:
     return kernels.ell_spmm(plan.work_beg, plan.work_len, plan.work_dst,
                             plan.split_rows, plan.split_ptr, plan.cols, plan.coef, h,
                             plan.n_nodes, plan.n_partials)
+
+
+def slot_edges(plan: EllPlan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(slot, row, col) of every real slot of ``plan``, int64 on its device,
+    rows in the plan's order and each row's slots in order."""
+    device = plan.cols.device
+    length = torch.from_numpy(np.asarray(plan.row_len, np.int64)).to(device)
+    start = torch.from_numpy(np.asarray(plan.row_start, np.int64)).to(device)
+    nnz = int(plan.nnz)
+    first = torch.cumsum(length, 0) - length
+    within = torch.arange(nnz, device=device) - torch.repeat_interleave(first, length,
+                                                                         output_size=nnz)
+    slot = torch.repeat_interleave(start, length, output_size=nnz) + within
+    row = torch.repeat_interleave(plan.rows.long(), length, output_size=nnz)
+    return slot, row, plan.cols[slot].long()
+
+
+def reverse_slots(plan: EllPlan, plan_t: EllPlan) -> torch.Tensor:
+    """(plan_t.slots,) int32: for each real slot of ``plan_t`` (row j, column i)
+    the slot of the edge (row i, column j) in ``plan``; -1 at a pad slot.
+    ``plan_t`` is the plan of the transpose of ``plan``'s matrix (``plan``
+    itself for a symmetric one, where the map is an involution). Repeated
+    edges are paired in slot order. Raises where ``plan_t`` is not the
+    transpose."""
+    n = plan.n_nodes
+    s_f, r_f, c_f = slot_edges(plan)
+    s_t, r_t, c_t = slot_edges(plan_t)
+    key_f, order_f = torch.sort(r_f * n + c_f, stable=True)
+    key_t, order_t = torch.sort(c_t * n + r_t, stable=True)
+    if key_f.shape != key_t.shape or not torch.equal(key_f, key_t):
+        raise ValueError("the second plan is not the transpose of the first")
+    rev = torch.full((plan_t.slots,), -1, dtype=torch.int32, device=plan_t.cols.device)
+    rev[s_t[order_t]] = s_f[order_f].to(torch.int32)
+    return rev
+
+
+def partial_rows(plan: EllPlan) -> torch.Tensor:
+    """(n_partials,) int32: the output row of each partial sum of ``plan``'s
+    work list (the row of each chunk of a split row)."""
+    counts = (plan.split_ptr[1:] - plan.split_ptr[:-1]).long()
+    return torch.repeat_interleave(plan.split_rows, counts,
+                                   output_size=plan.n_partials).to(torch.int32)
+
+
+@dataclasses.dataclass
+class EdgeMap:
+    """The attention kernels' view of a graph's ELL plans (``edge_map``)."""
+
+    plan: EllPlan             # Â's: row i gathers the rows j of its slots
+    plan_t: EllPlan           # Âᵀ's, or ``plan`` where Â is symmetric
+    rev: torch.Tensor         # (plan_t.slots,) int32: ``reverse_slots(plan, plan_t)``
+    partial_rows: torch.Tensor    # (plan.n_partials,) int32
+    partial_rows_t: torch.Tensor  # (plan_t.n_partials,) int32
+    _edges: tuple | None = None
+
+    def edges(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``slot_edges(plan)``, made at first use and kept: the edge list of
+        the attention's plain version."""
+        if self._edges is None:
+            self._edges = slot_edges(self.plan)
+        return self._edges
+
+
+def edge_map(plan: EllPlan, plan_t: EllPlan | None = None) -> EdgeMap:
+    """The ``EdgeMap`` of ``plan`` and the plan of its transpose (None: Â is
+    symmetric and ``plan`` is its own)."""
+    plan_t = plan if plan_t is None else plan_t
+    return EdgeMap(plan=plan, plan_t=plan_t, rev=reverse_slots(plan, plan_t),
+                   partial_rows=partial_rows(plan),
+                   partial_rows_t=partial_rows(plan) if plan_t is plan else partial_rows(plan_t))

@@ -532,6 +532,9 @@ def prepare_sharded(cfg: GCNConfig, dataset: GCNDataset, n_parts: int,
     'auto' above ``DENSE_BACKEND_MAX_NODES`` nodes a part.
     ``partition_kwargs`` go to ``partition_graph`` (cuts, tile size, budget,
     ``device``)."""
+    if cfg.model != "gcn":
+        raise ValueError(f"the sharded trainer trains the GCN; model {cfg.model!r} is "
+                         f"single-device")
     cfg = dataset.apply_config(cfg)
     if cfg.reorder != "none":
         from cuda_gcn_torch.data.reorder import label_propagation, partition_layout

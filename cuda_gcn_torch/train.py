@@ -15,6 +15,12 @@ streams are realigned. That is 4 adjacency passes per epoch plus 2 for the
 trailing eval. The loop is plain Python with no host synchronisation: the
 metrics stay on the device until it ends.
 
+The model is ``cfg.model``'s: the GCN (models/gcn.py) or the GAT
+(models/gat.py), built by ``create_state`` and run by the same loops; the
+loss's L2 term is the model's (``l2_penalty``). A GAT runs on the ``ell``
+backend ('auto' picks it), and ``prepare`` adds the graph's reverse-edge map
+(ops/ell.py ``edge_map``) inside the span ``gat.edge_map``; a GCN builds none.
+
 ``run_epochs_es`` is the early-stopping loop (:259-308): no pass fusion, since
 the stop decision needs epoch e's validation loss before epoch e+1 starts, so
 6 adjacency passes per epoch and one host read per epoch.
@@ -77,22 +83,33 @@ from cuda_gcn_torch.data.dataset import GCNDataset
 from cuda_gcn_torch.data.graph import DENSE_BACKEND_MAX_NODES, Graph, build_graph
 from cuda_gcn_torch.data.reorder import locality_permutation, reorder_dataset
 from cuda_gcn_torch.device import resolve_device
+from cuda_gcn_torch.models.gat import GAT
 from cuda_gcn_torch.models.gcn import GCN
 from cuda_gcn_torch.ops import adam
 from cuda_gcn_torch.ops import matmul as matmul_ops
-from cuda_gcn_torch.ops.loss import l2_penalty, masked_cross_entropy, strict_accuracy
+from cuda_gcn_torch.ops.ell import edge_map
+from cuda_gcn_torch.ops.loss import masked_cross_entropy, strict_accuracy
 from cuda_gcn_torch.utils.profiling import span
 from cuda_gcn_torch.utils.timer import TMR_TEST, TMR_TRAIN, timers
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: GCN
+    model: GCN | GAT
     opt: adam.AdamState
     generator: torch.Generator  # dropout stream, on the model's device
 
     def params(self) -> dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+
+def make_model(cfg: GCNConfig, generator: torch.Generator) -> GCN | GAT:
+    """``cfg.model``'s network, its weights drawn from ``generator``."""
+    dtype = getattr(torch, cfg.param_dtype)
+    if cfg.model == "gat":
+        return GAT(cfg.layer_dims(), cfg.layer_heads(), generator, dtype,
+                   attention_dropout=cfg.attention_dropout, leaky_slope=cfg.leaky_slope)
+    return GCN(cfg.layer_dims(), generator, dtype)
 
 
 def create_state(cfg: GCNConfig, device: str | torch.device | None = None) -> TrainState:
@@ -101,8 +118,7 @@ def create_state(cfg: GCNConfig, device: str | torch.device | None = None) -> Tr
     generator on the device."""
     device = resolve_device(device)
     with span("train.create_state"):
-        model = GCN(cfg.layer_dims(), torch.Generator().manual_seed(cfg.seed),
-                    getattr(torch, cfg.param_dtype)).to(device)
+        model = make_model(cfg, torch.Generator().manual_seed(cfg.seed)).to(device)
         generator = torch.Generator(device=device)
         generator.manual_seed(cfg.seed + 1)
         return TrainState(model=model, opt=adam.init(dict(model.named_parameters())),
@@ -116,8 +132,8 @@ def make_truth(split: np.ndarray, label: np.ndarray, current_split: int,
                             .astype(np.int64)).to(device)
 
 
-def _combined_metrics(logits, truth, w1, weight_decay):
-    loss = masked_cross_entropy(logits, truth) + l2_penalty(w1, weight_decay)
+def _combined_metrics(logits, truth, model, weight_decay):
+    loss = masked_cross_entropy(logits, truth) + model.l2_penalty(weight_decay)
     return loss, strict_accuracy(logits, truth)
 
 
@@ -141,7 +157,7 @@ def train_step(state: TrainState, graph: Graph, x, truth, *, dropout_rate: float
 
 
 @torch.no_grad()
-def eval_step(model: GCN, graph: Graph, x, truth, *, weight_decay: float):
+def eval_step(model: GCN | GAT, graph: Graph, x, truth, *, weight_decay: float):
     """Evaluation forward (training=false): (loss incl. L2, acc) (gcn.cpp:120-128)."""
     with span("train.eval"):
         loss, _, acc = model.loss_fn(graph, x, truth, weight_decay=weight_decay)
@@ -158,9 +174,9 @@ def _fused_epoch(state: TrainState, graph: Graph, x, truth_train, truth_val, *,
     model.zero_grad(set_to_none=True)
     logits_t, logits_e = model.apply_pair(graph, x, dropout_rate=dropout_rate,
                                           generator=state.generator)
-    tl, ta = _combined_metrics(logits_t, truth_train, model.w1, weight_decay)
+    tl, ta = _combined_metrics(logits_t, truth_train, model, weight_decay)
     with torch.no_grad():
-        vl, va = _combined_metrics(logits_e, truth_val, model.w1, weight_decay)
+        vl, va = _combined_metrics(logits_e, truth_val, model, weight_decay)
     tl.backward()
     _adam_step(state, lr)
     return torch.stack([tl.detach(), ta, vl, va])
@@ -441,8 +457,13 @@ def prepare(cfg: GCNConfig, dataset: GCNDataset, device: str | torch.device | No
                          f"{cfg.feature_matmul!r}")
     sparse = cfg.feature_matmul == "sparse"
     backend = cfg.graphsum_backend
+    gat = cfg.model == "gat"
     if backend == "auto":
-        backend = "dense" if cfg.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
+        backend = "ell" if gat else "dense" if cfg.num_nodes <= DENSE_BACKEND_MAX_NODES \
+            else "bsr"
+    if gat and backend not in ("ell", "pallas"):
+        raise ValueError(f"model 'gat' attends over the ELL plan: graphsum_backend 'ell' "
+                         f"or 'pallas', got {backend!r}")
     if backend == "bsr" and cfg.reorder != "none":
         dataset = reorder_dataset(dataset, locality_permutation(dataset.graph))
     if device.type == "cuda":
@@ -456,6 +477,9 @@ def prepare(cfg: GCNConfig, dataset: GCNDataset, device: str | torch.device | No
                   else dataset.num_nodes * cfg.input_dim * itemsize)
     graph = build_graph(dataset.graph, backend=backend, bsr_budget_bytes=budget,
                         aux_bytes=feat_bytes, act_itemsize=itemsize, device=device)
+    if gat:
+        with span("gat.edge_map"):
+            graph.edge_map = edge_map(graph.ell, graph.ell_t)
     if sparse:
         fi = dataset.feature_index
         x = matmul_ops.SparseFeatures.from_csr(fi.indptr, fi.indices, dataset.feature_value,
@@ -506,6 +530,9 @@ def run(cfg: GCNConfig, dataset: GCNDataset, device: str | torch.device | None =
     every per-op phase at the run's shapes (utils/profiling.py), for
     ``timers.report()``."""
     device = resolve_device(device)
+    if time_ops and cfg.model != "gcn":
+        raise ValueError("the per-op phase timers measure the GCN's ops; model "
+                         f"{cfg.model!r} has none")
     cfg, graph, x, truths = prepare(cfg, dataset, device)
     timers.reset(TMR_TRAIN, TMR_TEST)  # per-run totals
     state = initial_state if initial_state is not None else create_state(cfg, device)

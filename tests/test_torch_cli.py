@@ -22,6 +22,10 @@ import torch
 from cuda_gcn_tpu import cli as jcli
 
 from cuda_gcn_torch import cli as tcli
+from cuda_gcn_torch.config import GAT_FIELDS
+
+# the port's flag of its GAT, which the JAX package has no model for
+GAT_OPTIONS = {"--model"}
 
 ARGVS = [
     ["synth-cora"],
@@ -42,14 +46,15 @@ def _options(parser) -> set[str]:
 def test_every_jax_flag_but_the_sharded_and_xla_ones():
     """No flag of the JAX CLI is left out any more: ``--mesh`` and
     ``--halo-dtype`` came with the sharded trainer, XLA's compile flags with
-    the chunked runners; the port adds ``--device`` and ``--build-kernels``."""
+    the chunked runners; the port adds ``--device``, ``--build-kernels`` and
+    its GAT's flags."""
     compile_flags = {"--platform", "--compilation-cache", "--prime-cache"}
     jax_opts = _options(jcli.build_argparser())
     port_opts = _options(tcli.build_argparser())
     assert compile_flags <= jax_opts
     assert jax_opts <= port_opts
     assert {"--mesh", "--halo-dtype"} <= port_opts
-    assert port_opts - jax_opts == {"--device", "--build-kernels"}
+    assert port_opts - jax_opts == {"--device", "--build-kernels", *GAT_OPTIONS}
 
 
 @pytest.mark.parametrize("argv", ARGVS)
@@ -57,7 +62,8 @@ def test_config_from_args_matches_jax(argv, capsys):
     want = dataclasses.asdict(jcli.config_from_args(jcli.build_argparser().parse_args(argv)))
     want_err = capsys.readouterr().err
     got = dataclasses.asdict(tcli.config_from_args(tcli.build_argparser().parse_args(argv)))
-    assert got == want
+    assert {k: v for k, v in got.items() if k not in GAT_FIELDS} == want
+    assert got["model"] == "gcn"
     assert capsys.readouterr().err == want_err
     if any(a in argv for a in ("1", "5", "--num-nodes")):
         assert "inferred from the dataset; override ignored" in want_err
@@ -123,3 +129,27 @@ def test_build_kernels_without_a_card_raises(monkeypatch):
         tcli.main(["synth-cora", "--build-kernels"])
     with pytest.raises(RuntimeError, match="CUDA device"):
         tcli.main(["synth-cora", "--build-kernels", "--device", "cpu"])
+
+
+def test_model_gat_takes_the_papers_settings_where_none_are_given():
+    """``--model gat``: 8 features a head, dropout 0.6, learning rate 0.005
+    unless the command gives them (positionally or as flags); 8 heads and one
+    output head, attention dropout 0.6, slope 0.2."""
+    cfg = tcli.config_from_args(tcli.build_argparser().parse_args(["synth-cora", "--model", "gat"]))
+    assert (cfg.model, cfg.hidden_dim, cfg.dropout, cfg.learning_rate) == ("gat", 8, 0.6, 0.005)
+    assert cfg.layer_heads() == (8, 1) and cfg.attention_dropout == 0.6 and cfg.leaky_slope == 0.2
+    cfg = tcli.config_from_args(tcli.build_argparser().parse_args(
+        ["synth-cora", "0", "0", "4", "0", "0.3", "--model", "gat", "--learning-rate", "0.01"]))
+    assert (cfg.hidden_dim, cfg.dropout, cfg.learning_rate) == (4, 0.3, 0.01)
+
+
+def test_model_gat_trains_through_the_cli(capsys):
+    """``--model gat`` trains on the ell backend ('auto' picks it) and prints
+    the reference's lines; ``--mesh`` and ``--timing`` exit 1 for it."""
+    assert tcli.main(["synth-cora", "--model", "gat", "--epochs", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"^epoch=2 train_loss=\d+\.\d{5} ", out, re.M)
+    assert re.search(r"^test_loss=\d+\.\d{5} test_acc=", out, re.M)
+    for extra in (["--mesh", "2"], ["--timing"]):
+        assert tcli.main(["synth-cora", "--model", "gat", "--device", "cpu", *extra]) == 1
+    assert "--model gat" in capsys.readouterr().err

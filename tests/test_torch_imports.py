@@ -17,6 +17,7 @@ from cuda_gcn_torch import kernels, train
 from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.data import graph as tgraph
 from cuda_gcn_torch.device import resolve_device
+from cuda_gcn_torch.ops import attention as tatt
 from cuda_gcn_torch.ops import bsr as tbsr
 from cuda_gcn_torch.ops import ell as tell
 from cuda_gcn_torch.ops import graphsum as tgs
@@ -164,6 +165,8 @@ def _forbid_plain(monkeypatch):
     monkeypatch.setattr(tprobe, "gather_probe_plain", plain)
     monkeypatch.setattr(tprobe, "scatter_probe_plain", plain)
     monkeypatch.setattr(tmm, "csr_matmul_plain", plain)
+    for name in ("attention_forward_plain", "attention_rows_plain", "attention_cols_plain"):
+        monkeypatch.setattr(tatt, name, plain)
     for name in ("taa_rows_plain", "taa_lanes_plain", "cumsum_probe_plain",
                  "piece_probe_plain"):
         monkeypatch.setattr(ttaa, name, plain)
@@ -199,6 +202,9 @@ def _wrapper_calls():
     i32 = dict(dtype=torch.int32)
     plan = tbsr.TilePlan(_meta(3, **i32), _meta(4, **i32), _meta(4, **i32))
     feats = _meta_features(60, 12, 90)
+    ell = _meta_ell_plan(60)
+    emap = tell.EdgeMap(plan=ell, plan_t=ell, rev=_meta(8 * 60, **i32),
+                        partial_rows=_meta(0, **i32), partial_rows_t=_meta(0, **i32))
     s, l = 64, 128
     piece_args = (_meta(s, 1, **i32), _meta(s, 1), _meta(s, 1, **i32), _meta(s, 1, **i32))
     return [
@@ -219,6 +225,12 @@ def _wrapper_calls():
         ("piece", lambda: ttaa.piece_probe(*piece_args, _meta(s, l), 2)),
         ("layer0_pair", lambda: tmm.layer0_dense_pair(_meta(60, 12), _meta(12, 16), 0.5, None,
                                                       True, with_eval=True)),
+        ("gat_forward", lambda: tatt.attention(_meta(60, 16), _meta(60, 2), _meta(60, 2),
+                                               emap, 2, 0.2, 0.0, None, False)),
+        ("gat_rows", lambda: tatt._rows(emap, _meta(60, 16), _meta(60, 16), _meta(60, 2),
+                                        _meta(60, 2), _meta(60, 2, 2), 2, 0.2, 0.0, None)),
+        ("gat_cols", lambda: tatt._cols(emap, _meta(60, 16), _meta(60, 16), _meta(60, 2),
+                                        _meta(60, 2, 4), 2, 0.2, 0.0, None)),
         ("taa_rows", lambda: tdyn.sublane_gather(_meta(s, 4, **i32), _meta(s, l))),
         ("csr_spmm", lambda: tmm.csr_matmul(feats.values, feats, _meta(12, 16))),
         ("ell_spmm", lambda: tmm.csr_matmul_dw(feats, feats.values, _meta(60, 16))),
@@ -231,8 +243,10 @@ def test_device_tensors_go_to_the_launchers(monkeypatch):
     _forbid_plain(monkeypatch)
     seen = []
     calls = _wrapper_calls()
-    # the dense layer-0 launcher's (xd, zt, ze), which its autograd Function unpacks
-    made = {"layer0_pair": lambda: (_meta(60, 12), _meta(60, 16), _meta(60, 16))}
+    # the dense layer-0 launcher's (xd, zt, ze), which its autograd Function unpacks, and
+    # the attention forward's (out, stats)
+    made = {"layer0_pair": lambda: (_meta(60, 12), _meta(60, 16), _meta(60, 16)),
+            "gat_forward": lambda: (_meta(60, 16), None)}
     for name, _ in calls:
         monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n) or
                             made.get(_n, lambda: None)())

@@ -11,6 +11,8 @@ the arguments the kernel expects, and a wrong device, type, shape or a
 non-contiguous operand is refused before it.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -328,6 +330,14 @@ def _work(rows):
                          split_ptr=fake(1, dtype=I32), n_partials=0, n_nonempty=rows)
 
 
+def _plan(w):
+    """An ELL plan's work list of 60 rows over 9 slots, as the attention
+    launchers read it."""
+    return types.SimpleNamespace(work_beg=w.beg, work_len=w.len, work_dst=w.dst,
+                                 split_rows=w.split_rows, split_ptr=w.split_ptr,
+                                 cols=fake(9, dtype=I32), n_nodes=60, n_partials=0)
+
+
 def _valid():
     """{launcher: (function, {argument name: value})} with valid operands."""
     s, l = 64, 128
@@ -357,6 +367,17 @@ def _valid():
         "layer0_pair": (kernels.layer0_pair, dict(x=fake(60, 12), w=fake(12, 16),
                                                   seeds=fake(2, dtype=torch.int64), rate=0.5,
                                                   with_eval=True)),
+        "gat_forward": (kernels.gat_forward, dict(
+            plan=_plan(w), partial_rows=fake(0, dtype=I32), z=fake(60, 16), sl=fake(60, 2),
+            sr=fake(60, 2), heads=2, slope=0.2, rate=0.6, seeds=fake(2, dtype=torch.int64))),
+        "gat_rows": (kernels.gat_rows, dict(
+            plan=_plan(w), partial_rows=fake(0, dtype=I32), g=fake(60, 16), z=fake(60, 16),
+            sl=fake(60, 2), sr=fake(60, 2), stats=fake(60, 2, 2), heads=2, slope=0.2, rate=0.6,
+            seeds=fake(2, dtype=torch.int64))),
+        "gat_cols": (kernels.gat_cols, dict(
+            plan_t=_plan(w), partial_rows_t=fake(0, dtype=I32), rev=fake(9, dtype=I32),
+            g=fake(60, 16), z=fake(60, 16), sr=fake(60, 2), node=fake(60, 2, 4), heads=2,
+            slope=0.2, rate=0.6, seeds=fake(2, dtype=torch.int64))),
     }
 
 
@@ -364,13 +385,16 @@ def _valid():
 # main operand (cumsum_cols has only the one); dtype and contiguity: any.
 _DEVICE = {"bsr_tile": "ptr", "csr_spmm": "coef", "ell_spmm": "coef", "gather_probe": "idx",
            "scatter_probe": "coef", "taa_rows": "idx", "taa_lanes": "idx",
-           "cumsum_cols": "tab", "piece": "coef", "layer0_pair": "w"}
+           "cumsum_cols": "tab", "piece": "coef", "layer0_pair": "w", "gat_forward": "sl",
+           "gat_rows": "stats", "gat_cols": "node"}
 _DTYPE = {"bsr_tile": "h", "csr_spmm": "cols", "ell_spmm": "work_dst", "gather_probe": "h",
           "scatter_probe": "idx", "taa_rows": "tab", "taa_lanes": "idx", "cumsum_cols": "tab",
-          "piece": "end", "layer0_pair": "seeds"}
+          "piece": "end", "layer0_pair": "seeds", "gat_forward": "sr", "gat_rows": "g",
+          "gat_cols": "rev"}
 _STRIDED = {"bsr_tile": "tiles", "csr_spmm": "out", "ell_spmm": "coef", "gather_probe": "h",
             "scatter_probe": "h", "taa_rows": "tab", "taa_lanes": "tab", "cumsum_cols": "tab",
-            "piece": "tab", "layer0_pair": "x"}
+            "piece": "tab", "layer0_pair": "x", "gat_forward": "z", "gat_rows": "g",
+            "gat_cols": "z"}
 
 
 def _shape_fault(name):
@@ -384,7 +408,10 @@ def _shape_fault(name):
             "taa_lanes": dict(steps=4),                         # a step more than idx holds
             "cumsum_cols": dict(tab=fake(5)),
             "piece": dict(begin=fake(s + 1, 1, dtype=I32)),
-            "layer0_pair": dict(w=fake(13, 16))}[name]             # not [F, H]
+            "layer0_pair": dict(w=fake(13, 16)),                # not [F, H]
+            "gat_forward": dict(sl=fake(61, 2)),                # not [n, K]
+            "gat_rows": dict(stats=fake(60, 2)),                # not [n, K, 2]
+            "gat_cols": dict(rev=fake(8, dtype=I32))}[name]     # not a slot each
 
 
 @pytest.mark.parametrize("name", list(kernels.launches))
@@ -408,6 +435,9 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
     if name == "layer0_pair":  # 16 columns in one flat launch; dropout 0.5: xd = 2x where kept,
         # 8 bits of a uniform an element, kept below 128
         assert call[6:] == (60, 12, 16, 0, 16, 1, 0.5, 2.0, 1, 128, 8, 1, 0, 7000)
+    if name.startswith("gat_"):  # 2 heads of 8 features: 4-float loads, a lane a head, 2 a
+        # slot, 2 steps; dropout 0.6: a kept weight times 2.5, kept below q·2^32
+        assert call[-10:-1] == (2, 8, 4, 1, 2, 2, 0.2, 2.5, 1717986944)
     if name == "piece":  # the [S+1, L] scan and its totals, each in an allocation of its own
         assert call[4:6] == (args["tab"].data_ptr(), out.data_ptr()) and call[8:11] == (64, 128, 2)
         assert call[6] != call[7] and out.data_ptr() not in call[6:8]
