@@ -157,18 +157,20 @@ Phases, each of which raises (exit code not 0) when it fails:
     a finite ``test_acc``; kernels 1 and 2 launched 4 · 100 + 2 times each in
     its measured run (its stderr).
 (v) the dense layer-0 kernel (csrc/layer0_pair.cu, run after (j)): at
-    ``LAYER0_EDGES`` (both of its ways through x) and at synth-reddit (f32,
-    bf16) and pubmed sizes, on every row: each xd value 0 or x / (1 - p),
+    ``LAYER0_EDGES`` (all three of its ways through x) and at synth-reddit
+    (f32, bf16; and f32 at the GAT's 64 columns, p = 0.6) and pubmed sizes,
+    on every row: each xd value 0 or x / (1 - p),
     nonzero only where x is, and bit for bit the plain version's
     (``ops.matmul.layer0_pair_plain``, whose mask is Philox's), the keep
     share within 5 sigma of 1 - p, zt and ze within the f32 sums' bound of
-    f64 products of the kernel's own xd and of x, the train-only launch and a
+    f64 products of the kernel's own xd and of x (f32 x: also within
+    ``ATOL``/``RTOL`` of the plain version's), the train-only launch and a
     second launch equal to the first; the masks of an ``EpochGraph``'s
     epochs equal to the eager epochs' of the same seed, and fresh each
     epoch; then timed by events, and on the device by the profiler in a
     process of its own (events where that reads below the bound), beside its
-    bytes bound, the plain version and the six launches of dropout and two
-    cuBLAS products.
+    bound (bytes; at 64 columns the f32 FMAs), the plain version and the six
+    launches of dropout and two cuBLAS products.
 (w) the GAT's attention kernels (csrc/gat_attention.cu, run after (v)):
     ``gat_forward``, ``gat_rows`` and ``gat_cols`` against their plain
     version (ops/attention.py) on synth-pubmed in f64 and on synth-reddit in
@@ -223,7 +225,7 @@ WIDTHS = (16, 32, 41, 82)  # pass widths of the main path: pair 32/82, backward 
 ATOL, RTOL = 1e-5, 1e-4    # f32; only the summation order differs from the plain version
 # the port's device kernels, by a part of their names
 PORT_KERNELS = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials",
-                "layer0_flat", "layer0_pair")
+                "layer0_flat", "layer0_pair", "layer0_wide")
 
 
 def log(msg: str) -> None:
@@ -3840,19 +3842,28 @@ def phase_bench_scaling() -> dict:
 # 5 (a warp's columns ending inside a group of 4, warps with none), H below
 # 16, bf16, the correctly rounded division at rate 0.3, a last block of fewer
 # than 32 rows. Chunked: F = 3,703 (58 chunks of W, more than one piece of
-# shared memory at H = 16); H 32, 41, 64 and 100 (a launch per 64 columns);
-# x off 16 bytes, bf16 rows 2 bytes off a 4-byte boundary (an offset of one
-# element; at odd F every other row); row counts no multiple of 128.
+# shared memory at H = 16, and too wide for the wide way at H = 64, a launch
+# per 16 columns); H 32, 41 and 100 with x off 16 bytes, bf16 rows 2 bytes
+# off a 4-byte boundary (an offset of one element; at odd F every other
+# row); row counts no multiple of 128. Wide: H 41 (32 bits a draw), 64 at bf16
+# (8 bits a draw, both lanes of a row pair), 72 (a launch of 64 and one of 8),
+# F = 67 at bf16 (a last chunk of 3 columns, rows 2 bytes off), F = 5 (one
+# chunk of 5), last tiles of 9, 13 and 1 rows.
 LAYER0_EDGES = (
     (1000, 67, 16, "float32", 0.5, 0), (70, 5, 16, "float32", 0.5, 0),
     (777, 602, 6, "float32", 0.3, 0), (1001, 602, 16, "bfloat16", 0.3, 0),
     (300, 3703, 16, "float32", 0.5, 0), (500, 602, 41, "bfloat16", 0.5, 1),
     (129, 101, 100, "bfloat16", 0.3, 1), (64, 602, 32, "float32", 0.5, 1),
     (333, 602, 16, "float32", 0.5, 2), (256, 500, 64, "bfloat16", 0.5, 0),
-    (1, 1, 1, "float32", 0.5, 0))
-LAYER0_SHAPES = (("synth-reddit", 232965, 602, "float32"), ("synth-reddit", 232965, 602, "bfloat16"),
-                 ("synth-pubmed", 19717, 500, "float32"))
-LAYER0_H, LAYER0_RATE = 16, 0.5  # W's columns and the dropout rate at LAYER0_SHAPES
+    (1, 1, 1, "float32", 0.5, 0), (200, 3703, 64, "float32", 0.6, 0),
+    (1001, 602, 41, "float32", 0.6, 0), (333, 602, 72, "float32", 0.5, 0),
+    (777, 67, 64, "bfloat16", 0.3, 0), (2049, 602, 64, "bfloat16", 0.6, 0),
+    (70, 5, 33, "float32", 0.5, 0))
+# (label, rows, F, H, dtype, rate): the GCN's layer 0 (H 16, p 0.5) and the GAT's (8 heads x 8, p 0.6)
+LAYER0_SHAPES = (("synth-reddit", 232965, 602, 16, "float32", 0.5),
+                 ("synth-reddit", 232965, 602, 16, "bfloat16", 0.5),
+                 ("synth-pubmed", 19717, 500, 16, "float32", 0.5),
+                 ("synth-reddit gat", 232965, 602, 64, "float32", 0.6))
 LAYER0_ITERS = 20
 LAYER0_IDLE_S = 0.1  # the idle time before a diagnostic trace in this process stops
 
@@ -3878,8 +3889,9 @@ def _layer0_check(label, x, w, seeds, rate) -> dict:
     the plain version's (its Philox mask); the keep share of x's nonzeros
     within 5 sigma of 1 - p; zt and ze against f64 products of the kernel's
     own xd and of x, within the f32 sums' bound (F·2^-23 of Σ|terms|) and one
-    rounding to x's type; the train-only launch and a second launch equal to
-    the first bit for bit."""
+    rounding to x's type, and for f32 x within ``ATOL``/``RTOL`` of the plain
+    version's (for bf16 x one rounding to bf16 is itself far above them); the
+    train-only launch and a second launch equal to the first bit for bit."""
     import torch
 
     from cuda_gcn_torch import kernels
@@ -3897,11 +3909,16 @@ def _layer0_check(label, x, w, seeds, rate) -> dict:
         raise AssertionError(f"(v) {label}: {bad} xd values are neither 0 nor x / (1 - p), "
                              f"or lie where x is 0")
     del scaled
-    want_xd = layer0_pair_plain(x, w, seeds, rate, False)[0]
+    want_xd, want_zt, want_ze = layer0_pair_plain(x, w, seeds, rate, True)
     if not torch.equal(xd, want_xd):
         bad = int((xd != want_xd).sum())
         raise AssertionError(f"(v) {label}: xd differs from the plain version at {bad} elements")
-    del want_xd
+    if x.dtype == torch.float32:
+        for name, got, want in (("zt", zt, want_zt), ("ze", ze, want_ze)):
+            if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+                err = float((got - want).abs().max())
+                raise AssertionError(f"(v) {label}: {name} off the plain version's by {err:.3e}")
+    del want_xd, want_zt, want_ze
     if not (torch.equal(xd, xd2) and torch.equal(zt, zt2)):
         raise AssertionError(f"(v) {label}: the train-only launch differs from the pair's")
     kept = int((xd != 0).sum())
@@ -3922,7 +3939,7 @@ def _layer0_check(label, x, w, seeds, rate) -> dict:
     again = kernels.layer0_pair(x, w, seeds, rate, True)
     if not all(torch.equal(a, b) for a, b in zip(again, (xd, zt, ze))):
         raise AssertionError(f"(v) {label}: a second launch differs")
-    path = kernels.layer0_path(x.shape[1], x.element_size(), True, x.data_ptr())
+    path = kernels.layer0_path(x.shape[1], w.shape[1], x.element_size(), True, x.data_ptr())
     log(f"  {label} ({path}): every xd value 0 or x / (1 - p), equal to the plain version on "
         f"all {x.shape[0]} rows, keep {kept}/{total} "
         f"({z:+.2f} sigma), products at {worst:.3f} of their bound, repeatable, ok")
@@ -3979,10 +3996,10 @@ def _layer0_trace() -> None:
     from cuda_gcn_torch import kernels
 
     calls = {}
-    for label, n, f, dtype in LAYER0_SHAPES:
-        x, w, seeds = _layer0_inputs(n, f, LAYER0_H, dtype, 0, 7)
+    for label, n, f, h, dtype, rate in LAYER0_SHAPES:
+        x, w, seeds = _layer0_inputs(n, f, h, dtype, 0, 7)
         calls[f"{label} {dtype}"] = (
-            lambda x=x, w=w, seeds=seeds: kernels.layer0_pair(x, w, seeds, LAYER0_RATE, True))
+            lambda x=x, w=w, seeds=seeds, rate=rate: kernels.layer0_pair(x, w, seeds, rate, True))
     print(json.dumps(_traces(calls)), flush=True)
 
 
@@ -4014,8 +4031,7 @@ def phase_layer0_pair() -> dict:
                       x, w, seeds, rate)
     _layer0_graph_masks()
     rows = {}
-    for label, n, f, dtype in LAYER0_SHAPES:
-        h, rate = LAYER0_H, LAYER0_RATE
+    for label, n, f, h, dtype, rate in LAYER0_SHAPES:
         x, w, seeds = _layer0_inputs(n, f, h, dtype, 0, 7)
         key = f"{label} {dtype}"
         check = _layer0_check(key, x, w, seeds, rate)
@@ -4381,7 +4397,7 @@ def phase_gat() -> dict:
         del state
     launches = dict(kernels.launches)
     want = {"gat_forward": 2 * (4 * GAT_EPOCHS + 2 + 2), "gat_rows": 2 * 2 * GAT_EPOCHS,
-            "gat_cols": 2 * 2 * GAT_EPOCHS, "layer0_pair": 2 * 4 * GAT_EPOCHS}
+            "gat_cols": 2 * 2 * GAT_EPOCHS, "layer0_pair": 2 * GAT_EPOCHS}
     got = {k: launches[k] for k in want}
     log(f"  launches of two jobs: {got} (expected {want}); peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

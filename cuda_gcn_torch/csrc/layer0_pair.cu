@@ -1,5 +1,5 @@
-// Layer 0 of the GCN on dense features in training: the dropout of x and both
-// products of the fused epoch's pair, in one pass over x.
+// Layer 0 of the GCN and the GAT on dense features in training: the dropout
+// of x and both products of the fused epoch's pair, in one pass over x.
 //
 //   keep[r, k] = the element's uniform bits < q * 2^bits, q = 1 - p
 //   xd[r, k]   = keep ? x[r, k] / q : 0          in x's type, kept for dW
@@ -14,29 +14,35 @@
 // This kernel reads x once and writes xd and the products once: 1.15 GB,
 // 0.343 ms at 3.35 TB/s.
 //
-// Bound on the H100: bytes. The work beside them is not small: 2 x 16 FMAs an
-// element (9.0 GFLOP of f32 at synth-reddit, 0.13 ms at 67 TFLOP/s) and the
-// mask's Philox rounds, so it has to run under the copies. The design:
+// Bound on the H100, at 16 columns: bytes. The work beside them is not small:
+// 2 x 16 FMAs an element (9.0 GFLOP of f32 at synth-reddit, 0.13 ms at 67
+// TFLOP/s) and the mask's Philox rounds, so it has to run under the copies.
+// At 64 columns (the GAT's 8 heads x 8) the FMAs bound it: 2 x 64 an element,
+// 35.9 GFLOP at synth-reddit, 0.54 ms at 67 TFLOP/s, where x read once, xd
+// written once and both products (1.24 GB) take 0.37 ms at 3.35 TB/s.
 //
-// * Lanes are rows of x: a warp walks its rows together along k, W's row k
-//   is a broadcast from shared memory (4 16-byte loads), and each thread
-//   keeps its rows' 2 x 16 sums in registers. A launch computes 16 output
-//   columns; a wider W takes a launch per 16. Every output has one writer and
-//   a fixed order of additions: no atomics, the same bits on every run.
+// Everywhere:
+//
+// * Every output has one writer and a fixed order of additions: no atomics,
+//   the same bits on every run.
 // * The mask is drawn in the kernel with Philox4x32-10, keyed by a seed and an
 //   offset that the caller draws on the device from the job's generator (two
 //   int64 read here from device memory: a replayed CUDA graph draws a fresh
 //   mask, and the host reads nothing). An element takes 8 bits of a uniform
 //   where q * 2^8 is whole (p = 0.5: 16 elements a call), else 32; the layout
-//   of the calls is ops/matmul.layer0_keep's (call_of, bits_of). A thread
-//   draws its next call before it sums the current one, so that the integer
-//   chain runs under the FMAs.
+//   of the calls is ops/matmul.layer0_keep's (call_of, bits_of), which does
+//   not depend on W's columns. A thread draws its next call before it sums
+//   the current one, so that the integer chain runs under the FMAs.
 // * xd is written over x in shared memory as it is made, and leaves for
 //   device memory from there.
 //
-// Two ways through x (kernels.layer0_path chooses by what fits):
+// Three ways through x (kernels.layer0_path chooses by W's width and by what
+// fits):
 //
-// * 'flat', the main path (synth-reddit, pubmed): a block of 32 rows is one
+// * 'flat', at 16 columns and fewer (the GCN's hidden 16 on synth-reddit and
+//   pubmed): lanes are rows of x, a warp walks its rows together along k, W's
+//   row k is a broadcast from shared memory (4 16-byte loads), and each
+//   thread keeps its rows' 2 x 16 sums in registers. A block of 32 rows is one
 //   contiguous range of x (77 KB at F = 602 f32). A persistent CTA a SM has 8
 //   warps that compute and one that copies: its lane 0 moves whole blocks by
 //   bulk copies (the TMA), loading a block into one of two stages while the
@@ -50,16 +56,39 @@
 //   shares of the units), add their sums by a shuffle, and the warps' partial
 //   sums are added in warp order through shared memory. Rows keep x's layout
 //   there: 2-way bank conflicts at F = 602, 4-way at F = 500.
-// * 'chunked', for an F whose two blocks do not fit beside W (F above 619 at
-//   f32) and for an x that does not start on 16 bytes: a CTA of 4 warps, a
+// * 'wide', above 16 columns, 64 a launch (one launch for the GAT's 64; a
+//   wider W takes one per 64): a thread owns one row and all 64 columns of
+//   both products, 128 sums in registers, so each element of x is read, masked
+//   and divided by one thread and feeds 128 FMAs, with W's row k broadcast
+//   from shared memory in 16 16-byte loads, and no sums are added across
+//   threads. An element's work goes four at a time: the four quotients side
+//   by side, then their FMAs, so that one chain's latency does not hold the
+//   FMAs up. W
+//   (154 KB at F = 602) stays whole in shared memory, which leaves no room for
+//   the flat way's stages of 32 whole rows, nor for a second copy of x that
+//   threads splitting the columns would need for their x @ W once xd is
+//   written over x. So each of a persistent CTA's 8 warps takes its own tiles
+//   of 32 rows and streams them in chunks of 32 columns through two stages of
+//   its own (8.4 KB at f32), copied one 4-byte word a lane from the word below
+//   each row's first element and read a lane a row (rows padded to an odd
+//   number of words: no bank conflicts); the warp stores its rows' xd from
+//   the stage with the lanes along the row, then copies the next chunk into
+//   it while it sums the other.
+// * 'chunked', at 16 columns and fewer, for an F whose two blocks do not fit
+//   beside W (F above 619 at f32), for an x that does not start on 16 bytes,
+//   and above 16 columns where the wide way does not fit: a CTA of 4 warps, a
 //   lane a row, takes 128 rows and streams them through a ring of chunks of
-//   64 columns, copied one 4-byte word a lane from the word below each row's
-//   first element (rows padded to 1 modulo 32 words: no bank conflicts), with
-//   the chunk's 64 rows of W beside them, zero-filled past F; each warp
-//   stores its rows' xd with the lanes along the row.
+//   64 columns, copied as the wide way copies, with the chunk's 64 rows of W
+//   beside them, zero-filled past F; each warp stores its rows' xd with the
+//   lanes along the row. The host launches it once per 16 columns, only the
+//   first launch writing xd.
 //
 // The division is correctly rounded (x / q in f32); where q is a power of two
-// it is the exact product x * (1 / q). bf16 x: xd is the f32 quotient rounded
+// it is the exact product x * (1 / q). The wide way takes it as x times 1 / q
+// in f64, rounded once (div_by_q): the same bits, without the division's
+// branch to its slow path, around which the compiler kept each element's
+// loads from overlapping the FMAs before them (1.87 ms against 2.53 at
+// synth-reddit's 602 -> 64 on the H100). bf16 x: xd is the f32 quotient rounded
 // to bf16, W is rounded to bf16 in shared memory, and the products of bf16
 // values are summed in f32 and rounded once, as the bf16 GEMM of
 // ops/matmul.py dense_matmul does.
@@ -74,7 +103,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWidth = 16;        // output columns a launch; the host launches once per 16
+constexpr int kWidth = 16;        // output columns a launch of the flat and chunked ways
 constexpr int kSmemMax = 232448;  // shared memory a CTA may opt into on the H100
 
 // the chunked way
@@ -87,6 +116,12 @@ static_assert(kRows % 32 == 0 && kBk % 32 == 0 && kBk * 16 % kThreads == 0, "til
 // the flat way: 8 warps that compute and one that copies
 constexpr int kFlatWarps = 8;
 constexpr int kFlatThreads = 32 * kFlatWarps;
+
+// the wide way: 8 warps, each its own tiles of 32 rows, a lane a row
+constexpr int kWideCols = 64;  // output columns a launch
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideBk = 32;    // columns of x a chunk
 
 template <class T>
 struct Elem;
@@ -204,7 +239,7 @@ struct Args {
   long long n;
   int f;
   int ldw;
-  int cols;                 // output columns of this launch, at most kWidth
+  int cols;                 // output columns of this launch: at most kWidth, kWideCols wide
   float q;                  // 1 - p
   float inv_q;              // 1 / q where q is a power of two
   int q_pow2;
@@ -254,28 +289,36 @@ __device__ __forceinline__ uint32_t bits_of(const uint4& u, int upper, int c) {
   }
 }
 
+// The terms of one element in HP columns: xd and (EVAL) x times W's row,
+// `w4` its HP / 4 quads (in registers or in shared memory).
+template <int HP, bool EVAL>
+__device__ __forceinline__ void accumulate(float xdv, float xv, const float4* w4, float* acc_t,
+                                           float* acc_e) {
+#pragma unroll
+  for (int h4 = 0; h4 < HP / 4; ++h4) {
+    const float4 w = w4[h4];
+    acc_t[4 * h4 + 0] = fmaf(xdv, w.x, acc_t[4 * h4 + 0]);
+    acc_t[4 * h4 + 1] = fmaf(xdv, w.y, acc_t[4 * h4 + 1]);
+    acc_t[4 * h4 + 2] = fmaf(xdv, w.z, acc_t[4 * h4 + 2]);
+    acc_t[4 * h4 + 3] = fmaf(xdv, w.w, acc_t[4 * h4 + 3]);
+    if (EVAL) {
+      acc_e[4 * h4 + 0] = fmaf(xv, w.x, acc_e[4 * h4 + 0]);
+      acc_e[4 * h4 + 1] = fmaf(xv, w.y, acc_e[4 * h4 + 1]);
+      acc_e[4 * h4 + 2] = fmaf(xv, w.z, acc_e[4 * h4 + 2]);
+      acc_e[4 * h4 + 3] = fmaf(xv, w.w, acc_e[4 * h4 + 3]);
+    }
+  }
+}
+
 // One element: its mask, xd written over x at `p`, and its terms of the sums.
 template <class T, bool EVAL>
 __device__ __forceinline__ void element(const Args& a, char* p, float xv, uint32_t bits,
                                         bool store, const float4* w4, float* acc_t,
                                         float* acc_e) {
-  constexpr int HP = kWidth;
   const float scaled = a.q_pow2 ? xv * a.inv_q : __fdiv_rn(xv, a.q);
   const float xdv = bits < a.thresh ? Elem<T>::round(scaled) : 0.0f;
   if (store) Elem<T>::store_smem(p, xdv);
-#pragma unroll
-  for (int h4 = 0; h4 < HP / 4; ++h4) {
-    acc_t[4 * h4 + 0] = fmaf(xdv, w4[h4].x, acc_t[4 * h4 + 0]);
-    acc_t[4 * h4 + 1] = fmaf(xdv, w4[h4].y, acc_t[4 * h4 + 1]);
-    acc_t[4 * h4 + 2] = fmaf(xdv, w4[h4].z, acc_t[4 * h4 + 2]);
-    acc_t[4 * h4 + 3] = fmaf(xdv, w4[h4].w, acc_t[4 * h4 + 3]);
-    if (EVAL) {
-      acc_e[4 * h4 + 0] = fmaf(xv, w4[h4].x, acc_e[4 * h4 + 0]);
-      acc_e[4 * h4 + 1] = fmaf(xv, w4[h4].y, acc_e[4 * h4 + 1]);
-      acc_e[4 * h4 + 2] = fmaf(xv, w4[h4].z, acc_e[4 * h4 + 2]);
-      acc_e[4 * h4 + 3] = fmaf(xv, w4[h4].w, acc_e[4 * h4 + 3]);
-    }
-  }
+  accumulate<kWidth, EVAL>(xdv, xv, w4, acc_t, acc_e);
 }
 
 // The chunked way's thread: its row over `kc` columns from `xrow` (its first
@@ -635,31 +678,308 @@ __global__ void __launch_bounds__(kThreads, 2) layer0_pair_kernel(const Args a) 
   }
 }
 
-// ---- launch -------------------------------------------------------------------
+// ---- the wide way -------------------------------------------------------------
+
+// 32-bit words of shared memory a row's chunk takes: one more than the chunk's
+// (the word below the row's first element, and an odd stride: no bank
+// conflicts when each lane reads its own row).
+template <class T>
+__host__ __device__ constexpr int wide_row_words() {
+  return kWideBk * static_cast<int>(sizeof(T)) / 4 + 1;
+}
+
+// W whole (F rows of kWideCols f32) and each warp's two stages of 32 rows.
+__host__ __device__ inline long long wide_smem_bytes(int f, int item) {
+  return 4LL * f * kWideCols + 4LL * kWideWarps * 2 * 32 * (kWideBk * item / 4 + 1);
+}
+
+// The warp's copy of a chunk of kc columns of `rows` rows into the stage at
+// `xs`, `src` the first row's first element: each row's 4-byte words from the
+// one below its first element, a lane a word.
+template <class T>
+__device__ __forceinline__ void wide_load(const Args& a, uint32_t xs, const char* src, int rows,
+                                          int kc, int lane) {
+  constexpr int kRowBytes = wide_row_words<T>() * 4;
+  const long long row_bytes = static_cast<long long>(a.f) * sizeof(T);
+  if constexpr (sizeof(T) == 4) {  // rows start on 4 bytes: kc words a row
+    if (lane >= kc) return;
+    src += 4 * lane;
+    xs += 4 * lane;
+#pragma unroll 4
+    for (int i = 0; i < rows; ++i, src += row_bytes, xs += kRowBytes) cp_async4(xs, src, 4);
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < rows; ++i, src += row_bytes, xs += kRowBytes) {
+      const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+      if (lane < (shift + kc * 2 + 3) >> 2) cp_async4(xs + 4 * lane, src - shift + 4 * lane, 4);
+    }
+  }
+}
+
+// The warp's xd of the chunk, from the stage at `xs` where its lanes wrote it
+// over x, to `dst` (the first row's first element), the lanes along each row;
+// `src` as for wide_load (the rows' byte shifts).
+template <class T>
+__device__ __forceinline__ void wide_store_xd(const Args& a, const char* xs, char* dst,
+                                              const char* src, int rows, int kc, int lane) {
+  constexpr int kRowBytes = wide_row_words<T>() * 4;
+  const long long row_bytes = static_cast<long long>(a.f) * sizeof(T);
+  if (lane >= kc) return;
+  const int e = lane * static_cast<int>(sizeof(T));
+  dst += e;
+#pragma unroll 4
+  for (int i = 0; i < rows; ++i, src += row_bytes, dst += row_bytes, xs += kRowBytes) {
+    const int shift = sizeof(T) == 4 ? 0 : static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+    Elem<T>::store_global(dst, Elem<T>::load(xs + shift + e));
+  }
+}
+
+// x / q correctly rounded in f32, by one multiply and no branch: x times
+// rq = 1 / q in f64 is within 2^-51 of the quotient, and a quotient of two
+// f32 values is never within 2^-49 of it from a midpoint between two f32
+// values (nor on one): it rounds to f32 as x / q does, bit for bit.
+__device__ __forceinline__ float div_by_q(float xv, double rq) {
+  return __double2float_rn(static_cast<double>(xv) * rq);
+}
+
+// Four elements kk0.. of the lane's row in the chunk at `xrow`, kept where
+// their `bits` say: first their xd, written over x (four chains side by
+// side), then their terms in all kWideCols columns, W's rows broadcast from
+// shared memory. TAIL: the chunk's kc columns end among them.
+template <class T, bool EVAL, bool TAIL>
+__device__ __forceinline__ void wide_quad(const Args& a, char* xrow, const float4* w4, int kk0,
+                                          int kc, double rq, const uint32_t (&bits)[4],
+                                          float* acc_t, float* acc_e) {
+  constexpr int kItem = static_cast<int>(sizeof(T));
+  float xv[4], xdv[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const bool in = !TAIL || kk0 + c < kc;
+    xv[c] = in ? Elem<T>::load(xrow + (kk0 + c) * kItem) : 0.0f;
+    xdv[c] = bits[c] < a.thresh ? Elem<T>::round(div_by_q(xv[c], rq)) : 0.0f;
+    if (in) Elem<T>::store_smem(xrow + (kk0 + c) * kItem, xdv[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (TAIL && kk0 + c >= kc) break;
+    accumulate<kWideCols, EVAL>(xdv[c], xv[c], w4 + (kk0 + c) * (kWideCols / 4), acc_t, acc_e);
+  }
+}
+
+// The lane's row over the chunk's kc columns. B 32: a unit is the 4 columns
+// of one Philox call, drawn by the row's own lane. B 8: a call covers 8
+// columns of the row pair (r, r + 16), lanes l and l + 16 of the warp; a unit
+// is 16 columns, the lower lane draws its first 8, the upper lane the second,
+// and each hands its draw to the other. Either way each call is drawn once,
+// one unit ahead; `u` carries the draw of the chunk's first unit in and of
+// the next chunk's out. TAIL: kc ends inside a unit.
+template <class T, bool EVAL, bool TAIL, int B>
+__device__ __forceinline__ void wide_chunk(const Args& a, char* xrow, const float4* w4,
+                                           const Draw& d, double rq, long long row, int k0,
+                                           int kc, int half, uint4& u, float* acc_t,
+                                           float* acc_e) {
+  constexpr int kUnit = B == 32 ? 4 : 16;
+  const int units = (kc + kUnit - 1) / kUnit;
+#pragma unroll 1
+  for (int g = 0; g < units; ++g) {
+    const int next = k0 + kUnit * (g + 1);  // past F: drawn, unused
+    const uint4 u_next = draw_at(d, call_of<B>(a, row, B == 32 ? next : next + 8 * half));
+    if constexpr (B == 32) {
+      const uint32_t bits[4] = {u.x, u.y, u.z, u.w};
+      wide_quad<T, EVAL, TAIL>(a, xrow, w4, 4 * g, kc, rq, bits, acc_t, acc_e);
+    } else {
+      const uint4 other = make_uint4(__shfl_xor_sync(0xffffffffu, u.x, 16),
+                                     __shfl_xor_sync(0xffffffffu, u.y, 16),
+                                     __shfl_xor_sync(0xffffffffu, u.z, 16),
+                                     __shfl_xor_sync(0xffffffffu, u.w, 16));
+      const uint4 first = half ? other : u, second = half ? u : other;
+#pragma unroll
+      for (int qd = 0; qd < 4; ++qd) {
+        if (TAIL && 16 * g + 4 * qd >= kc) break;
+        const uint4& v = qd < 2 ? first : second;
+        uint32_t bits[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bits[c] = bits_of<8>(v, half, 4 * (qd % 2) + c);
+        wide_quad<T, EVAL, TAIL>(a, xrow, w4, 16 * g + 4 * qd, kc, rq, bits, acc_t, acc_e);
+      }
+    }
+    u = u_next;
+  }
+}
+
+// Two f32 values as bf16 in one word, the first in the lower half.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A lane's row of one product, `cols` columns of the launch from `out`: by
+// 16-byte stores where all kWideCols are the launch's and the row starts on
+// 16 bytes.
+template <class T>
+__device__ __forceinline__ void wide_store_row(char* out, const float* acc, int cols) {
+  if (cols == kWideCols && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int j = 0; j < kWideCols / 4; ++j) {
+        reinterpret_cast<float4*>(out)[j] =
+            make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kWideCols / 8; ++j) {
+        reinterpret_cast<uint4*>(out)[j] =
+            make_uint4(bf16_pair(acc[8 * j], acc[8 * j + 1]), bf16_pair(acc[8 * j + 2], acc[8 * j + 3]),
+                       bf16_pair(acc[8 * j + 4], acc[8 * j + 5]), bf16_pair(acc[8 * j + 6], acc[8 * j + 7]));
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < kWideCols; ++h) {
+    if (h < cols) Elem<T>::store(out + h * static_cast<int>(sizeof(T)), acc[h]);
+  }
+}
 
 template <class T, bool EVAL, int B>
-cudaError_t launch(const Args& a, int flat, cudaStream_t stream) {
-  if (flat) {
-    {
-      auto kernel = layer0_flat_kernel<T, EVAL, B>;
-      const long long smem = flat_smem_bytes(a.f, sizeof(T), EVAL);
-      if (smem > kSmemMax || reinterpret_cast<uintptr_t>(a.x) % 16 ||
-          reinterpret_cast<uintptr_t>(a.xd) % 16) {
-        return cudaErrorInvalidValue;
-      }
-      int device = 0, sms = 0;
-      cudaError_t err = cudaGetDevice(&device);
-      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-      if (err == cudaSuccess) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
-      }
-      if (err != cudaSuccess) return err;
-      const long long blocks = (a.n + 31) / 32;
-      kernel<<<static_cast<unsigned>(min(blocks, static_cast<long long>(sms))), kFlatThreads + 32,
-               static_cast<int>(smem), stream>>>(a);
-      return cudaGetLastError();
+__global__ void __launch_bounds__(kWideThreads, 1) layer0_wide_kernel(const Args a) {
+  constexpr int kStage = 32 * wide_row_words<T>() * 4;  // bytes of a stage
+  constexpr int kItem = static_cast<int>(sizeof(T));
+  constexpr int kE = EVAL ? kWideCols : 1;
+  extern __shared__ __align__(16) char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, half = lane >> 4;
+  float* ws = reinterpret_cast<float*>(smem);
+  char* stages = smem + 4LL * a.f * kWideCols + warp * 2 * kStage;
+  const uint32_t xs = smem_addr(stages);
+  const long long tiles = (a.n + 31) / 32;
+  const long long stride = static_cast<long long>(gridDim.x) * kWideWarps;
+  const int chunks = (a.f + kWideBk - 1) / kWideBk;
+  const long long row_bytes = static_cast<long long>(a.f) * kItem;
+
+  // W whole, its columns past `cols` zero-filled; rounded to bf16 for bf16 x
+  const int w_words = a.f * kWideCols;
+  const uint32_t wdst = smem_addr(ws);
+  for (int idx = threadIdx.x; idx < w_words; idx += kWideThreads) {
+    const int k = idx / kWideCols, h = idx % kWideCols;
+    const bool in = h < a.cols;
+    cp_async4(wdst + idx * 4, in ? a.w + static_cast<long long>(k) * a.ldw + h : a.w, in ? 4 : 0);
+  }
+  cp_async_commit();
+  // the warp's items are (tile, chunk) in order; the next one's copy runs under this one
+  long long tile = static_cast<long long>(blockIdx.x) * kWideWarps + warp;
+  int c = 0, s = 0;
+  const auto rows_of = [&](long long t) { return static_cast<int>(min(32LL, a.n - 32 * t)); };
+  if (tile < tiles) {
+    wide_load<T>(a, xs, a.x + 32 * tile * row_bytes, rows_of(tile), min(kWideBk, a.f), lane);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  for (int idx = threadIdx.x; idx < w_words; idx += kWideThreads) round_w<T>(ws, idx);
+  __syncthreads();
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  const Draw d = read_draw(a);
+  const double rq = 1.0 / static_cast<double>(a.q);
+
+  float acc_t[kWideCols], acc_e[kE];
+  uint4 u = uint4{};
+  char* xrow = nullptr;  // the lane's row in stage 0; stage 1 is kStage on
+  while (tile < tiles) {
+    const int k0 = c * kWideBk, kc = min(kWideBk, a.f - k0), rows = rows_of(tile);
+    const long long row0 = 32 * tile, row = row0 + lane;
+    int c_next = c + 1;
+    long long tile_next = tile;
+    if (c_next == chunks) c_next = 0, tile_next += stride;
+    if (tile_next < tiles) {  // into stage 1 - s, stored out by the last item
+      wide_load<T>(a, xs + (1 - s) * kStage,
+                   a.x + 32 * tile_next * row_bytes + static_cast<long long>(c_next) * kWideBk * kItem,
+                   rows_of(tile_next), min(kWideBk, a.f - c_next * kWideBk), lane);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    if (c == 0) {
+#pragma unroll
+      for (int h = 0; h < kWideCols; ++h) acc_t[h] = 0.0f;
+#pragma unroll
+      for (int h = 0; h < kE; ++h) acc_e[h] = 0.0f;
+      u = draw_at(d, call_of<B>(a, row, B == 32 ? 0 : 8 * half));
+      // the row's byte shift in its chunks' first words: the same in every chunk
+      xrow = stages + lane * wide_row_words<T>() * 4 +
+             static_cast<int>(reinterpret_cast<uintptr_t>(a.x + row * row_bytes) & 3);
+    }
+    char* const st = stages + s * kStage;
+    const char* src = a.x + row0 * row_bytes + static_cast<long long>(k0) * kItem;
+    if (kc == kWideBk) {
+      wide_chunk<T, EVAL, false, B>(a, xrow + s * kStage, w4 + k0 * (kWideCols / 4), d, rq, row,
+                                    k0, kc, half, u, acc_t, acc_e);
+    } else {
+      wide_chunk<T, EVAL, true, B>(a, xrow + s * kStage, w4 + k0 * (kWideCols / 4), d, rq, row,
+                                   k0, kc, half, u, acc_t, acc_e);
+    }
+    __syncwarp();
+    if (a.xd != nullptr) {
+      wide_store_xd<T>(a, st, a.xd + row0 * row_bytes + static_cast<long long>(k0) * kItem, src,
+                       rows, kc, lane);
+    }
+    __syncwarp();  // the stage is read out: the next copy may land in it
+    if (c == chunks - 1 && row < a.n) {
+      const long long at = row * a.ldw * static_cast<long long>(kItem);
+      wide_store_row<T>(a.zt + at, acc_t, a.cols);
+      if constexpr (EVAL) wide_store_row<T>(a.ze + at, acc_e, a.cols);
+    }
+    tile = tile_next;
+    c = c_next;
+    s = 1 - s;
+  }
+  cp_async_wait<0>();
+}
+
+// ---- launch -------------------------------------------------------------------
+
+// The SMs of the current device: a persistent CTA each.
+cudaError_t device_sms(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return err;
+}
+
+template <class T, bool EVAL, int B>
+cudaError_t launch(const Args& a, int path, cudaStream_t stream) {
+  if (path == 2) {
+    auto kernel = layer0_wide_kernel<T, EVAL, B>;
+    const long long smem = wide_smem_bytes(a.f, sizeof(T));
+    if (smem > kSmemMax || reinterpret_cast<uintptr_t>(a.x) % 16) return cudaErrorInvalidValue;
+    int sms = 0;
+    cudaError_t err = device_sms(&sms);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    }
+    if (err != cudaSuccess) return err;
+    const long long blocks = ((a.n + 31) / 32 + kWideWarps - 1) / kWideWarps;
+    kernel<<<static_cast<unsigned>(min(blocks, static_cast<long long>(sms))), kWideThreads,
+             static_cast<int>(smem), stream>>>(a);
+    return cudaGetLastError();
+  }
+  if (path == 1) {
+    auto kernel = layer0_flat_kernel<T, EVAL, B>;
+    const long long smem = flat_smem_bytes(a.f, sizeof(T), EVAL);
+    if (smem > kSmemMax || reinterpret_cast<uintptr_t>(a.x) % 16 ||
+        reinterpret_cast<uintptr_t>(a.xd) % 16) {
+      return cudaErrorInvalidValue;
+    }
+    int sms = 0;
+    cudaError_t err = device_sms(&sms);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    }
+    if (err != cudaSuccess) return err;
+    const long long blocks = (a.n + 31) / 32;
+    kernel<<<static_cast<unsigned>(min(blocks, static_cast<long long>(sms))), kFlatThreads + 32,
+             static_cast<int>(smem), stream>>>(a);
+    return cudaGetLastError();
   }
   auto kernel = layer0_pair_kernel<T, EVAL, B>;
   const int smem = kStages * stage_bytes<T>();
@@ -672,33 +992,33 @@ cudaError_t launch(const Args& a, int flat, cudaStream_t stream) {
 }
 
 template <class T, int B>
-cudaError_t by_eval(const Args& a, int flat, cudaStream_t stream) {
-  return a.ze != nullptr ? launch<T, true, B>(a, flat, stream) : launch<T, false, B>(a, flat, stream);
+cudaError_t by_eval(const Args& a, int path, cudaStream_t stream) {
+  return a.ze != nullptr ? launch<T, true, B>(a, path, stream) : launch<T, false, B>(a, path, stream);
 }
 
 template <class T>
-cudaError_t by_bits(const Args& a, int flat, int bits, cudaStream_t stream) {
+cudaError_t by_bits(const Args& a, int path, int bits, cudaStream_t stream) {
   switch (bits) {
-    case 8: return by_eval<T, 8>(a, flat, stream);
-    case 32: return by_eval<T, 32>(a, flat, stream);
+    case 8: return by_eval<T, 8>(a, path, stream);
+    case 32: return by_eval<T, 32>(a, path, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// One launch over the output columns [h_off, h_off + cols) of x @ W, cols at
-// most 16 (the launch's W columns past cols zero-filled), the flat way (`flat`
-// 1) or the chunked way (0), as kernels.layer0_path chose; `write_xd` in
-// exactly one of a call's launches.
+// One launch over the output columns [h_off, h_off + cols) of x @ W (the
+// launch's W columns past cols zero-filled) by the way kernels.layer0_path
+// chose: `path` 0 the chunked way or 1 the flat way (cols at most 16), 2 the
+// wide way (cols at most 64); `write_xd` in exactly one of a call's launches.
 // An element is kept where its `bits` (8 or 32) of the uniforms read below
 // `thresh` (kernels.dropout_keep). `dtype` is 0 for f32 x, 1 for bf16 x; W is
 // f32 [f, h]; zt and ze (ze null: the train half only) are [n, h] of x's type.
 extern "C" int layer0_pair(const void* x, const void* w, const void* seeds, void* xd, void* zt,
-                           void* ze, long long n, int f, int h, int h_off, int cols, int flat, float q, float inv_q, int q_pow2, unsigned thresh, int bits,
+                           void* ze, long long n, int f, int h, int h_off, int cols, int path, float q, float inv_q, int q_pow2, unsigned thresh, int bits,
                            int write_xd, int dtype, void* stream) {
-  if (n <= 0 || f <= 0 || cols <= 0 || cols > kWidth ||
-      (n + kRows - 1) / kRows > 0x7fffffffLL) {
+  if (n <= 0 || f <= 0 || cols <= 0 || path < 0 || path > 2 ||
+      cols > (path == 2 ? kWideCols : kWidth) || (n + kRows - 1) / kRows > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int item = dtype == 1 ? 2 : 4;
@@ -720,8 +1040,8 @@ extern "C" int layer0_pair(const void* x, const void* w, const void* seeds, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = by_bits<float>(a, flat, bits, s); break;
-    case 1: err = by_bits<bf16>(a, flat, bits, s); break;
+    case 0: err = by_bits<float>(a, path, bits, s); break;
+    case 1: err = by_bits<bf16>(a, path, bits, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

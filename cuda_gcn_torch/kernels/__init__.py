@@ -716,16 +716,20 @@ def piece(ids, coef, begin, end, tab, reps: int = 1) -> torch.Tensor:
     return out
 
 
-# The dense layer-0 kernel (csrc/layer0_pair.cu): a launch computes
-# LAYER0_COLS output columns (W's columns past H zero-filled); a wider W takes
-# a launch per LAYER0_COLS columns.
+# The dense layer-0 kernel (csrc/layer0_pair.cu): a launch of the flat or
+# the chunked way computes LAYER0_COLS output columns, one of the wide way
+# LAYER0_WIDE_COLS (W's columns past H zero-filled); a wider W takes a launch
+# per that many columns.
 LAYER0_COLS = 16
+LAYER0_WIDE_COLS = 64
 
 
 # The flat way: a CTA of LAYER0_FLAT_WARPS computing warps (and one that
-# copies) over blocks of 32 rows.
+# copies) over blocks of 32 rows. The wide way: LAYER0_WIDE_WARPS warps, each
+# streaming its own tiles of 32 rows in chunks of 32 columns.
 LAYER0_FLAT_WARPS = 8
-LAYER0_PATHS = ("chunked", "flat")
+LAYER0_WIDE_WARPS = 8
+LAYER0_PATHS = ("chunked", "flat", "wide")
 
 
 def layer0_flat_smem(f: int, itemsize: int, with_eval: bool) -> int:
@@ -738,12 +742,23 @@ def layer0_flat_smem(f: int, itemsize: int, with_eval: bool) -> int:
     return 2 * stage + 4 * -(-f // 8) * 8 * LAYER0_COLS + sums + 4 * 8
 
 
-def layer0_path(f: int, itemsize: int, with_eval: bool, x_ptr: int) -> str:
-    """Which way the dense layer-0 kernel takes through x: 'flat' (blocks of 32
-    whole rows as one range, W whole) where its shared memory fits a block's
-    and x starts on 16 bytes, else 'chunked' (chunks of 64 columns)."""
-    if x_ptr % 16 == 0 and layer0_flat_smem(f, itemsize, with_eval) <= SMEM_BLOCK_BYTES:
-        return "flat"
+def layer0_wide_smem(f: int, itemsize: int) -> int:
+    """Shared memory of the wide way: W whole in f32, and each warp's two
+    stages of 32 rows of a chunk, a row 32 elements and one 4-byte word."""
+    return 4 * f * LAYER0_WIDE_COLS + 4 * LAYER0_WIDE_WARPS * 2 * 32 * (32 * itemsize // 4 + 1)
+
+
+def layer0_path(f: int, h: int, itemsize: int, with_eval: bool, x_ptr: int) -> str:
+    """Which way the dense layer-0 kernel takes through x for W [F, H]:
+    'wide' (a thread a row and all of 64 columns, W whole) where H is above
+    LAYER0_COLS, its shared memory fits and x starts on 16 bytes; else 'flat'
+    (blocks of 32 whole rows as one range, W whole) where its shared memory
+    fits and x starts on 16 bytes; else 'chunked' (chunks of 64 columns)."""
+    if x_ptr % 16 == 0:
+        if h > LAYER0_COLS and layer0_wide_smem(f, itemsize) <= SMEM_BLOCK_BYTES:
+            return "wide"
+        if layer0_flat_smem(f, itemsize, with_eval) <= SMEM_BLOCK_BYTES:
+            return "flat"
     return "chunked"
 
 
@@ -790,11 +805,12 @@ def layer0_pair(x, w, seeds, rate: float, with_eval: bool):
         return xd, zt.zero_(), None if ze is None else ze.zero_()
     q, inv_q, pow2, thresh, bits = dropout_keep(rate)
     x_ptr = x.data_ptr()
-    path = LAYER0_PATHS.index(layer0_path(f, x.element_size(), with_eval, x_ptr))
-    for h_off in range(0, h, LAYER0_COLS):
+    path = layer0_path(f, h, x.element_size(), with_eval, x_ptr)
+    cols = LAYER0_WIDE_COLS if path == "wide" else LAYER0_COLS
+    for h_off in range(0, h, cols):
         _call("layer0_pair", x_ptr, w.data_ptr(), seeds.data_ptr(), xd.data_ptr(),
               zt.data_ptr(), None if ze is None else ze.data_ptr(), n, f, h, h_off,
-              min(LAYER0_COLS, h - h_off), path, q, inv_q, pow2, thresh, bits,
+              min(cols, h - h_off), LAYER0_PATHS.index(path), q, inv_q, pow2, thresh, bits,
               int(h_off == 0), dtype_code(x.dtype), _stream(dev))
     return xd, zt, ze
 

@@ -88,21 +88,23 @@ def _recorder(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("h", [16, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_card_tensors_in_training_take_one_launch(monkeypatch, dtype):
+def test_card_tensors_in_training_take_one_launch(monkeypatch, dtype, h):
     """On the card: the fused epoch's pair is one launch with the eval half,
     the training forward alone one without; W reaches the kernel as f32 (a
-    bf16 W exactly widened), the seeds as two int64."""
+    bf16 W exactly widened), the seeds as two int64. The GAT's 64 columns
+    are one call as the GCN's 16 are."""
     calls = _recorder(monkeypatch)
     x = torch.empty(60, 12, dtype=dtype, device="meta")
     for w_dtype in DTYPES:
-        w = torch.empty(12, 16, dtype=w_dtype, device="meta", requires_grad=True)
+        w = torch.empty(12, h, dtype=w_dtype, device="meta", requires_grad=True)
         zt, ze = gcn.layer0_pair(x, w, 0.5, None)
         z = gcn._layer0_transform(x, w, 0.5, None, True)
         assert zt.requires_grad and not ze.requires_grad and z.requires_grad
-        assert zt.dtype == ze.dtype == z.dtype == dtype
-    assert calls == [((60, 12), (12, 16), torch.float32, (2,), 0.5, True),
-                     ((60, 12), (12, 16), torch.float32, (2,), 0.5, False)] * 2
+        assert zt.dtype == ze.dtype == z.dtype == dtype and zt.shape == (60, h)
+    assert calls == [((60, 12), (12, h), torch.float32, (2,), 0.5, True),
+                     ((60, 12), (12, h), torch.float32, (2,), 0.5, False)] * 2
     # the sharded trainer's fused forward builds its first layer the same way
     assert sharded.layer0_pair is gcn.layer0_pair
 
@@ -135,6 +137,25 @@ def test_dropout_keep(rate, q, inv_q, pow2, thresh, bits):
     is exact; 8 bits an element where q·2^8 is whole, else 32; the threshold
     q·2^bits: keep share q."""
     assert kernels.dropout_keep(rate) == (q, inv_q, pow2, thresh, bits)
+
+
+@pytest.mark.parametrize("rate", [0.6, 0.5, 0.3, 0.1, 0.37, 0.999])
+def test_division_by_q_in_f64_is_f32_division(rate):
+    """The wide way divides by q = 1 - p as x times 1/q in f64, rounded once
+    to f32: bit for bit x / q in f32 (as the other ways and the plain version
+    divide), over every significand of the binade [1, 2), all the subnormals
+    and zero, and random bit patterns up to the largest finite value."""
+    q = np.float32(kernels.dropout_keep(rate)[0])
+    rq = 1.0 / np.float64(q)
+    sig = np.arange(2**23, dtype=np.uint32)
+    rng = np.random.default_rng(int(rate * 1000))
+    for bits in (np.uint32(127 << 23) | sig, sig,
+                 rng.integers(0, 0x7F800000, 2**20, dtype=np.uint32)):
+        x = np.concatenate([bits, bits | np.uint32(1 << 31)]).view(np.float32)
+        with np.errstate(over="ignore"):
+            want = x / q
+            got = (x.astype(np.float64) * rq).astype(np.float32)
+        assert np.array_equal(want.view(np.uint32), got.view(np.uint32))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -254,37 +275,53 @@ def _card(*shape, dtype=torch.float32):
     return torch.zeros(*shape, dtype=dtype).as_subclass(_Card)
 
 
-@pytest.mark.parametrize("h,launches", [
-    (6, [(0, 6, 1)]), (16, [(0, 16, 1)]), (17, [(0, 16, 1), (16, 1, 0)]),
-    (41, [(0, 16, 1), (16, 16, 0), (32, 9, 0)])])
-def test_launcher_splits_w_in_launches_of_16_columns(c_calls, h, launches):
-    """A launch computes 16 output columns (W's past H zero-filled in the
-    kernel); a wider W takes one launch per 16 columns, and only the first
-    writes xd. All take the way that fits (flat: 32 rows of 12 features)."""
-    xd, zt, ze = kernels.layer0_pair(_card(60, 12, dtype=torch.bfloat16), _card(12, h),
+@pytest.mark.parametrize("f,h,path,launches", [
+    (12, 6, "flat", [(0, 6, 1)]), (12, 16, "flat", [(0, 16, 1)]),  # the parent's launches
+    (12, 17, "wide", [(0, 17, 1)]), (12, 41, "wide", [(0, 41, 1)]),
+    (12, 64, "wide", [(0, 64, 1)]), (12, 72, "wide", [(0, 64, 1), (64, 8, 0)]),
+    (800, 17, "flat", [(0, 16, 1), (16, 1, 0)]),  # F = 800: W does not fit whole beside
+    (800, 41, "flat", [(0, 16, 1), (16, 16, 0), (32, 9, 0)]),  # the wide way's stages
+    (800, 64, "flat", [(0, 16, 1), (16, 16, 0), (32, 16, 0), (48, 16, 0)])])
+def test_launcher_splits_w_in_launches_of_16_columns(c_calls, f, h, path, launches):
+    """Up to 16 columns a call is one launch of the flat way, with the
+    arguments it always had. Above 16 the wide way takes up to 64 columns a
+    launch where W fits whole beside its stages; where it does not, the flat
+    way takes one launch per 16 columns (W's past H zero-filled in the
+    kernel). Only the first launch writes xd."""
+    xd, zt, ze = kernels.layer0_pair(_card(60, f, dtype=torch.bfloat16), _card(f, h),
                                      _card(2, dtype=torch.int64), 0.3, False)
     assert ze is None and zt.shape == (60, h) and zt.dtype == xd.dtype == torch.bfloat16
     q, _, _, thresh, bits = kernels.dropout_keep(0.3)
     assert [(a[9], a[10], a[17]) for _, a in c_calls] == launches
     for _, a in c_calls:
-        assert a[3:6] == (xd.data_ptr(), zt.data_ptr(), None) and a[6:9] == (60, 12, h)
-        assert a[11] == kernels.LAYER0_PATHS.index("flat")
+        assert a[3:6] == (xd.data_ptr(), zt.data_ptr(), None) and a[6:9] == (60, f, h)
+        assert a[11] == kernels.LAYER0_PATHS.index(path)
         assert a[12:17] == (q, 0.0, 0, thresh, bits) and a[18:] == (1, 7000)
 
 
-@pytest.mark.parametrize("f,itemsize,with_eval,ptr,path", [
-    (602, 4, True, 0, "flat"),        # synth-reddit's pair: 226,880 bytes
-    (602, 4, False, 0, "flat"), (602, 2, True, 0, "flat"), (500, 4, True, 0, "flat"),
-    (619, 4, True, 0, "flat"), (620, 4, True, 0, "chunked"),  # two blocks, W, the sums
-    (671, 4, False, 0, "flat"), (672, 4, False, 0, "chunked"),
-    (3703, 4, True, 0, "chunked"),    # a block of 32 rows is 474 KB
-    (1433, 2, False, 0, "chunked"), (602, 4, True, 8, "chunked")])  # x off 16 bytes
-def test_layer0_path_by_what_fits(f, itemsize, with_eval, ptr, path):
-    """The flat way takes blocks of 32 whole rows where two blocks and W fit a
-    CTA's shared memory and x starts on 16 bytes."""
-    assert kernels.layer0_path(f, itemsize, with_eval, ptr) == path
-    fits = kernels.layer0_flat_smem(f, itemsize, with_eval) <= kernels.SMEM_BLOCK_BYTES
-    assert (path == "flat") == (fits and ptr % 16 == 0)
+@pytest.mark.parametrize("f,h,itemsize,with_eval,ptr,path", [
+    (602, 16, 4, True, 0, "flat"),        # synth-reddit's pair: 226,880 bytes
+    (602, 16, 4, False, 0, "flat"), (602, 16, 2, True, 0, "flat"), (500, 16, 4, True, 0, "flat"),
+    (619, 16, 4, True, 0, "flat"), (620, 16, 4, True, 0, "chunked"),  # two blocks, W, the sums
+    (671, 16, 4, False, 0, "flat"), (672, 16, 4, False, 0, "chunked"),
+    (3703, 16, 4, True, 0, "chunked"),    # a block of 32 rows is 474 KB
+    (1433, 16, 2, False, 0, "chunked"), (602, 16, 4, True, 8, "chunked"),  # x off 16 bytes
+    (602, 64, 4, True, 0, "wide"),        # the GAT's layer 0: W 154,112 bytes, 221,696 in all
+    (602, 64, 2, True, 0, "wide"), (602, 17, 4, False, 0, "wide"),
+    (644, 64, 4, True, 0, "wide"), (645, 64, 4, True, 0, "chunked"),  # W beside 8 warps' stages
+    (772, 64, 2, True, 0, "wide"), (773, 64, 2, True, 0, "flat"),
+    (602, 64, 4, True, 8, "chunked"), (3703, 64, 4, True, 0, "chunked")])
+def test_layer0_path_by_what_fits(f, h, itemsize, with_eval, ptr, path):
+    """Above 16 columns the wide way takes W whole where it fits beside its
+    warps' stages and x starts on 16 bytes; else, and at 16 columns and fewer,
+    the flat way takes blocks of 32 whole rows where two blocks and W fit a
+    CTA's shared memory and x starts on 16 bytes; else the chunked way."""
+    assert kernels.layer0_path(f, h, itemsize, with_eval, ptr) == path
+    aligned = ptr % 16 == 0
+    wide = h > kernels.LAYER0_COLS and kernels.layer0_wide_smem(f, itemsize) <= kernels.SMEM_BLOCK_BYTES
+    flat = kernels.layer0_flat_smem(f, itemsize, with_eval) <= kernels.SMEM_BLOCK_BYTES
+    assert (path == "wide") == (aligned and wide)
+    assert (path == "flat") == (aligned and flat and not wide)
 
 
 @pytest.mark.parametrize("fault,error", [
@@ -312,15 +349,16 @@ def test_launcher_without_columns_or_features(c_calls):
 
 
 def test_chip_smoke_edges_take_both_ways():
-    """The card check's edge cases reach both ways through x: the flat one
-    (a block of 32 rows as one range) and the chunked one (F past what fits,
-    or x off 16 bytes)."""
+    """The card check's edge cases reach all three ways through x: the flat
+    one (a block of 32 rows as one range), the chunked one (F past what fits,
+    or x off 16 bytes) and the wide one (above 16 columns)."""
     import chip_smoke
 
-    ways = {kernels.layer0_path(f, torch.empty((), dtype=getattr(torch, dtype)).element_size(),
-                                True, offset * torch.empty((), dtype=getattr(torch, dtype)).element_size())
-            for n, f, h, dtype, rate, offset in chip_smoke.LAYER0_EDGES}
-    assert ways == {"flat", "chunked"}
+    ways = set()
+    for n, f, h, dtype, rate, offset in chip_smoke.LAYER0_EDGES:
+        item = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+        ways.add(kernels.layer0_path(f, h, item, True, offset * item))
+    assert ways == {"flat", "chunked", "wide"}
 
 
 @pytest.mark.parametrize("fault", ["none", "scale", "where_x_is_0", "mask"])
