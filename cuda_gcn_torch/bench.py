@@ -173,8 +173,8 @@ def steady_ms(times: list[float]) -> tuple[float | None, int]:
 def run_bench(args) -> dict:
     from cuda_gcn_torch import kernels, train
     from cuda_gcn_torch.config import GCNConfig
-    from cuda_gcn_torch.data.graph import DENSE_BACKEND_MAX_NODES
     from cuda_gcn_torch.device import resolve_device
+    from cuda_gcn_torch.models.gcn import GCN
     from cuda_gcn_torch.utils.profiling import (DEFAULT_HBM_GBPS, GATHER_TRANSACTION_BYTES,
                                                 spmm_speed_of_light)
 
@@ -185,9 +185,7 @@ def run_bench(args) -> dict:
     device = resolve_device(args.device)
     card = device_label(device)
     dataset, name = load_bench_dataset(args.dataset, args.data_dir)
-    backend = args.backend
-    if backend == "auto":
-        backend = "dense" if dataset.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
+    backend = GCN.graph_backend(args.backend, dataset.num_nodes)
     if backend == "bsr":
         dataset = maybe_reorder_cached(dataset, name)
     cfg = GCNConfig(epochs=args.epochs, graphsum_backend=backend, reorder="none",

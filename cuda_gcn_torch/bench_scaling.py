@@ -87,11 +87,11 @@ def _steady_ms(state, inputs, truths, cfg, device, epochs: int) -> float:
         sharded._graphed(device), (kernels.launches, inputs.exchange.sent))
     run()
     run()
-    sharded._sync(device)
+    train._sync(device)
     t0 = time.perf_counter()
     for _ in range(epochs):
         run()
-    sharded._sync(device)
+    train._sync(device)
     return (time.perf_counter() - t0) * 1e3 / epochs
 
 

@@ -186,7 +186,6 @@ def main(argv: list[str] | None = None) -> int:
     from cuda_gcn_torch import train
     from cuda_gcn_torch.data.dataset import (CACHE_DIR, cached_permutation_path,
                                              load_cached, reorder_cached)
-    from cuda_gcn_torch.data.graph import DENSE_BACKEND_MAX_NODES
     from cuda_gcn_torch.data.parser import load_dataset
     from cuda_gcn_torch.data.synthetic import PROFILES, VARIANTS, make_synthetic
     from cuda_gcn_torch.device import resolve_device
@@ -203,7 +202,6 @@ def main(argv: list[str] | None = None) -> int:
 
     device = resolve_device(args.device)
     name = args.graph_name
-    backend = cfg.graphsum_backend
     reorder = "auto"
     cached = False
     if name in PROFILES or name in VARIANTS:
@@ -240,9 +238,7 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.model == "gat" and args.timing:
         print("--timing's per-op phases are the GCN's; --model gat has none", file=sys.stderr)
         return 1
-    if backend == "auto":
-        backend = "ell" if cfg.model == "gat" else \
-            "dense" if dataset.num_nodes <= DENSE_BACKEND_MAX_NODES else "bsr"
+    backend = train.model_class(cfg).graph_backend(cfg.graphsum_backend, dataset.num_nodes)
     if backend == "bsr" and cached and os.path.exists(cached_permutation_path(name)):
         dataset, reorder = reorder_cached(dataset, name), "none"
     print(f"RUNNING ON {platform}")

@@ -326,8 +326,10 @@ def build_graph(csr: CSR, backend: str = "auto", bsr_tile: int = BSR_DEFAULT_TIL
     bytes; ``act_itemsize=2`` also stores the edge coefficients in bf16."""
     device = resolve_device(device)
     n = csr.nrows
-    if backend == "auto":
-        backend = "dense" if n <= DENSE_BACKEND_MAX_NODES else "bsr"
+    if backend == "auto":  # the GCN's choice (models/gcn.py ``GraphModel.graph_backend``)
+        from cuda_gcn_torch.models.gcn import GCN
+
+        backend = GCN.graph_backend(backend, n)
     if backend not in ("dense", "segment", "bsr", "ell", "pallas"):
         raise ValueError(f"unknown graphsum backend {backend!r}")
     steps: dict[str, float] = {}

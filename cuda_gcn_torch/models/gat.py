@@ -19,9 +19,13 @@ drawn on the CPU from one generator in that order, layer by layer. There are
 no biases, as in the paper's equations. The L2 term of the loss covers every
 weight and attention vector (``l2_penalty``; the paper does not say which).
 
-Layer 0 is the GCN's (models/gcn.py ``_layer0_transform``, ``layer0_pair``):
-on dense x in training on the card one launch of the dense layer-0 kernel a
-16 output columns, which draws the input's dropout and writes the pair.
+The layer loop, layer 0 and the loss are the GCN's (models/gcn.py
+``GraphModel``); the GAT adds its attention after each layer's product
+(``_layer``). On dense x in training on the card layer 0 is one launch of the
+dense layer-0 kernel's 'wide' way for its 64 output columns (8 heads of 8),
+which draws the input's dropout and writes the pair. The GAT runs on the
+``ell`` and ``pallas`` backends (``backends``; 'auto' picks ``ell``) and reads
+the graph's reverse-edge map (``needs_edge_map``), which train.prepare builds.
 """
 
 from __future__ import annotations
@@ -30,14 +34,16 @@ import torch
 from torch import nn
 
 from cuda_gcn_torch.data.graph import Graph
-from cuda_gcn_torch.models.gcn import _layer0_transform, glorot, layer0_pair
+from cuda_gcn_torch.models.gcn import GraphModel, glorot
 from cuda_gcn_torch.ops.attention import attention
-from cuda_gcn_torch.ops.dropout import dropout
-from cuda_gcn_torch.ops.loss import masked_cross_entropy, strict_accuracy
-from cuda_gcn_torch.ops.matmul import SparseFeatures, dense_matmul
 
 
-class GAT(nn.Module):
+class GAT(GraphModel):
+    # the attention kernels walk the ELL plan ('auto' picks the first)
+    backends = ("ell", "pallas")
+    backends_refusal = "model 'gat' attends over the ELL plan"
+    needs_edge_map = True
+
     def __init__(self, layer_dims: tuple[int, ...], heads: tuple[int, ...],
                  generator: torch.Generator, dtype: torch.dtype = torch.float32, *,
                  attention_dropout: float = 0.6, leaky_slope: float = 0.2):
@@ -57,12 +63,17 @@ class GAT(nn.Module):
             setattr(self, f"att_r{i + 1}", nn.Parameter(glorot(k, fh, generator, dtype)))
             fan_in = k * fh
 
-    def weights(self) -> list[torch.Tensor]:
-        return [getattr(self, f"w{i + 1}") for i in range(self.n_layers)]
+    @classmethod
+    def from_config(cls, cfg, generator: torch.Generator) -> GAT:
+        return cls(cfg.layer_dims(), cfg.layer_heads(), generator,
+                   getattr(torch, cfg.param_dtype), attention_dropout=cfg.attention_dropout,
+                   leaky_slope=cfg.leaky_slope)
 
-    def _attend(self, i: int, z: torch.Tensor, graph: Graph, generator, training: bool):
+    def _layer(self, i: int, z: torch.Tensor, graph: Graph, graphsums, generator,
+               training: bool):
         """Layer i's attention over z, then ELU (hidden) or the heads' mean
-        (output)."""
+        (output); no Â-sum. The pair takes each half apart (their attention
+        weights differ)."""
         k = self.heads[i]
         z3 = z.view(z.shape[0], k, -1)
         sl = (z3 * getattr(self, f"att_l{i + 1}")).sum(-1)
@@ -73,47 +84,7 @@ class GAT(nn.Module):
             return nn.functional.elu(h)
         return h if k == 1 else h.view(h.shape[0], k, -1).mean(1)
 
-    def forward(self, graph: Graph, x: torch.Tensor | SparseFeatures, *,
-                dropout_rate: float = 0.0, generator: torch.Generator | None = None,
-                training: bool = False) -> torch.Tensor:
-        """Forward pass -> logits [N, C]."""
-        h = x
-        for i, w in enumerate(self.weights()):
-            if i == 0:
-                z = _layer0_transform(h, w, dropout_rate, generator, training)
-            else:
-                z = dense_matmul(dropout(h, dropout_rate, generator, training), w)
-            h = self._attend(i, z, graph, generator, training)
-        return h
-
-    def apply_pair(self, graph: Graph, x: torch.Tensor, *, dropout_rate: float,
-                   generator: torch.Generator | None):
-        """The fused epoch's pair: the dropout-active training logits and the
-        evaluation logits of the same weights. Layer 0's two products come
-        from one pass over x; the attention takes each half apart (their
-        weights differ), the evaluation half without dropout or gradient."""
-        for i, w in enumerate(self.weights()):
-            if i == 0:
-                zt, ze = layer0_pair(x, w, dropout_rate, generator)
-            else:
-                zt = dense_matmul(dropout(ht, dropout_rate, generator, True), w)
-                with torch.no_grad():
-                    ze = dense_matmul(he, w)
-            ht = self._attend(i, zt, graph, generator, True)
-            with torch.no_grad():
-                he = self._attend(i, ze, graph, None, False)
-        return ht, he
-
     def l2_penalty(self, weight_decay: float) -> torch.Tensor:
         """weight_decay/2 · the squared norm of every weight and attention vector."""
         return 0.5 * weight_decay * sum(torch.sum(torch.square(p.float()))
                                         for p in self.parameters())
-
-    def loss_fn(self, graph: Graph, x: torch.Tensor, truth: torch.Tensor, *,
-                weight_decay: float, dropout_rate: float = 0.0,
-                generator: torch.Generator | None = None, training: bool = False):
-        """(masked CE + ``l2_penalty``, logits, accuracy)."""
-        logits = self(graph, x, dropout_rate=dropout_rate, generator=generator,
-                      training=training)
-        loss = masked_cross_entropy(logits, truth) + self.l2_penalty(weight_decay)
-        return loss, logits, strict_accuracy(logits, truth)

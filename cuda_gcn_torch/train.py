@@ -16,10 +16,13 @@ trailing eval. The loop is plain Python with no host synchronisation: the
 metrics stay on the device until it ends.
 
 The model is ``cfg.model``'s: the GCN (models/gcn.py) or the GAT
-(models/gat.py), built by ``create_state`` and run by the same loops; the
-loss's L2 term is the model's (``l2_penalty``). A GAT runs on the ``ell``
-backend ('auto' picks it), and ``prepare`` adds the graph's reverse-edge map
-(ops/ell.py ``edge_map``) inside the span ``gat.edge_map``; a GCN builds none.
+(models/gat.py), whose class ``model_class`` names, built by ``create_state``
+and run by the same loops; the loss's L2 term is the model's
+(``l2_penalty``). What a model needs of the graph its class declares:
+``prepare`` takes the backend from its ``graph_backend`` (the GAT runs on
+``ell`` or ``pallas``, and 'auto' picks ``ell``) and, where it
+``needs_edge_map``, adds the graph's reverse-edge map (ops/ell.py
+``edge_map``) inside the span ``gat.edge_map``; a GCN builds none.
 
 ``run_epochs_es`` is the early-stopping loop (:259-308): no pass fusion, since
 the stop decision needs epoch e's validation loss before epoch e+1 starts, so
@@ -80,7 +83,7 @@ import torch
 from cuda_gcn_torch import graphs, kernels
 from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.data.dataset import GCNDataset
-from cuda_gcn_torch.data.graph import DENSE_BACKEND_MAX_NODES, Graph, build_graph
+from cuda_gcn_torch.data.graph import Graph, build_graph
 from cuda_gcn_torch.data.reorder import locality_permutation, reorder_dataset
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.models.gat import GAT
@@ -103,13 +106,14 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
+def model_class(cfg: GCNConfig) -> type[GCN | GAT]:
+    """``cfg.model``'s network class: the one map of a model's name to it."""
+    return {"gcn": GCN, "gat": GAT}[cfg.model]
+
+
 def make_model(cfg: GCNConfig, generator: torch.Generator) -> GCN | GAT:
     """``cfg.model``'s network, its weights drawn from ``generator``."""
-    dtype = getattr(torch, cfg.param_dtype)
-    if cfg.model == "gat":
-        return GAT(cfg.layer_dims(), cfg.layer_heads(), generator, dtype,
-                   attention_dropout=cfg.attention_dropout, leaky_slope=cfg.leaky_slope)
-    return GCN(cfg.layer_dims(), generator, dtype)
+    return model_class(cfg).from_config(cfg, generator)
 
 
 def create_state(cfg: GCNConfig, device: str | torch.device | None = None) -> TrainState:
@@ -192,24 +196,57 @@ def _es_epoch(state: TrainState, graph: Graph, x, truth_train, truth_val, *,
     return torch.stack([tl, ta, vl, va])
 
 
+def fused_epochs(epoch, trailing_eval, epochs: int, device) -> torch.Tensor:
+    """The eager pass-fused loop of this module and of parallel/sharded.py:
+    ``epochs`` calls of ``epoch()`` (one pass-fused iteration, Adam included,
+    returning its row), then the realignment with ``trailing_eval()``, the
+    (val loss, val acc) of the final weights. Returns [epochs, 4]."""
+    rows = [epoch() for _ in range(epochs)]
+    if not rows:
+        return torch.zeros(0, 4, device=device)
+    # realign: iteration i's validation metrics belong to θ_{i-1}; drop θ_0's
+    # and append the trailing eval of the final weights
+    vl_last, va_last = trailing_eval()
+    m = torch.stack(rows)
+    return torch.stack([m[:, 0], m[:, 1], torch.cat([m[1:, 2], vl_last[None]]),
+                        torch.cat([m[1:, 3], va_last[None]])], dim=1)
+
+
+def es_epochs(epoch, epochs: int, es_window: int, device) -> tuple[torch.Tensor, bool]:
+    """The eager early-stopping loop of this module and of
+    parallel/sharded.py: up to ``epochs`` calls of ``epoch()`` (train step and
+    eval, returning their row) with one host read per epoch. After 1-based
+    epoch e >= ``es_window``, stop when val_loss_e is above the mean of the
+    last ``es_window`` val losses, the current one included; the losses sit
+    in a ring of f32 slots, as in the JAX loop. Returns (metrics [epochs run,
+    4] on the device, stopped)."""
+    ring = torch.full((es_window,), float("inf"), device=device)
+    rows, stopped = [], False
+    for i in range(epochs):
+        rows.append(epoch())
+        vl = rows[-1][2]
+        epoch_no = i + 1
+        ring[(epoch_no - 1) % es_window] = vl
+        if epoch_no >= es_window and bool(vl > ring.mean()):
+            stopped = True
+            break
+    if not rows:
+        return torch.zeros(0, 4, device=device), stopped
+    return torch.stack(rows), stopped
+
+
 def run_epochs(state: TrainState, graph: Graph, x, truth_train, truth_val, *,
                epochs: int, dropout_rate: float, weight_decay: float,
                lr: float) -> torch.Tensor:
     """``epochs`` pass-fused (train + validation) iterations, launched from
-    Python; returns the metrics [epochs, 4] = (train_loss, train_acc,
-    val_loss, val_acc) on the device, identical in value to ``train_step`` +
-    ``eval_step`` per epoch."""
+    Python (``fused_epochs``); returns the metrics [epochs, 4] = (train_loss,
+    train_acc, val_loss, val_acc) on the device, identical in value to
+    ``train_step`` + ``eval_step`` per epoch."""
     kw = dict(dropout_rate=dropout_rate, weight_decay=weight_decay, lr=lr)
-    rows = [_fused_epoch(state, graph, x, truth_train, truth_val, **kw)
-            for _ in range(epochs)]
-    if not rows:
-        return torch.zeros(0, 4, device=truth_train.device)
-    # realign: iteration i's validation metrics belong to θ_{i-1}; drop θ_0's
-    # and append the trailing eval of the final weights
-    vl_last, va_last = eval_step(state.model, graph, x, truth_val, weight_decay=weight_decay)
-    m = torch.stack(rows)
-    return torch.stack([m[:, 0], m[:, 1], torch.cat([m[1:, 2], vl_last[None]]),
-                        torch.cat([m[1:, 3], va_last[None]])], dim=1)
+    return fused_epochs(
+        lambda: _fused_epoch(state, graph, x, truth_train, truth_val, **kw),
+        lambda: eval_step(state.model, graph, x, truth_val, weight_decay=weight_decay),
+        epochs, truth_train.device)
 
 
 def run_epochs_es(state: TrainState, graph: Graph, x, truth_train, truth_val, *,
@@ -217,26 +254,11 @@ def run_epochs_es(state: TrainState, graph: Graph, x, truth_train, truth_val, *,
                   lr: float) -> tuple[torch.Tensor, bool]:
     """Up to ``epochs`` (train step + eval) iterations with the reference's
     early stopping (gcn.cpp:142-150, cuda_gcn_tpu/train.py:261-308), launched
-    from Python with one host read per epoch: after 1-based epoch e >=
-    ``es_window``, stop when val_loss_e is above the mean of the last
-    ``es_window`` val losses, the current one included. The losses sit in a
-    ring of f32 slots, as in the JAX loop. Returns (metrics [epochs run, 4] on
-    the device, stopped)."""
+    from Python (``es_epochs``). Returns (metrics [epochs run, 4] on the
+    device, stopped)."""
     kw = dict(dropout_rate=dropout_rate, weight_decay=weight_decay, lr=lr)
-    ring = torch.full((es_window,), float("inf"), device=truth_train.device)
-    rows = []
-    stopped = False
-    for i in range(epochs):
-        rows.append(_es_epoch(state, graph, x, truth_train, truth_val, **kw))
-        vl = rows[-1][2]
-        epoch = i + 1
-        ring[(epoch - 1) % es_window] = vl
-        if epoch >= es_window and bool(vl > ring.mean()):
-            stopped = True
-            break
-    if not rows:
-        return torch.zeros(0, 4, device=truth_train.device), stopped
-    return torch.stack(rows), stopped
+    return es_epochs(lambda: _es_epoch(state, graph, x, truth_train, truth_val, **kw),
+                     epochs, es_window, truth_train.device)
 
 
 # The chunk policy of the JAX package (cuda_gcn_tpu/train.py:159-256), with its
@@ -456,14 +478,8 @@ def prepare(cfg: GCNConfig, dataset: GCNDataset, device: str | torch.device | No
         raise ValueError(f"feature_matmul must be 'dense' or 'sparse', got "
                          f"{cfg.feature_matmul!r}")
     sparse = cfg.feature_matmul == "sparse"
-    backend = cfg.graphsum_backend
-    gat = cfg.model == "gat"
-    if backend == "auto":
-        backend = "ell" if gat else "dense" if cfg.num_nodes <= DENSE_BACKEND_MAX_NODES \
-            else "bsr"
-    if gat and backend not in ("ell", "pallas"):
-        raise ValueError(f"model 'gat' attends over the ELL plan: graphsum_backend 'ell' "
-                         f"or 'pallas', got {backend!r}")
+    model = model_class(cfg)
+    backend = model.graph_backend(cfg.graphsum_backend, cfg.num_nodes)
     if backend == "bsr" and cfg.reorder != "none":
         dataset = reorder_dataset(dataset, locality_permutation(dataset.graph))
     if device.type == "cuda":
@@ -477,7 +493,7 @@ def prepare(cfg: GCNConfig, dataset: GCNDataset, device: str | torch.device | No
                   else dataset.num_nodes * cfg.input_dim * itemsize)
     graph = build_graph(dataset.graph, backend=backend, bsr_budget_bytes=budget,
                         aux_bytes=feat_bytes, act_itemsize=itemsize, device=device)
-    if gat:
+    if model.needs_edge_map:
         with span("gat.edge_map"):
             graph.edge_map = edge_map(graph.ell, graph.ell_t)
     if sparse:

@@ -105,8 +105,9 @@ def test_card_tensors_in_training_take_one_launch(monkeypatch, dtype, h):
         assert zt.dtype == ze.dtype == z.dtype == dtype and zt.shape == (60, h)
     assert calls == [((60, 12), (12, h), torch.float32, (2,), 0.5, True),
                      ((60, 12), (12, h), torch.float32, (2,), 0.5, False)] * 2
-    # the sharded trainer's fused forward builds its first layer the same way
-    assert sharded.layer0_pair is gcn.layer0_pair
+    # the sharded trainer's fused forward is the models' own loop, which
+    # builds its first layer the same way
+    assert sharded.GCN.apply_pair is gcn.GraphModel.apply_pair
 
 
 def test_x_is_data(monkeypatch):
