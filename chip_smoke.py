@@ -4077,8 +4077,11 @@ def phase_layer0_pair() -> dict:
 
 
 # (w) the GAT's attention kernels (csrc/gat_attention.cu): the paper's two
-# layers on synth-reddit as (heads, features a head), its dropout and slope
-GAT_SHAPES = ((8, 8), (1, 41))
+# layers on synth-reddit as (heads, features a head, floats a head in a row:
+# the model pads 41 to 44), its dropout and slope; the output layer's rows
+# unpadded as well, the layout the kernels took before the padding
+GAT_SHAPES = ((8, 8, 8), (1, 41, 44))
+GAT_UNPADDED = (1, 41, 41)
 GAT_RATE, GAT_SLOPE = 0.6, 0.2
 GAT_TOL = 1e-4     # of the largest |value| of the plain version: f32 sums in other orders
 GAT_KEEP_SIGMA = 4.0
@@ -4099,15 +4102,19 @@ def _gat_prepared():
     return train.prepare(cfg, load_cached("synth-reddit"), "cuda")
 
 
-def _gat_inputs(n, heads, fh, seed):
-    """z and g [n, K·F'] and the scores sl, sr [n, K] (normal), and two int64
-    seeds drawn as the op draws them."""
+def _gat_inputs(n, heads, fh, seed, ld=None):
+    """z and g [n, K·LD] (LD = ``ld``, else F'; zeros past each head's F', as
+    the model holds them) and the scores sl, sr [n, K] (normal), and two int64
+    seeds drawn as the op draws them. The features do not depend on LD."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     z, g = (torch.randn(n, heads * fh, generator=gen, device="cuda") for _ in range(2))
     sl, sr = (torch.randn(n, heads, generator=gen, device="cuda") for _ in range(2))
     seeds = torch.empty(2, dtype=torch.int64, device="cuda").random_(generator=gen)
+    if ld is not None and ld != fh:
+        z, g = (torch.nn.functional.pad(t.view(n, heads, fh), (0, ld - fh))
+                .view(n, heads * ld) for t in (z, g))
     return z, sl, sr, g, seeds
 
 
@@ -4124,17 +4131,30 @@ def _gat_launch(emap, z, sl, sr, g, heads, rate, seeds):
     return out, stats, node, dsl, dz, dsr
 
 
-def _gat_check(label, emap, heads, fh, rate, seed) -> float:
-    """The three launches against the plain version (ops/attention.py, in
+def _gat_digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: outputs equal bit for bit have
+    equal digests across trees and calls."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _gat_check(label, emap, heads, fh, rate, seed, ld=None) -> float:
+    """The three launches, z and g at LD = ``ld`` floats a head (zero past
+    F'), against the plain version of the F' features (ops/attention.py, in
     ``plain_dtype``: f64 on a small graph, f32 at full size), each output
-    within ``GAT_TOL`` of its largest value, and a second run equal bit for
-    bit. Returns the worst error over its tolerance."""
+    within ``GAT_TOL`` of its largest value, the padding of out and dz 0, and
+    a second run equal bit for bit. Returns the worst error over its
+    tolerance."""
     import torch
 
     from cuda_gcn_torch.ops.attention import attention_backward_plain, attention_forward_plain
 
-    n = emap.plan.n_nodes
-    z, sl, sr, g, seeds = _gat_inputs(n, heads, fh, seed)
+    n, ld = emap.plan.n_nodes, ld or fh
+    z, sl, sr, g, seeds = _gat_inputs(n, heads, fh, seed, ld)
     seeds = seeds if rate > 0 else None
     got = _gat_launch(emap, z, sl, sr, g, heads, rate, seeds)
     again = _gat_launch(emap, z, sl, sr, g, heads, rate, seeds)
@@ -4142,6 +4162,11 @@ def _gat_check(label, emap, heads, fh, rate, seed) -> float:
         raise AssertionError(f"(w) {label}: a second run differs")
     del again
     out, stats, node, dsl, dz, dsr = got
+    for name, t in (("out", out), ("dz", dz)):
+        if t.view(n, heads, ld)[..., fh:].any():
+            raise AssertionError(f"(w) {label}: {name}'s padding is not 0")
+    out, dz = (t.view(n, heads, ld)[..., :fh].reshape(n, heads * fh) for t in (out, dz))
+    z, g = (t.view(n, heads, ld)[..., :fh].reshape(n, heads * fh) for t in (z, g))
     dt = torch.float64 if emap.plan.nnz < 5_000_000 else torch.float32
     want_out, want_stats = attention_forward_plain(emap, z.to(dt), sl.to(dt), sr.to(dt), heads,
                                                    GAT_SLOPE, rate, seeds)
@@ -4161,7 +4186,7 @@ def _gat_check(label, emap, heads, fh, rate, seed) -> float:
             raise AssertionError(f"(w) {label}: {name} off the plain version, {ratio:.3f} of "
                                  f"{GAT_TOL} of its largest value")
     log(f"  {label}: out, max, sum, dz, dsl, dsr within {worst:.3f} of {GAT_TOL} of the "
-        f"plain version's largest values ({str(dt)[6:]}), repeatable, ok")
+        f"plain version's largest values ({str(dt)[6:]}), padding 0, repeatable, ok")
     return worst
 
 
@@ -4206,7 +4231,7 @@ def _gat_masks(emap) -> dict:
 
     q = kernels.gat_keep(GAT_RATE)[0]
     shares = {}
-    for heads, _ in GAT_SHAPES:
+    for heads, _, _ in GAT_SHAPES:
         seeds = torch.empty(2, dtype=torch.int64, device="cuda").random_(
             generator=torch.Generator(device="cuda").manual_seed(heads))
         got, want = _gat_keep_counts(emap, heads, seeds)
@@ -4272,7 +4297,7 @@ def _gat_trace() -> None:
 
     _, graph, _, _ = _gat_prepared()
     emap = graph.edge_map
-    heads, fh = GAT_SHAPES[0]
+    heads, fh, _ = GAT_SHAPES[0]
     z, sl, sr, g, seeds = _gat_inputs(emap.plan.n_nodes, heads, fh, 3)
     out, stats, node, *_ = _gat_launch(emap, z, sl, sr, g, heads, GAT_RATE, seeds)
     print(json.dumps(_traces({
@@ -4312,13 +4337,16 @@ def _gat_device_us() -> dict:
 
 def phase_gat() -> dict:
     """(w) the GAT's attention kernels: checked against their plain version
-    on synth-pubmed (f64; four layer shapes) and at full size on synth-reddit
+    on synth-pubmed (f64; five layer shapes) and at full size on synth-reddit
     (f32; its rows of up to 43,403 slots split into chunks),
-    both layers' shapes, with and without dropout; the kernel's masks read
-    back (keep shares, ``attention_keep`` row by row, fresh under replays);
-    each launch timed by events beside its bytes bound and on the device in a
-    process of its own; then a 100-epoch GAT job through the trainer: its
-    launches an epoch, its epoch time and its peak memory."""
+    both layers' shapes (the output layer's 41 floats a head padded to 44, and
+    unpadded), with and without dropout; the kernel's masks read back (keep
+    shares, ``attention_keep`` row by row, fresh under replays); each launch
+    timed by events beside its bytes bound, layer by layer, and on the device
+    in a process of its own; the digest of the hidden layer's outputs, which
+    the padding leaves bit for bit; then a 100-epoch GAT job through the
+    trainer: its launches an epoch and their lane splits, its epoch time and
+    its peak memory."""
     import dataclasses
 
     import torch
@@ -4332,24 +4360,30 @@ def phase_gat() -> dict:
     log(f"(w) the GAT's attention kernels; {_clocks()}")
     small = train.prepare(GCNConfig(model="gat", hidden_dim=8), load_cached("synth-pubmed"),
                           "cuda")[1].edge_map
-    for heads, fh in GAT_SHAPES + ((3, 5), (1, 7)):
+    for heads, fh, ld in GAT_SHAPES + (GAT_UNPADDED, (3, 5, 8), (1, 7, 8)):
         for rate in (0.0, GAT_RATE):
-            _gat_check(f"synth-pubmed K={heads} F'={fh} p={rate}", small, heads, fh, rate, 1)
+            _gat_check(f"synth-pubmed K={heads} F'={fh} LD={ld} p={rate}", small, heads, fh,
+                       rate, 1, ld)
     t0 = time.perf_counter()
     cfg, graph, x, truths = _gat_prepared()
     emap = graph.edge_map
     log(f"  synth-reddit prepared for the GAT in {time.perf_counter() - t0:.1f} s "
         f"({emap.plan.n_partials} partials of {emap.plan.split_rows.numel()} split rows)")
     worst = {}
-    for heads, fh in GAT_SHAPES:
+    for heads, fh, ld in GAT_SHAPES + (GAT_UNPADDED,):
         for rate in (0.0, GAT_RATE):
-            worst[f"K={heads} p={rate}"] = _gat_check(
-                f"synth-reddit K={heads} F'={fh} p={rate}", emap, heads, fh, rate, 2)
+            worst[f"K={heads} LD={ld} p={rate}"] = _gat_check(
+                f"synth-reddit K={heads} F'={fh} LD={ld} p={rate}", emap, heads, fh, rate, 2, ld)
     torch.cuda.empty_cache()
     shares = _gat_masks(emap)
+    heads, fh, _ = GAT_SHAPES[0]
+    z, sl, sr, g, seeds = _gat_inputs(emap.plan.n_nodes, heads, fh, 3)
+    digest = _gat_digest(_gat_launch(emap, z, sl, sr, g, heads, GAT_RATE, seeds))
+    del z, sl, sr, g
+    log(f"  K={heads} F'={fh}: digest of out, stats, node, dsl, dz, dsr at seed 3: {digest}")
     rows = {}
-    for heads, fh in GAT_SHAPES:
-        z, sl, sr, g, seeds = _gat_inputs(emap.plan.n_nodes, heads, fh, 3)
+    for heads, fh, ld in GAT_SHAPES + (GAT_UNPADDED,):
+        z, sl, sr, g, seeds = _gat_inputs(emap.plan.n_nodes, heads, fh, 3, ld)
         out, stats, node, *_ = _gat_launch(emap, z, sl, sr, g, heads, GAT_RATE, seeds)
         fns = {
             "gat_forward": lambda: kernels.gat_forward(emap.plan, emap.partial_rows, z, sl, sr,
@@ -4362,15 +4396,23 @@ def phase_gat() -> dict:
                                                  z, sr, node, heads, GAT_SLOPE, GAT_RATE, seeds)}
         nbytes = _gat_bytes(emap, heads, fh)
         for name, fn in fns.items():
+            split = kernels.gat_layout(heads, ld, z.data_ptr(), out.data_ptr(),
+                                       wide=not name.startswith("gat_forward"))
             ms = cuda_ms(fn, GAT_ITERS)
             b = nbytes[name.split()[0]] - (8 * emap.plan.n_nodes * heads if "eval" in name
                                            else 0)
             bound = b / PEAK_BYTES_PER_S * 1e3
-            rows[f"{name} K={heads} F'={fh}"] = dict(ms=ms, bound_ms=bound, bytes=b)
-            log(f"  {name} K={heads} F'={fh}: {ms:.4f} ms, bound {bound:.4f} ms "
-                f"({b / 1e9:.3f} GB): {100 * bound / ms:.1f}% of it")
+            rows[f"{name} K={heads} F'={fh} LD={ld}"] = dict(ms=ms, bound_ms=bound, bytes=b,
+                                                             split=split)
+            log(f"  {name} K={heads} F'={fh} LD={ld} (VEC, L2, G, STEPS {split}): {ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({b / 1e9:.3f} GB): {100 * bound / ms:.1f}% of it")
         del z, sl, sr, g, out, stats, node, fns
         torch.cuda.empty_cache()
+    for heads, fh, ld in GAT_SHAPES + (GAT_UNPADDED,):
+        layer = sum(rows[f"{n} K={heads} F'={fh} LD={ld}"]["ms"] * times
+                    for n, times in (("gat_forward", 1), ("gat_forward eval", 1),
+                                     ("gat_rows", 1), ("gat_cols", 1)))
+        log(f"  a layer's four launches at K={heads} F'={fh} LD={ld}: {layer:.4f} ms an epoch")
     device = _gat_device_us()
     for name, d in device.items():
         log(f"  {name} K=8 F'=8: device {d['device_us'] / 1e3:.4f} ms a call "
@@ -4403,9 +4445,21 @@ def phase_gat() -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if got != want:
         raise AssertionError(f"(w) the GAT jobs' launches {got} are not {want}")
+    # each layer half of every launch: 8 x 8 at one lane a head, 1 x 41 padded
+    # to 44 at 8 lanes of 2 float4 in the forward, 4 lanes of 4 in the backward
+    want_splits = {(k, 4, 1, 2): got[k] // 2 for k in GAT_KERNELS}
+    want_splits.update({(k, 4, 8, 2) if k == "gat_forward" else (k, 4, 4, 4): got[k] // 2
+                        for k in GAT_KERNELS})
+    log(f"  lane splits (launcher, VEC, L2, STEPS) of the jobs' launches: "
+        f"{dict(kernels.gat_layouts)}")
+    if kernels.gat_layouts != want_splits:
+        raise AssertionError(f"(w) the GAT jobs' splits {kernels.gat_layouts} are not "
+                             f"{want_splits}")
     log(f"  {_clocks()}")
     return dict(rows=rows, device=device, worst=worst, shares=shares, epoch_ms=times,
-                launches=got, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                launches=got, splits={",".join(map(str, k)): v
+                                      for k, v in kernels.gat_layouts.items()},
+                digest=digest, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def main() -> int:

@@ -8,6 +8,14 @@
 // against a_l and a_r, made by ATen), and keep the attention dropout, drawn
 // here. Replaces no TPU kernel: the JAX package has no attention model.
 //
+// F' here is the floats a head takes in a row. The GAT pads a head whose
+// features are no multiple of 4 with zeros to 4 * ceil(F' / 4) floats
+// (ops/attention.py ``head_stride``), so that its rows lie 16 bytes apart and
+// load as float4: at 1 x 41, 2 float4 loads a lane where there were 8 scalar
+// ones. A zero feature adds exact zeros to every sum, so the kernels take the
+// padding as features, and out's and dz's padding comes out 0 (g's padding is
+// 0 too: the gradient of a slice).
+//
 // Three launches, each over a work list of ops/ell.py (an item is a row's
 // slots, or a chunk of at most 256 slots of a longer row, whose partial
 // results a second kernel of the same launch combines in chunk order):
@@ -47,11 +55,14 @@
 // Lanes (kernels.gat_layout): a head's F' features are P = F' / VEC pieces of
 // VEC floats (VEC 4, 2 or 1, the widest that F' and the bases allow), held by
 // L2 lanes (a power of two), STEPS pieces a lane (a power of two, at most 8
-// floats a lane). The K heads of a slot take G = K * L2 lanes (rounded up to a
+// floats a lane; in the backward passes up to 4 float4, which halves their
+// butterflies' lanes and doubles the slots side by side). The K heads of a
+// slot take G = K * L2 lanes (rounded up to a
 // power of two, at most 32), and 32 / G slots are taken side by side; each
 // lane holds one head. The host takes the least L2 that fits, so as many slots
 // as it can side by side: at 8 heads of 8, a lane a head and 4 slots; at one
-// head of 41, 8 lanes of 8 floats (the last 23 idle) and 4 slots. A head's dot
+// head of 41 padded to 44, 8 lanes of 2 float4 (the last 5 pieces idle) and 4
+// slots (unpadded, 8 lanes of 8 scalar loads, the last 23 idle). A head's dot
 // products are added by an xor butterfly over its L2 lanes, and the slot
 // groups are merged by one over the offsets G to 16.
 //
@@ -84,6 +95,12 @@ constexpr int kWarps = 8;  // work items (warps) a CTA
 constexpr int kForwardCtas = 3;
 constexpr int kRowsCtas = 4;
 constexpr int kColsCtas = 3;
+// A lane of 16 floats (the backward passes' 4 float4 at 1 x 41 padded to 44)
+// is capped at 3 CTAs an SM (85 registers; rows and columns spill a little):
+// rows 1.306 ms, columns 1.588 at 3; 1.607, 1.697 at 2 (H100, synth-reddit).
+constexpr int kWideCtas = 3;
+template <int W>
+constexpr int ctas(int narrow) { return W > 8 ? kWideCtas : narrow; }
 
 // Philox4x32-10: four 32-bit uniforms of counter `c` under `key`.
 __device__ __forceinline__ uint4 philox(uint2 key, uint4 c) {
@@ -232,7 +249,8 @@ struct FwdArgs {
 };
 
 template <int VEC, int STEPS>
-__global__ void __launch_bounds__(kWarps * 32, kForwardCtas) gat_forward_kernel(FwdArgs a) {
+__global__ void __launch_bounds__(kWarps * 32, ctas<VEC * STEPS>(kForwardCtas))
+    gat_forward_kernel(FwdArgs a) {
   constexpr int W = VEC * STEPS;
   const Common& c = a.c;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -353,7 +371,8 @@ struct RowArgs {
 };
 
 template <int VEC, int STEPS>
-__global__ void __launch_bounds__(kWarps * 32, kRowsCtas) gat_rows_kernel(RowArgs a) {
+__global__ void __launch_bounds__(kWarps * 32, ctas<VEC * STEPS>(kRowsCtas))
+    gat_rows_kernel(RowArgs a) {
   constexpr int W = VEC * STEPS;
   const Common& c = a.c;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -455,7 +474,8 @@ struct ColArgs {
 };
 
 template <int VEC, int STEPS>
-__global__ void __launch_bounds__(kWarps * 32, kColsCtas) gat_cols_kernel(ColArgs a) {
+__global__ void __launch_bounds__(kWarps * 32, ctas<VEC * STEPS>(kColsCtas))
+    gat_cols_kernel(ColArgs a) {
   constexpr int W = VEC * STEPS;
   const Common& c = a.c;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -551,12 +571,13 @@ template <int V>
 using Int = std::integral_constant<int, V>;
 
 // Calls launch(Int<VEC>, Int<STEPS>) for the layouts built (VEC * STEPS at
-// most 8 floats a lane); another is refused.
+// most 8 floats a lane, and 4 float4 a lane); another is refused.
 template <class Launch>
 cudaError_t by_layout(int vec, int steps, Launch&& launch) {
   if (vec == 4) {
     if (steps == 1) return launch(Int<4>{}, Int<1>{});
     if (steps == 2) return launch(Int<4>{}, Int<2>{});
+    if (steps == 4) return launch(Int<4>{}, Int<4>{});
   } else if (vec == 2) {
     if (steps == 1) return launch(Int<2>{}, Int<1>{});
     if (steps == 2) return launch(Int<2>{}, Int<2>{});

@@ -22,8 +22,9 @@ epoch's launches leave the host as one graph launch. Its rules:
   while the graph lives;
 * launch counts: a kernel's wrapper counts its launch when it is called, which
   under capture runs nothing. The capture's counts are taken back and added
-  again at every replay, so that ``kernels.launches`` (and any other counter
-  dict passed in) holds what the card ran;
+  again at every replay, so that ``kernels.launches`` and
+  ``kernels.gat_layouts`` (or the counter dicts passed in) hold what the card
+  ran;
 * no fallback: a capture or a replay that fails raises;
 * spans (utils/profiling.py ``span``): the eager epoch is ``graphs.eager`` and
   the capture, after the wait for the work before it, ``graphs.capture``, in
@@ -48,12 +49,13 @@ class EpochGraph:
     ``step`` runs one epoch on the current stream and keeps every result in
     persistent tensors; ``generators`` are the CUDA generators it draws from;
     ``counters`` are dicts of counts that ``step`` advances per epoch
-    (default: ``kernels.launches``)."""
+    (default: ``kernels.launches`` and ``kernels.gat_layouts``)."""
 
     def __init__(self, step, generators=(), counters=None):
         self.step = step
         self.generators = tuple(generators)
-        self.counters = (kernels.launches,) if counters is None else tuple(counters)
+        self.counters = (kernels.launches, kernels.gat_layouts) if counters is None \
+            else tuple(counters)
         self.graph = None
         self.deltas: list[dict] = []
         self.epochs = 0
@@ -91,7 +93,8 @@ class EpochGraph:
             finally:
                 after = [dict(c) for c in self.counters]
                 for c, b in zip(self.counters, before):
-                    c.update(b)  # the capture ran nothing
+                    c.clear()  # the capture ran nothing
+                    c.update(b)
             self.deltas = [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
                            for a, b in zip(after, before)]
         self.graph = graph
@@ -100,4 +103,4 @@ class EpochGraph:
         self.graph.replay()
         for c, delta in zip(self.counters, self.deltas):
             for k, v in delta.items():
-                c[k] += v
+                c[k] = c.get(k, 0) + v

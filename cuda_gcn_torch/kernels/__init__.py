@@ -88,6 +88,8 @@ _ENTRY = {
 SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
 launches = {name: 0 for name in _ENTRY}
+# The lane split each attention launch took: (launcher, VEC, L2, STEPS) -> launches
+gat_layouts: dict[tuple[str, int, int, int], int] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}  # kernel name -> its bound C function, once its library is loaded
 
@@ -95,6 +97,7 @@ _fns: dict = {}  # kernel name -> its bound C function, once its library is load
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    gat_layouts.clear()
 
 
 def _nvcc() -> str:
@@ -816,28 +819,35 @@ def layer0_pair(x, w, seeds, rate: float, with_eval: bool):
 
 
 # The GAT's attention kernels (csrc/gat_attention.cu): a lane holds at most
-# GAT_LANE_FLOATS floats of its head, as STEPS pieces of VEC (the layouts built).
+# GAT_LANE_FLOATS floats of its head, as STEPS pieces of VEC (the layouts built);
+# in the backward passes (``wide``) up to GAT_WIDE_FLOAT4 float4.
 GAT_LANE_FLOATS = 8
+GAT_WIDE_FLOAT4 = 4
 
 
-def gat_layout(heads: int, fh: int, *bases: int) -> tuple[int, int, int, int]:
-    """The attention kernels' lane split for K = ``heads`` heads of F' = ``fh``
-    features, as (VEC, L2, G, STEPS): VEC the widest load (4, 2 or 1 floats)
-    that divides F' and aligns every base; L2 lanes a head, the least power of
-    two at which a lane holds at most ``GAT_LANE_FLOATS`` floats, as STEPS
-    pieces of VEC (a power of two); G = K·L2 lanes a slot, rounded up to a
-    power of two (32 / G slots side by side). A split past 32 lanes a slot is
-    refused."""
-    vec = next(v for v in (4, 2, 1) if fh % v == 0 and not any(b % (4 * v) for b in bases))
-    pieces = fh // vec
+def gat_layout(heads: int, ld: int, *bases: int,
+               wide: bool = False) -> tuple[int, int, int, int]:
+    """The attention kernels' lane split for K = ``heads`` heads whose rows
+    hold ``ld`` floats a head (F' features, padded or not), as (VEC, L2, G,
+    STEPS): VEC the widest load (4, 2 or 1 floats) that divides ``ld`` and
+    aligns every base; L2 lanes a head, the least power of two at which a lane
+    holds at most ``GAT_LANE_FLOATS`` floats (with ``wide`` and VEC 4,
+    ``GAT_WIDE_FLOAT4`` float4), as STEPS pieces of VEC (a power of two); G =
+    K·L2 lanes a slot, rounded up to a power of two (32 / G slots side by
+    side). A split past 32 lanes a slot is refused. The backward passes take
+    ``wide``: at 1 x 41 padded to 44, 4 lanes of 4 float4 and 8 slots where
+    the forward takes 8 lanes of 2 and 4 slots (their per-slot butterflies
+    lose a step; the forward, which has none, was slower so)."""
+    vec = next(v for v in (4, 2, 1) if ld % v == 0 and not any(b % (4 * v) for b in bases))
+    cap = 4 * GAT_WIDE_FLOAT4 if wide and vec == 4 else GAT_LANE_FLOATS
+    pieces = ld // vec
     for l2 in (1, 2, 4, 8, 16, 32):
         steps = 1 << (-(-pieces // l2) - 1).bit_length()
         g = 1 << (heads * l2 - 1).bit_length()
-        if vec * steps <= GAT_LANE_FLOATS and g <= 32:
+        if vec * steps <= cap and g <= 32:
             return vec, l2, g, steps
     raise ValueError(f"the attention kernels take at most 32 lanes a slot and "
-                     f"{GAT_LANE_FLOATS} floats a lane; {heads} heads of {fh} features do "
-                     f"not fit")
+                     f"{cap} floats a lane; {heads} heads of {ld} floats do not fit")
 
 
 def gat_keep(rate: float) -> tuple[float, float, int]:
@@ -879,6 +889,14 @@ def _gat_common(plan, partial_rows):
             plan.split_ptr.data_ptr(), plan.split_rows.numel(), plan.cols.data_ptr())
 
 
+def _gat_call(name: str, layout, *args) -> None:
+    """``_call``, and the launch counted under its lane split in ``gat_layouts``."""
+    vec, l2, _, steps = layout
+    _call(name, *args)
+    key = (name, vec, l2, steps)
+    gat_layouts[key] = gat_layouts.get(key, 0) + 1
+
+
 def gat_forward(plan, partial_rows, z, sl, sr, heads: int, slope: float, rate: float,
                 seeds=None, with_stats: bool = True):
     """Launch the attention's forward over ``plan`` (ops/ell.py ``EllPlan``,
@@ -897,12 +915,12 @@ def gat_forward(plan, partial_rows, z, sl, sr, heads: int, slope: float, rate: f
     partial = torch.empty(plan.n_partials * (d + 2 * k), dtype=torch.float32, device=z.device)
     if n == 0 or d == 0:
         return out, stats
-    vec, l2, g, steps = gat_layout(k, d // k, z.data_ptr(), out.data_ptr(), partial.data_ptr())
+    layout = gat_layout(k, d // k, z.data_ptr(), out.data_ptr(), partial.data_ptr())
     _, inv_q, thresh = gat_keep(rate if seeds is not None else 0.0)
-    _call("gat_forward", *_gat_common(plan, partial_rows), z.data_ptr(), sl.data_ptr(),
-          sr.data_ptr(), None if seeds is None else seeds.data_ptr(), out.data_ptr(),
-          None if stats is None else stats.data_ptr(), partial.data_ptr(), plan.n_partials,
-          k, d // k, vec, l2, g, steps, slope, inv_q, thresh, _stream(dev))
+    _gat_call("gat_forward", layout, *_gat_common(plan, partial_rows), z.data_ptr(),
+              sl.data_ptr(), sr.data_ptr(), None if seeds is None else seeds.data_ptr(),
+              out.data_ptr(), None if stats is None else stats.data_ptr(), partial.data_ptr(),
+              plan.n_partials, k, d // k, *layout, slope, inv_q, thresh, _stream(dev))
     return out, stats
 
 
@@ -924,13 +942,12 @@ def gat_rows(plan, partial_rows, g, z, sl, sr, stats, heads: int, slope: float, 
     partial = torch.empty(plan.n_partials * 3 * k, dtype=torch.float32, device=z.device)
     if n == 0 or d == 0:
         return node, dsl
-    vec, l2, gl, steps = gat_layout(k, d // k, z.data_ptr(), g.data_ptr())
+    layout = gat_layout(k, d // k, z.data_ptr(), g.data_ptr(), wide=True)
     _, inv_q, thresh = gat_keep(rate if seeds is not None else 0.0)
-    _call("gat_rows", *_gat_common(plan, partial_rows), g.data_ptr(), z.data_ptr(),
-          sl.data_ptr(), sr.data_ptr(), stats.data_ptr(),
-          None if seeds is None else seeds.data_ptr(), node.data_ptr(), dsl.data_ptr(),
-          partial.data_ptr(), k, d // k, vec, l2, gl, steps, slope, inv_q, thresh,
-          _stream(dev))
+    _gat_call("gat_rows", layout, *_gat_common(plan, partial_rows), g.data_ptr(), z.data_ptr(),
+              sl.data_ptr(), sr.data_ptr(), stats.data_ptr(),
+              None if seeds is None else seeds.data_ptr(), node.data_ptr(), dsl.data_ptr(),
+              partial.data_ptr(), k, d // k, *layout, slope, inv_q, thresh, _stream(dev))
     return node, dsl
 
 
@@ -955,12 +972,12 @@ def gat_cols(plan_t, partial_rows_t, rev, g, z, sr, node, heads: int, slope: flo
     partial = torch.empty(plan_t.n_partials * (d + k), dtype=torch.float32, device=z.device)
     if n == 0 or d == 0:
         return dz, dsr
-    vec, l2, gl, steps = gat_layout(k, d // k, z.data_ptr(), g.data_ptr(), dz.data_ptr(),
-                                    partial.data_ptr())
+    layout = gat_layout(k, d // k, z.data_ptr(), g.data_ptr(), dz.data_ptr(),
+                        partial.data_ptr(), wide=True)
     _, inv_q, thresh = gat_keep(rate if seeds is not None else 0.0)
-    _call("gat_cols", *_gat_common(plan_t, partial_rows_t), rev.data_ptr(), g.data_ptr(),
-          z.data_ptr(), sr.data_ptr(), node.data_ptr(),
-          None if seeds is None else seeds.data_ptr(), dz.data_ptr(), dsr.data_ptr(),
-          partial.data_ptr(), plan_t.n_partials, k, d // k, vec, l2, gl, steps, slope,
-          inv_q, thresh, _stream(dev))
+    _gat_call("gat_cols", layout, *_gat_common(plan_t, partial_rows_t), rev.data_ptr(),
+              g.data_ptr(), z.data_ptr(), sr.data_ptr(), node.data_ptr(),
+              None if seeds is None else seeds.data_ptr(), dz.data_ptr(), dsr.data_ptr(),
+              partial.data_ptr(), plan_t.n_partials, k, d // k, *layout, slope, inv_q, thresh,
+              _stream(dev))
     return dz, dsr

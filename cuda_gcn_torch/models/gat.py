@@ -21,7 +21,12 @@ weight and attention vector (``l2_penalty``; the paper does not say which).
 
 The layer loop, layer 0 and the loss are the GCN's (models/gcn.py
 ``GraphModel``); the GAT adds its attention after each layer's product
-(``_layer``). On dense x in training on the card layer 0 is one launch of the
+(``_layer``). A layer whose F' is no multiple of 4 (the output layer's 41
+classes) multiplies by its weight zero-padded per head to LD =
+``head_stride(F')`` columns (``weights``; the parameter keeps its shape), so
+that z, out and their gradients hold each head at 16-byte-aligned rows and the
+attention kernels load them as float4; the scores read z without the padding,
+and the layer's output leaves it out. On dense x in training on the card layer 0 is one launch of the
 dense layer-0 kernel's 'wide' way for its 64 output columns (8 heads of 8),
 which draws the input's dropout and writes the pair. The GAT runs on the
 ``ell`` and ``pallas`` backends (``backends``; 'auto' picks ``ell``) and reads
@@ -35,7 +40,7 @@ from torch import nn
 
 from cuda_gcn_torch.data.graph import Graph
 from cuda_gcn_torch.models.gcn import GraphModel, glorot
-from cuda_gcn_torch.ops.attention import attention
+from cuda_gcn_torch.ops.attention import attention, head_stride
 
 
 class GAT(GraphModel):
@@ -69,20 +74,37 @@ class GAT(GraphModel):
                    getattr(torch, cfg.param_dtype), attention_dropout=cfg.attention_dropout,
                    leaky_slope=cfg.leaky_slope)
 
+    def weights(self) -> list[torch.Tensor]:
+        """Each layer's weight [F_in, K·LD] as the layer loop multiplies by it:
+        the parameter [F_in, K·F'] with each head's columns padded by zeros to
+        LD = ``head_stride(F')`` (the parameter itself where LD = F')."""
+        out = []
+        for i, k in enumerate(self.heads):
+            w = getattr(self, f"w{i + 1}")
+            fh = w.shape[1] // k
+            if head_stride(fh) != fh:
+                w = nn.functional.pad(w.view(w.shape[0], k, fh), (0, head_stride(fh) - fh))
+                w = w.view(w.shape[0], -1)
+            out.append(w)
+        return out
+
     def _layer(self, i: int, z: torch.Tensor, graph: Graph, graphsums, generator,
                training: bool):
-        """Layer i's attention over z, then ELU (hidden) or the heads' mean
-        (output); no Â-sum. The pair takes each half apart (their attention
-        weights differ)."""
-        k = self.heads[i]
-        z3 = z.view(z.shape[0], k, -1)
-        sl = (z3 * getattr(self, f"att_l{i + 1}")).sum(-1)
+        """Layer i's attention over z [N, K·LD], then ELU (hidden) or the
+        heads' mean (output), of each head's F' features; no Â-sum. The pair
+        takes each half apart (their attention weights differ)."""
+        k, a_l = self.heads[i], getattr(self, f"att_l{i + 1}")
+        n, fh = z.shape[0], a_l.shape[1]
+        z3 = z.view(n, k, -1)[..., :fh]
+        sl = (z3 * a_l).sum(-1)
         sr = (z3 * getattr(self, f"att_r{i + 1}")).sum(-1)
         h = attention(z, sl, sr, graph.edge_map, k, self.leaky_slope, self.attention_dropout,
-                      generator, training)
+                      generator, training, fh=fh).view(n, k, -1)[..., :fh]
         if i < self.n_layers - 1:
-            return nn.functional.elu(h)
-        return h if k == 1 else h.view(h.shape[0], k, -1).mean(1)
+            return nn.functional.elu(h).reshape(n, k * fh)
+        # the logits in rows of their own: a view would hold the padded out
+        # (and the evaluation half's) for the rest of the step
+        return (h[:, 0] if k == 1 else h.mean(1)).contiguous()
 
     def l2_penalty(self, weight_decay: float) -> torch.Tensor:
         """weight_decay/2 · the squared norm of every weight and attention vector."""

@@ -396,6 +396,29 @@ def test_epoch_graph_replays_the_capture_counts(stub_cuda_graph, monkeypatch):
     assert eg.epochs == 6
 
 
+def test_epoch_graph_counts_the_attention_splits_by_default(stub_cuda_graph, monkeypatch):
+    """By default every replay adds the capture's counts to
+    ``kernels.launches`` and ``kernels.gat_layouts``; a key that only the
+    capture made is taken back with its count, and each replay adds it."""
+    monkeypatch.setattr(kernels, "launches", dict.fromkeys(kernels.launches, 0))
+    monkeypatch.setattr(kernels, "gat_layouts", {})
+    key, late = ("gat_forward", 4, 8, 2), ("gat_rows", 4, 1, 2)
+
+    def step():
+        kernels.launches["gat_forward"] += 1
+        for k in (key, late) if eg.epochs else (key,):
+            kernels.gat_layouts[k] = kernels.gat_layouts.get(k, 0) + 1
+
+    eg = graphs.EpochGraph(step)
+    eg.run()
+    eg.run()
+    assert kernels.gat_layouts == {key: 2, late: 1}
+    for _ in range(3):
+        eg.run()
+    assert eg.deltas == [{"gat_forward": 1}, {key: 1, late: 1}]
+    assert kernels.launches["gat_forward"] == 5 and kernels.gat_layouts == {key: 5, late: 4}
+
+
 @pytest.mark.parametrize("fail_at", ["begin", "end"])
 def test_a_failing_capture_raises_and_runs_nothing_eagerly(stub_cuda_graph, monkeypatch,
                                                            fail_at):

@@ -26,6 +26,7 @@ from cuda_gcn_torch import kernels, train
 from cuda_gcn_torch.config import GAT_FIELDS, GCNConfig
 from cuda_gcn_torch.data import dataset as tds
 from cuda_gcn_torch.data.graph import build_graph
+from cuda_gcn_torch.models.gat import GAT
 from cuda_gcn_torch.models.gcn import GCN, glorot
 from cuda_gcn_torch.ops import attention as tatt
 from cuda_gcn_torch.ops import ell as tell
@@ -62,20 +63,21 @@ def skewed_csr(n=N, hub=HUB, extra=900, seed=0, symmetric=True):
     return indptr.astype(np.int32), indices.astype(np.int32)
 
 
-def skewed_dataset(seed=0) -> tds.GCNDataset:
+def skewed_dataset(seed=0, classes=C) -> tds.GCNDataset:
     rng = np.random.default_rng(seed + 1)
     indptr, indices = skewed_csr(seed=seed)
     f_mask = rng.random((N, F)) < 0.3
     f_indptr = np.zeros(N + 1, np.int64)
     np.cumsum(f_mask.sum(1), out=f_indptr[1:])
     f_indices = np.nonzero(f_mask)[1]
-    label = rng.integers(0, C, N).astype(np.int32)
+    label = rng.integers(0, classes, N).astype(np.int32)
     split = rng.choice([1, 2, 3, 0], N, p=[0.3, 0.3, 0.3, 0.1]).astype(np.int32)
     return tds.GCNDataset(graph=tds.CSR(indptr, indices),
                           feature_index=tds.CSR(f_indptr.astype(np.int32),
                                                 f_indices.astype(np.int32)),
                           feature_value=rng.random(len(f_indices)).astype(np.float32) + 0.5,
-                          label=label, split=split, num_nodes=N, input_dim=F, output_dim=C)
+                          label=label, split=split, num_nodes=N, input_dim=F,
+                          output_dim=classes)
 
 
 def gat_config(rate=0.0, att_rate=None, seed=5, heads=None, hidden=8):
@@ -414,3 +416,152 @@ def test_attention_lane_layout(heads, fh, bases, want):
         vec, l2, g, steps = kernels.gat_layout(heads, fh, *bases)
         assert (vec, l2, g, steps) == want
         assert steps * l2 * vec >= fh and heads * l2 <= g <= 32 and vec * steps <= 8
+
+
+# ---- heads at 16-byte-padded rows (ops/attention.py ``head_stride``) ------
+
+@pytest.mark.parametrize("heads,fh,ld,want,wide", [
+    (1, 41, 44, (4, 8, 8, 2), (4, 4, 4, 4)), (8, 8, 8, (4, 1, 8, 2), (4, 1, 8, 2)),
+    (4, 7, 8, (4, 1, 4, 2), (4, 1, 4, 2)), (3, 5, 8, (4, 1, 4, 2), (4, 1, 4, 2)),
+    (1, 7, 8, (4, 1, 1, 2), (4, 1, 1, 2)), (2, 6, 8, (4, 1, 2, 2), (4, 1, 2, 2))])
+def test_padded_head_stride_and_its_layout(heads, fh, ld, want, wide):
+    """A head of F' features takes LD = 4·⌈F'/4⌉ floats; the lane split over
+    LD loads float4 (at 1 x 41 the forward's 2 a lane where the 41 floats took
+    8 scalar loads, the backward passes' 4 a lane), and 8 x 8 keeps its split;
+    the GAT's weight is padded per head to LD columns, the parameter left
+    [F_in, K·F']."""
+    assert tatt.head_stride(fh) == ld
+    assert kernels.gat_layout(heads, ld, 0, 0, 0) == want
+    assert kernels.gat_layout(heads, ld, 0, 0, 0, wide=True) == wide
+    assert kernels.gat_layout(heads, fh, 0, 0) == kernels.gat_layout(heads, fh, 0, 0, wide=True)
+    model = GAT((6, fh), (heads,), torch.Generator().manual_seed(0))
+    (w,) = model.weights()
+    assert tuple(model.w1.shape) == (6, heads * fh) and tuple(w.shape) == (6, heads * ld)
+    w3 = w.detach().view(6, heads, ld)
+    assert torch.equal(w3[..., :fh], model.w1.detach().view(6, heads, fh))
+    assert not w3[..., fh:].any()
+    assert (w is model.w1) == (ld == fh)
+
+
+def _padded_inputs(heads, fh, junk):
+    """z, g [N, K·F'] and the scores, and z, g at the padded stride with
+    ``junk`` in each head's padding."""
+    ld = tatt.head_stride(fh)
+    gen = torch.Generator().manual_seed(heads * 10 + fh)
+    z, g = (torch.randn(N, heads * fh, generator=gen) for _ in range(2))
+    sl, sr = (torch.randn(N, heads, generator=gen) for _ in range(2))
+    zp, gp = (torch.full((N, heads, ld), junk).index_copy_(2, torch.arange(fh),
+                                                            t.view(N, heads, fh)).view(N, -1)
+              for t in (z, g))
+    return z, g, sl, sr, zp, gp
+
+
+def _split(t, heads, fh):
+    t3 = t.view(N, heads, -1)
+    return t3[..., :fh], t3[..., fh:]
+
+
+@pytest.mark.parametrize("junk", [0.0, 1e3])
+@pytest.mark.parametrize("heads,fh", [(1, 41), (4, 7), (3, 5), (1, 7)])
+@pytest.mark.parametrize("rate", [0.0, 0.6])
+def test_plain_versions_at_the_padded_stride(prepared, heads, fh, rate, junk):
+    """At the padded stride the plain forward and both backward passes give
+    the unpadded ones' values bit for bit, whatever the padding of z and g
+    holds, and write 0 in the padding of out and dz."""
+    _, graph, _, _ = prepared
+    emap = graph.edge_map
+    z, g, sl, sr, zp, gp = _padded_inputs(heads, fh, junk)
+    seeds = torch.tensor([123456789, 987654321]) if rate else None
+    out, stats = tatt.attention_forward_plain(emap, z, sl, sr, heads, 0.2, rate, seeds)
+    outp, statsp = tatt.attention_forward_plain(emap, zp, sl, sr, heads, 0.2, rate, seeds, fh=fh)
+    dz, dsl, dsr = tatt.attention_backward_plain(emap, g, z, sl, sr, stats, heads, 0.2, rate,
+                                                 seeds)
+    dzp, dslp, dsrp = tatt.attention_backward_plain(emap, gp, zp, sl, sr, statsp, heads, 0.2,
+                                                    rate, seeds, fh=fh)
+    for name, got, want in (("out", outp, out), ("dz", dzp, dz)):
+        feats, pad = _split(got, heads, fh)
+        assert torch.equal(feats, want.view(N, heads, fh)), name
+        assert pad.numel() == N * heads * (tatt.head_stride(fh) - fh) and not pad.any(), name
+    for a, b in ((statsp, stats), (dslp, dsl), (dsrp, dsr)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("heads,fh", [(1, 41), (4, 7)])
+def test_the_op_at_the_padded_stride(prepared, heads, fh):
+    """Through autograd: out and z's gradient of the op at the padded stride
+    are the unpadded op's, with zero padding, and sl, sr get the same
+    gradients."""
+    _, graph, _, _ = prepared
+    emap = graph.edge_map
+    z, g, sl, sr, zp, gp = _padded_inputs(heads, fh, 0.0)
+    got, want = [], []
+    for zz, gg, kw, into in ((z, g, {}, want), (zp, gp, dict(fh=fh), got)):
+        leaves = [t.clone().requires_grad_(True) for t in (zz, sl, sr)]
+        out = tatt.attention(*leaves, emap, heads, 0.2, 0.6,
+                             torch.Generator().manual_seed(1), True, **kw)
+        into += [out.detach(), *torch.autograd.grad(out, leaves, gg)]
+    for name, a, b in zip(("out", "dz"), (got[0], got[1]), (want[0], want[1])):
+        feats, pad = _split(a, heads, fh)
+        assert torch.equal(feats, b.view(N, heads, fh)) and not pad.any(), name
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("heads,hidden,classes", [((3, 1), 3, 7), ((2, 2), 6, 5)])
+@pytest.mark.parametrize("masks", [False, True])
+def test_odd_widths_match_the_reference(heads, hidden, classes, masks):
+    """A GAT whose hidden and output heads are no multiple of 4 wide (z at
+    the padded stride in both layers) against the reference at the same
+    seeded weights: logits, loss and every parameter's gradient; with
+    ``masks`` at dropout 0.6, the port's masks fed to the reference."""
+    ds = skewed_dataset(4, classes=classes)
+    rate = 0.6 if masks else 0.0
+    cfg = ds.apply_config(gat_config(rate, heads=heads, hidden=hidden))
+    cfg, graph, x, truths = train.prepare(cfg, ds, "cpu")
+    state = train.create_state(cfg, "cpu")
+    params = ref.init_params(cfg.layer_dims(), cfg.layer_heads(), cfg.seed)
+    reader = MaskReader(heads[0] * hidden)
+    with torch.autograd.graph.saved_tensors_hooks(reader.pack, lambda t: t):
+        loss, logits, _ = state.model.loss_fn(graph, x, truths[1], weight_decay=5e-4,
+                                              dropout_rate=rate, generator=state.generator,
+                                              training=True)
+        loss.backward()
+    drop = reader.drops(graph.edge_map, ds, heads, rate, rate)[0] if masks else None
+    if masks:
+        assert len(reader.steps) == 1 and len(drop.hidden) == 1 and len(drop.attention) == 2
+    want_loss, want_logits, want_grads = ref.gradients(params, ref_inputs(ds, truths)[0],
+                                                       ref_graph(ds), truths[1], heads, 0.2,
+                                                       5e-4, drop)
+    assert tuple(logits.shape) == (N, classes)
+    assert_close(logits.detach(), want_logits, "logits")
+    assert_close(loss.detach(), want_loss, "loss")
+    for name, p in state.model.named_parameters():
+        assert tuple(p.grad.shape) == tuple(params[name].shape), name
+        assert_close(p.grad, want_grads[name], f"grad {name}")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_a_step_saves_what_the_benchmark_reads(fused):
+    """At the benchmark's widths (8 heads of 8, one output head of 41: w2
+    padded to 44 columns in the product) the parameters keep their names,
+    order and shapes, and a training step saves for its backward one float
+    tensor of x's shape (the dropped x), the hidden layer's kept mask (bool
+    [N, 64]) and two int64 seeds a layer, and no other tensor of x's shape:
+    what the benchmark's mask reader keys on."""
+    ds = skewed_dataset(1, classes=41)
+    cfg, graph, x, truths = train.prepare(ds.apply_config(gat_config(0.6)), ds, "cpu")
+    state = train.create_state(cfg, "cpu")
+    assert [(n, tuple(p.shape)) for n, p in state.model.named_parameters()] == [
+        ("w1", (F, 64)), ("att_l1", (8, 8)), ("att_r1", (8, 8)), ("w2", (64, 41)),
+        ("att_l2", (1, 41)), ("att_r2", (1, 41))]
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        if fused:
+            train.run_epochs_chunked(state, graph, x, truths[1], truths[2], epochs=1,
+                                     dropout_rate=0.6, weight_decay=5e-4, lr=0.005)
+        else:
+            state.model.loss_fn(graph, x, truths[1], weight_decay=5e-4, dropout_rate=0.6,
+                                generator=state.generator, training=True)[0].backward()
+    x_like = [t for t in saved if tuple(t.shape) == (N, F)]
+    assert len(x_like) == 1 and x_like[0].is_floating_point()
+    assert [tuple(t.shape) for t in saved if t.dtype == torch.bool and t.dim() == 2] == [(N, 64)]
+    assert len([t for t in saved if t.dtype == torch.int64 and tuple(t.shape) == (2,)]) == 2

@@ -436,8 +436,10 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
         # 8 bits of a uniform an element, kept below 128
         assert call[6:] == (60, 12, 16, 0, 16, 1, 0.5, 2.0, 1, 128, 8, 1, 0, 7000)
     if name.startswith("gat_"):  # 2 heads of 8 features: 4-float loads, a lane a head, 2 a
-        # slot, 2 steps; dropout 0.6: a kept weight times 2.5, kept below q·2^32
+        # slot, 2 steps; dropout 0.6: a kept weight times 2.5, kept below q·2^32; the launch
+        # counted under its split
         assert call[-10:-1] == (2, 8, 4, 1, 2, 2, 0.2, 2.5, 1717986944)
+        assert kernels.gat_layouts == {(name, 4, 1, 2): 1}
     if name == "piece":  # the [S+1, L] scan and its totals, each in an allocation of its own
         assert call[4:6] == (args["tab"].data_ptr(), out.data_ptr()) and call[8:11] == (64, 128, 2)
         assert call[6] != call[7] and out.data_ptr() not in call[6:8]
@@ -649,3 +651,26 @@ def test_a_full_index_reaches_the_general_form_of_taa_lanes(recorder):
     args.update(idx=fake(s, l, dtype=I32), strides=(l, 1, 0), steps=1)
     kernels.taa_lanes(**args)
     assert recorder[0][1][-4:-1] == (0, 1, kernels.TAA_LANE_TILE)
+
+
+@pytest.mark.parametrize("name", ["gat_forward", "gat_rows", "gat_cols"])
+@pytest.mark.parametrize("ld,split", [(44, (4, 8, 8, 2)), (41, (1, 8, 8, 8)), (8, (4, 1, 1, 2))])
+def test_gat_launch_splits_a_padded_head(recorder, name, ld, split):
+    """One head in rows of LD floats: the C call gets LD and the split over it
+    (1 x 41 padded to 44: 4-float loads, in the forward 8 lanes of 2 steps,
+    in the backward passes 4 lanes of 4; unpadded, 8 scalar loads a lane),
+    outputs at the stride LD, and the launch is counted under its split."""
+    if name != "gat_forward" and ld == 44:
+        split = (4, 4, 4, 4)
+    fn, args = _valid()[name]
+    n = 60
+    args.update(heads=1, z=fake(n, ld))
+    for what, shape in {"g": (n, ld), "sl": (n, 1), "sr": (n, 1), "stats": (n, 1, 2),
+                        "node": (n, 1, 4)}.items():
+        if what in args:
+            args[what] = fake(*shape)
+    out = fn(**args)
+    assert recorder[0][1][-10:-4] == (1, ld, *split)
+    assert kernels.gat_layouts == {(name, split[0], split[1], split[3]): 1}
+    if name != "gat_rows":
+        assert tuple(out[0].shape) == (n, ld)
