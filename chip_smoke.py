@@ -182,6 +182,15 @@ Phases, each of which raises (exit code not 0) when it fails:
     timed by events beside its bytes bound and on the device in a process of
     its own; two 100-epoch GAT jobs through the trainer, with their launches
     counted and their epoch time.
+(x) kernel 3's blended form (``ell_blend``, GCNII's initial residual, run
+    after (w)) on synth-reddit: the single pass at d = 64 with h0, the
+    backward's scaled pass without it, and the fused pair at 2 x 64, against
+    their plain version (ops/blend.py) and repeatable bit for bit; at a = 1
+    without h0 bit for bit kernel 3's own pass; each timed by events and on
+    the device (the profiler) beside its bytes bound (columns, coefficients,
+    h, h0 and out once); then GCNII at 64 layers of 64 through the trainer:
+    3 epochs of the CUDA graph against the eager loop bit for bit, and a
+    20-epoch job with its launches an epoch, its epoch time and its peak memory.
 
 ``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
 of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
@@ -225,7 +234,7 @@ WIDTHS = (16, 32, 41, 82)  # pass widths of the main path: pair 32/82, backward 
 ATOL, RTOL = 1e-5, 1e-4    # f32; only the summation order differs from the plain version
 # the port's device kernels, by a part of their names
 PORT_KERNELS = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials",
-                "layer0_flat", "layer0_pair", "layer0_wide")
+                "layer0_flat", "layer0_pair", "layer0_wide", "ell_blend")
 
 
 def log(msg: str) -> None:
@@ -4462,6 +4471,136 @@ def phase_gat() -> dict:
                 digest=digest, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+# (x) kernel 3's blended form and GCNII (models/gcnii.py) at the paper's 64
+# layers of 64 on synth-reddit
+GCNII_WIDTH, GCNII_LAYERS, GCNII_ALPHA = 64, 64, 0.1
+GCNII_ITERS = 20
+GCNII_EPOCHS = 20
+
+
+def _blend_bytes(plan, d: int, with_h0: bool) -> int:
+    """A blended pass's least bytes: columns and coefficients once, h read,
+    h0 read where given, out written (f32)."""
+    return 8 * plan.nnz + 4 * plan.n_nodes * d * (3 if with_h0 else 2)
+
+
+def phase_gcnii() -> dict:
+    """(x) kernel 3's blended form and GCNII through the trainer."""
+    import dataclasses
+
+    import torch
+
+    from cuda_gcn_torch import kernels, train
+    from cuda_gcn_torch.config import GCNConfig
+    from cuda_gcn_torch.data.dataset import load_cached
+    from cuda_gcn_torch.device import resolve_device
+    from cuda_gcn_torch.ops import blend as tblend
+    from cuda_gcn_torch.ops.ell import ell_spmm
+
+    resolve_device("cuda")
+    log(f"(x) kernel 3's blended form and GCNII; {_clocks()}")
+    cfg = GCNConfig(model="gcnii", hidden_dim=GCNII_WIDTH, layers=GCNII_LAYERS, dropout=0.6,
+                    learning_rate=0.01, graphsum_backend="ell")
+    t0 = time.perf_counter()
+    cfg, graph, x, truths = train.prepare(cfg, load_cached("synth-reddit"), "cuda")
+    plan = graph.ell
+    log(f"  synth-reddit prepared for GCNII in {time.perf_counter() - t0:.1f} s "
+        f"({plan.n_partials} partials of {plan.split_rows.numel()} split rows)")
+    n, d = plan.n_nodes, GCNII_WIDTH
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h, h0, he, h0e = (torch.randn(n, d, device="cuda", generator=gen) for _ in range(4))
+    a, b = 1.0 - GCNII_ALPHA, GCNII_ALPHA
+    cat = torch.cat([h, he], dim=1)
+
+    def launch(name):
+        if name == "single":
+            return kernels.ell_blend(plan.work_beg, plan.work_len, plan.work_dst,
+                                     plan.split_rows, plan.split_ptr, plan.cols, plan.coef, h,
+                                     h0, n, plan.n_partials, a, b)
+        if name == "scaled":
+            return kernels.ell_blend(plan.work_beg, plan.work_len, plan.work_dst,
+                                     plan.split_rows, plan.split_ptr, plan.cols, plan.coef, h,
+                                     None, n, plan.n_partials, a, 0.0)
+        return kernels.ell_blend(plan.work_beg, plan.work_len, plan.work_dst, plan.split_rows,
+                                 plan.split_ptr, plan.cols, plan.coef, cat, (h0, h0e), n,
+                                 plan.n_partials, a, b, halves=2)
+
+    plain = {"single": lambda: tblend.blend_plain(plan, h, (h0,), a, b),
+             "scaled": lambda: tblend.blend_plain(plan, h, None, a, 0.0),
+             "pair": lambda: torch.cat(tblend.blend_plain(plan, cat, (h0, h0e), a, b, 2), 1)}
+    rows = {}
+    for name in ("single", "scaled", "pair"):
+        got = launch(name)
+        got = torch.cat(got, 1) if name == "pair" else got
+        again = launch(name)
+        again = torch.cat(again, 1) if name == "pair" else again
+        if not torch.equal(got, again):
+            raise AssertionError(f"(x) {name}: a second launch differs")
+        check(f"(x) ell_blend {name} against its plain version", got, plain[name]())
+        width = 2 * d if name == "pair" else d
+        nbytes = _blend_bytes(plan, width, name != "scaled")
+        ms = cuda_ms(lambda: launch(name), GCNII_ITERS)
+        device_us = _device_us(lambda: launch(name))
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=ms, device_us=device_us, bound_ms=bound, bytes=nbytes, d=width)
+        log(f"  ell_blend {name} at d = {width}: {ms:.4f} ms (device {device_us / 1e3:.4f} ms), "
+            f"bound {bound:.4f} ms ({nbytes / 1e9:.3f} GB): {100 * bound / ms:.1f}% of it")
+    ones = kernels.ell_blend(plan.work_beg, plan.work_len, plan.work_dst, plan.split_rows,
+                             plan.split_ptr, plan.cols, plan.coef, h, None, n, plan.n_partials,
+                             1.0, 0.0)
+    if not torch.equal(ones, ell_spmm(plan, h)):
+        raise AssertionError("(x) ell_blend at a = 1 without h0 is not kernel 3's pass")
+    log("  ell_blend at a = 1 without h0: kernel 3's pass bit for bit")
+    spmm_ms = {w: cuda_ms(lambda t=t: ell_spmm(plan, t), GCNII_ITERS)
+               for w, t in ((d, h), (2 * d, cat))}
+    log(f"  kernel 3 alone on the same rows: d = {d} {spmm_ms[d]:.4f} ms, d = {2 * d} "
+        f"{spmm_ms[2 * d]:.4f} ms")
+    del h, h0, he, h0e, cat, ones
+    torch.cuda.empty_cache()
+
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=cfg.weight_decay, lr=cfg.learning_rate)
+    runs = {}
+    for way in ("eager", "graph"):
+        state = train.create_state(dataclasses.replace(cfg, seed=5), "cuda")
+        if way == "eager":
+            m = train.run_epochs(state, graph, x, truths[1], truths[2], epochs=3, **kw)
+        else:
+            m = train.run_epochs_chunked(state, graph, x, truths[1], truths[2], epochs=3, **kw)
+        runs[way] = dict(metrics=m.cpu(), **_state_leaves(state))
+        del state
+    agree = _compare("(x) GCNII graph against eager", runs["graph"], runs["eager"])
+    log(f"  GCNII 3 epochs, graph against eager: {agree}")
+    if agree != "bit for bit":
+        raise AssertionError(f"(x) GCNII's graph is not the eager loop bit for bit: {agree}")
+    del runs
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state = train.create_state(dataclasses.replace(cfg, seed=6), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = train.run_epochs_chunked(state, graph, x, truths[1], truths[2], epochs=GCNII_EPOCHS,
+                                 **kw).cpu()
+    test_loss, _ = train.eval_step(state.model, graph, x, truths[3],
+                                   weight_decay=cfg.weight_decay)
+    test_loss = float(test_loss)
+    job_ms = (time.perf_counter() - t0) * 1e3 / GCNII_EPOCHS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    want = {"ell_blend": 2 * GCNII_LAYERS * GCNII_EPOCHS + 2 * GCNII_LAYERS,
+            "layer0_pair": GCNII_EPOCHS}
+    log(f"  a {GCNII_EPOCHS}-epoch GCNII job: {job_ms:.3f} ms an epoch, first and last train "
+        f"loss {float(m[0, 0]):.5f} {float(m[-1, 0]):.5f}, test loss {test_loss:.5f}; "
+        f"launches {launches} (expected {want}); peak allocated {peak:.3f} GiB")
+    if not bool(torch.isfinite(m).all()) or float(m[-1, 0]) >= float(m[0, 0]):
+        raise AssertionError("(x) the GCNII job's loss is not finite or did not fall")
+    if launches != want:
+        raise AssertionError(f"(x) the GCNII job's launches {launches} are not {want}")
+    log(f"  {_clocks()}")
+    return dict(rows=rows, spmm_ms=spmm_ms, agree=agree, epoch_ms=job_ms, launches=launches,
+                peak_gib=peak)
+
+
 def main() -> int:
     import torch
 
@@ -4522,6 +4661,7 @@ def main() -> int:
     taa_rows = phase_taa_probes(errs)
     layer0_pair = phase_layer0_pair()
     gat = phase_gat()
+    gcnii = phase_gcnii()
     text_launches = phase_text_entry()
     cli_timers = phase_cli_extras()
     shard = phase_sharded()
@@ -4595,6 +4735,12 @@ def main() -> int:
             "replaces": "none in the JAX package (it has no attention model)",
             "launches": gat["launches"][name], "ms": rows, "device_us": gat["device"][name],
             "worst_err_of_tol": gat["worst"]})
+    kernels_line.append({  # (x): kernel 3's blended form
+        "name": "ell_blend", "route": "cuda", "source": "cuda_gcn_torch/csrc/ell_spmm.cu",
+        "replaces": "none in the JAX package (it has no GCNII)",
+        "launches": gcnii["launches"]["ell_blend"], "ms": gcnii["rows"],
+        "kernel3_ms": gcnii["spmm_ms"], "graph_agree": gcnii["agree"],
+        "epoch_ms": gcnii["epoch_ms"], "peak_gib": gcnii["peak_gib"]})
     for line in kernels_line:  # (t): the benchmark entry's measured run
         if line["name"] in bench_run["launches"]:
             line["launches_bench"] = bench_run["launches"][line["name"]]

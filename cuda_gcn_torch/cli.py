@@ -9,7 +9,7 @@
         [--save-checkpoint PATH] [--load-checkpoint PATH]
         [--metrics-csv PATH] [--metrics-jsonl PATH] [--timing] [--build-kernels]
         [--platform cpu|tpu] [--compilation-cache DIR] [--prime-cache]
-        [--model gcn|gat]
+        [--model gcn|gat|gcnii]
 
 The nine hyperparameter overrides are those of the reference's usage string
 (src/main.cpp:15-49), positional or as flags, as cuda_gcn_tpu.cli takes them
@@ -64,6 +64,15 @@ attention dropout (0.6) and LeakyReLU slope (0.2) are ``GCNConfig``'s
 defaults. It runs on the ``ell`` backend ('auto' picks it; another is refused), single
 device (``--mesh`` exits 1), without ``--timing``'s per-op phases.
 
+``--model gcnii`` trains GCNII (models/gcnii.py) with its paper's
+semi-supervised settings (arXiv:2007.02133, §6.1, the defaults of its
+released code) where the command gives none: a width of 64 (``hidden_dim``),
+dropout 0.6, learning rate 0.01, L2 5e-4 on the dense layers; its 64 layers,
+α = 0.1, λ = 0.5 and the convolutions' L2 0.01 are ``GCNConfig``'s defaults.
+It runs as the GAT does: on ``ell`` ('auto' picks it), single device, without
+``--timing``. A model runs sharded where its class declares it (``shards``:
+the GCN alone), which ``--mesh`` and the sharded trainer both read.
+
 It runs on the card unless ``--device cpu`` is given.
 """
 
@@ -81,8 +90,12 @@ _POSITIONAL = ["num_nodes", "input_dim", "hidden_dim", "output_dim", "dropout",
                "learning_rate", "weight_decay", "epochs", "early_stopping"]
 _PARSER_INFERRED = {"num_nodes", "input_dim", "output_dim"}
 _FLOAT_FIELDS = {"dropout", "learning_rate", "weight_decay"}
-# ``--model gat``'s settings where the command gives none (arXiv:1710.10903, §3.3)
-GAT_DEFAULTS = {"hidden_dim": 8, "dropout": 0.6, "learning_rate": 0.005}
+# A model's settings where the command gives none: ``--model gat``'s (arXiv:1710.10903,
+# §3.3) and ``--model gcnii``'s (arXiv:2007.02133, §6.1, its released code's train.py:
+# the width of 64, dropout 0.6, learning rate 0.01, L2 5e-4 on the dense layers)
+MODEL_DEFAULTS = {"gat": {"hidden_dim": 8, "dropout": 0.6, "learning_rate": 0.005},
+                  "gcnii": {"hidden_dim": 64, "dropout": 0.6, "learning_rate": 0.01,
+                            "weight_decay": 5e-4}}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -131,9 +144,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--prime-cache", action="store_true",
                    help="build the libraries this run loads (nvcc kernels on the card, "
                         "g++ host code) and exit without training (train.prime_cache)")
-    p.add_argument("--model", default="gcn", choices=["gcn", "gat"],
-                   help="the network: the GCN, or the graph attention network "
-                        "(arXiv:1710.10903) with the paper's settings as defaults")
+    p.add_argument("--model", default="gcn", choices=["gcn", "gat", "gcnii"],
+                   help="the network: the GCN, the graph attention network "
+                        "(arXiv:1710.10903) or GCNII (arXiv:2007.02133), each of the "
+                        "last two with its paper's settings as defaults")
     for name in _POSITIONAL:
         typ = float if name in _FLOAT_FIELDS else int
         p.add_argument(f"--{name.replace('_', '-')}", type=typ, default=None)
@@ -146,7 +160,7 @@ def config_from_args(args: argparse.Namespace) -> GCNConfig:
     cfg = GCNConfig(seed=args.seed, graphsum_backend=args.backend,
                     compute_dtype=args.compute_dtype, halo_dtype=args.halo_dtype,
                     feature_matmul=args.feature_matmul, model=args.model)
-    updates: dict = dict(GAT_DEFAULTS) if args.model == "gat" else {}
+    updates: dict = dict(MODEL_DEFAULTS.get(args.model, {}))
     for name, value in zip(_POSITIONAL, args.overrides):
         typ = float if name in _FLOAT_FIELDS else int
         try:
@@ -230,13 +244,14 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.mesh:
         print(f"RUNNING ON {platform}")
-        if cfg.model != "gcn":
+        if not train.model_class(cfg).shards:
             print(f"--mesh trains the GCN; --model {cfg.model} is single-device",
                   file=sys.stderr)
             return 1
         return _run_mesh(args, cfg, dataset, device, platform)
-    if cfg.model == "gat" and args.timing:
-        print("--timing's per-op phases are the GCN's; --model gat has none", file=sys.stderr)
+    if cfg.model != "gcn" and args.timing:
+        print(f"--timing's per-op phases are the GCN's; --model {cfg.model} has none",
+              file=sys.stderr)
         return 1
     backend = train.model_class(cfg).graph_backend(cfg.graphsum_backend, dataset.num_nodes)
     if backend == "bsr" and cached and os.path.exists(cached_permutation_path(name)):

@@ -46,6 +46,11 @@
 // Every output row has one writer and a fixed order of additions: no atomics,
 // the same bits on every run.
 //
+// The blended form (kernel 3's ell_blend, GCNII's initial residual) stores
+// out = a * sum + b * h0 instead of the sum: the BLEND flag of run_item and its
+// Blend store (ell_spmm.cu holds the rest). Without the flag run_item compiles
+// as before; only f32 rows take it.
+//
 // Element types. h and out are of one type T, f32 or bf16; the coefficients of
 // type C, f32 or bf16. Rows stay in device memory in their own type and are
 // converted to f32 as they are loaded: a bf16 row is half the gathered bytes,
@@ -237,12 +242,58 @@ __device__ __forceinline__ void store_row(O* __restrict__ row, int f0, int lane,
   }
 }
 
+// The blended store: element f of output row r is a * sum + b * h0[r, f], in
+// f32, each product rounded and then their sum (no contraction: the plain
+// version's arithmetic), stored once. A pair pass (the training and the
+// evaluation halves at the concatenated width d = 2 * dh) keeps each half's h0
+// and out in a tensor of its own, rows dh apart: columns [0, dh) in h0 and
+// out, [dh, d) in h0_hi and out_hi; a single pass has dh = d. Without h0 (the
+// backward's a * A^T g) nothing of it is read and the sum is only scaled.
+struct Blend {
+  const float* h0;
+  const float* h0_hi;
+  float* out_hi;
+  int dh;
+  float a, b;
+};
+
+__device__ __forceinline__ float blend_value(const Blend& bl, float sum, float h0) {
+  return __fadd_rn(__fmul_rn(bl.a, sum), __fmul_rn(bl.b, h0));
+}
+
+// Lanes [0, G) store a slot group's sums acc (STEPS pieces of VEC features
+// from f0) of output row `row`, blended; a piece lies within one half, since
+// dh is a multiple of VEC.
+template <int G, int STEPS, int VEC>
+__device__ __forceinline__ void store_blend(const Blend& bl, float* __restrict__ out, int row,
+                                            int f0, int lane, int d, float* acc) {
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int f = f0 + (s * G + lane) * VEC;
+    if (f < d) {
+      const bool hi = f >= bl.dh;
+      const int64_t at = (int64_t)row * bl.dh + (hi ? f - bl.dh : f);
+      if (bl.h0 != nullptr) {
+        Raw<float, VEC> r;
+        r.load((hi ? bl.h0_hi : bl.h0) + at);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[s * VEC + v] = blend_value(bl, acc[s * VEC + v], r.get(v));
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[s * VEC + v] = __fmul_rn(bl.a, acc[s * VEC + v]);
+      }
+      store_vec<VEC>((hi ? bl.out_hi : out) + at, &acc[s * VEC]);
+    }
+  }
+}
+
 // One warp's item: the sum over its slots, stored to its output row (added to
-// what the row holds when `accumulate`) or to its f32 partial, which starts
-// from zero. The caller's kernel has kWarps warps a CTA and one item a warp.
-// Only the item's ids stay live across the slot loop; the row's address is
-// made where it is stored.
-template <int G, int STEPS, int VEC, class T, class C>
+// what the row holds when `accumulate`; blended where BLEND) or to its f32
+// partial, which starts from zero. The caller's kernel has kWarps warps a CTA
+// and one item a warp. Only the item's ids stay live across the slot loop; the
+// row's address is made where it is stored.
+template <int G, int STEPS, int VEC, class T, class C, bool BLEND = false>
 __device__ __forceinline__ void run_item(const int* __restrict__ work_beg,
                                          const int* __restrict__ work_len,
                                          const int* __restrict__ work_dst,
@@ -250,7 +301,7 @@ __device__ __forceinline__ void run_item(const int* __restrict__ work_beg,
                                          const C* __restrict__ coef,
                                          const T* __restrict__ h, T* __restrict__ out,
                                          float* __restrict__ partial, int n_items, int d,
-                                         bool accumulate) {
+                                         bool accumulate, const Blend& bl = Blend{}) {
   constexpr int W = STEPS * VEC;
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -261,9 +312,12 @@ __device__ __forceinline__ void run_item(const int* __restrict__ work_beg,
     // at most G in flight: a batch of 32 slots is whole rounds of 32 / G * ILP
     slot_sum<G, STEPS, VEC, (kIlp < G ? kIlp : G)>(cols, coef, h, d, f0, beg, len, lane, acc);
     if (lane < G) {
-      if (dst >= 0)
-        store_row<G, STEPS, VEC>(out + (int64_t)dst * d, f0, lane, d, accumulate, acc);
-      else
+      if (dst >= 0) {
+        if constexpr (BLEND)
+          store_blend<G, STEPS, VEC>(bl, out, dst, f0, lane, d, acc);
+        else
+          store_row<G, STEPS, VEC>(out + (int64_t)dst * d, f0, lane, d, accumulate, acc);
+      } else
         store_row<G, STEPS, VEC>(partial + (int64_t)(-dst - 1) * d, f0, lane, d, false, acc);
     }
   }

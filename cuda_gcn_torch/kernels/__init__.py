@@ -20,7 +20,8 @@ loaded, devices are compared by index, and a refusal is worded only when
 there is one.
 
 The GAT's attention kernels (``gat_forward``, ``gat_rows``, ``gat_cols``,
-csrc/gat_attention.cu) take f32 alone. Kernels 1-3 and the dense layer-0
+csrc/gat_attention.cu) and kernel 3's blended form (``ell_blend``, GCNII's
+initial residual) take f32 alone. Kernels 1-3 and the dense layer-0
 kernel (``layer0_pair``) take f32 or bf16
 activations (``ACT_DTYPES``): each C entry gets a dtype code (``dtype_code``,
 ``spmm_code``) and runs the variant built for it, with f32 sums and the
@@ -84,6 +85,9 @@ _ENTRY = {
                  [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                   _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
                   _P]),
+    "ell_blend": ("ell_spmm", "ell_blend",
+                  [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                   ctypes.c_float, ctypes.c_float, _P]),
 }
 SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
@@ -396,6 +400,16 @@ def csr_spmm(work, cols, coef, h, n: int, out=None) -> torch.Tensor:
     return out
 
 
+def _check_ell(dev: int, work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef,
+               coef_dtype) -> None:
+    """Kernel 3's work list and slots: int32, and coefficients of ``coef_dtype``,
+    each contiguous on CUDA device ``dev``."""
+    for t, what in ((work_beg, "work_beg"), (work_len, "work_len"), (work_dst, "work_dst"),
+                    (split_rows, "split_rows"), (split_ptr, "split_ptr"), (cols, "cols")):
+        _check(t, what, torch.int32, dev)
+    _check(coef, "coef", coef_dtype, dev)
+
+
 def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
              n: int, n_partials: int) -> torch.Tensor:
     """Launch kernel 3 over a work list (ops/ell.py ``WorkList``): returns the
@@ -406,13 +420,7 @@ def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
     h = h.contiguous()
     code = spmm_code(h.dtype, coef.dtype)
     _check(h, "h", h.dtype, dev)
-    _check(work_beg, "work_beg", torch.int32, dev)
-    _check(work_len, "work_len", torch.int32, dev)
-    _check(work_dst, "work_dst", torch.int32, dev)
-    _check(split_rows, "split_rows", torch.int32, dev)
-    _check(split_ptr, "split_ptr", torch.int32, dev)
-    _check(cols, "cols", torch.int32, dev)
-    _check(coef, "coef", coef.dtype, dev)
+    _check_ell(dev, work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, coef.dtype)
     n_items, n_split = work_beg.numel(), split_rows.numel()
     if h.dim() != 2 or work_len.numel() != n_items or work_dst.numel() != n_items \
             or split_ptr.numel() != n_split + 1 or cols.numel() != coef.numel():
@@ -429,6 +437,47 @@ def ell_spmm(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h,
           spmm_vec(d, h_ptr, out_ptr, partial_ptr, itemsize=h.element_size()), code,
           _stream(dev))
     return out
+
+
+def ell_blend(work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, h, h0,
+              n: int, n_partials: int, a: float, b: float, halves: int = 1):
+    """Launch kernel 3's blended form (f32 rows and coefficients) over a work
+    list: out = a·(the product) + b·h0, each row written once. ``halves`` 1:
+    h [*, d], h0 [n, d] or None (out = a·the product), returns out [n, d].
+    ``halves`` 2 (the fused pair): h [*, 2·dh] the two halves side by side, h0
+    a pair of [n, dh] tensors or None, returns the pair (out_lo, out_hi) of
+    [n, dh] tensors, each half in a tensor of its own."""
+    dev = _on_cuda(h, "ell_blend")
+    h = h.contiguous()
+    f32 = torch.float32
+    _check(h, "h", f32, dev)
+    _check_ell(dev, work_beg, work_len, work_dst, split_rows, split_ptr, cols, coef, f32)
+    h0s = () if h0 is None else ((h0,) if halves == 1 else tuple(h0))
+    for i, t in enumerate(h0s):
+        _check(t, f"h0[{i}]", f32, dev)
+    n_items, n_split = work_beg.numel(), split_rows.numel()
+    d = h.shape[1] if h.dim() == 2 else -1
+    dh = d // halves if halves in (1, 2) else -1
+    if dh < 0 or d % halves or work_len.numel() != n_items or work_dst.numel() != n_items \
+            or split_ptr.numel() != n_split + 1 or cols.numel() != coef.numel() \
+            or (h0 is not None and len(h0s) != halves) \
+            or any(tuple(t.shape) != (n, dh) for t in h0s):
+        raise ValueError("ell_blend: inconsistent shapes")
+    outs = tuple(torch.empty(n, dh, dtype=f32, device=h.device) for _ in range(halves))
+    if n == 0 or d == 0:
+        return outs[0] if halves == 1 else outs
+    partial = torch.empty(n_partials, d, dtype=f32, device=h.device)
+    ptrs = (h.data_ptr(), outs[0].data_ptr(), partial.data_ptr())
+    # the load width of kernel 3's rule at d, narrowed to one that the halves'
+    # width and bases take too
+    halves_ptrs = (outs[-1].data_ptr(), *(t.data_ptr() for t in h0s))
+    vec = math.gcd(spmm_vec(d, *ptrs), spmm_vec(dh, *halves_ptrs))
+    _call("ell_blend", work_beg.data_ptr(), work_len.data_ptr(), work_dst.data_ptr(), n_items,
+          split_rows.data_ptr(), split_ptr.data_ptr(), n_split, cols.data_ptr(), coef.data_ptr(),
+          *ptrs, d, vec, h0s[0].data_ptr() if h0s else None,
+          h0s[-1].data_ptr() if h0s else None, outs[-1].data_ptr(), dh, float(a), float(b),
+          _stream(dev))
+    return outs[0] if halves == 1 else outs
 
 
 # Shared memory a block can opt into on the H100, and its number of SMs.

@@ -8,11 +8,12 @@ and cast to the parameter type (cuda_gcn_tpu/models/gcn.py:51-53). Every
 activation takes the type the JAX package gives it: layer 0 on dense x returns
 x's type, on sparse x W's type, and each graphsum returns its input's.
 
-``GraphModel`` holds the layer loop and the loss that the GCN and the GAT
-(models/gat.py) share, and resolves a model's graph backend
-(``graph_backend``); the GCN adds the Â-sum and the ReLU after each layer's
-product. The sharded trainer (parallel/sharded.py) runs the same loop with its
-halo sums in the Â-sum's place.
+``GraphModel`` holds the layer loop and the loss that the GCN, the GAT
+(models/gat.py) and GCNII (models/gcnii.py) share, and resolves a model's
+graph backend (``graph_backend``); the GCN adds the Â-sum and the ReLU after
+each layer's product. The sharded trainer (parallel/sharded.py) runs the same
+loop with its halo sums in the Â-sum's place, for the models that declare
+they shard (``shards``).
 """
 
 from __future__ import annotations
@@ -65,16 +66,22 @@ GRAPHSUMS = (graphsum, graphsum_pair)  # a ``Graph``'s Â-sums: (single, pair)
 class GraphModel(nn.Module):
     """The layer loop (single and fused pair) and the loss of every model.
     Layer 0 is ``_layer0_transform`` / ``layer0_pair``, every other layer
-    ``dense_matmul(dropout(h), W)``, the evaluation half's without a gradient;
-    a model's hooks ``_layer`` and ``_layer_pair`` (by default the halves
-    apart, the evaluation half without dropout or gradient) turn the product
-    into the layer's output, with the caller's Â-sums ``graphsums`` (single,
-    pair). A model declares the graph ``backends`` it runs on (None: all) and
-    whether it ``needs_edge_map`` (the graph's reverse-edge map)."""
+    the hook ``_transform`` of dropout(h) (by default ``dense_matmul(dropout(h),
+    W)``; ``_transform_pair`` the pair's, by default the halves apart, the
+    evaluation half's without a gradient); a model's hooks ``_layer`` and
+    ``_layer_pair`` (by default the halves apart, the evaluation half without
+    dropout or gradient) turn the product into the layer's output, with the
+    caller's Â-sums ``graphsums`` (single, pair). Where a model ``keeps_h0``,
+    the loop hands layer 0's output (the pair's: both halves) to every later
+    ``_transform``; else None. A model declares the graph ``backends`` it runs
+    on (None: all), whether it ``needs_edge_map`` (the graph's reverse-edge
+    map) and whether the sharded trainer takes it (``shards``)."""
 
     backends: tuple[str, ...] | None = None
     backends_refusal = ""
     needs_edge_map = False
+    keeps_h0 = False
+    shards = False
 
     @classmethod
     def graph_backend(cls, backend: str, n_nodes: int) -> str:
@@ -97,13 +104,16 @@ class GraphModel(nn.Module):
                 generator: torch.Generator | None = None, training: bool = False,
                 graphsums=GRAPHSUMS) -> torch.Tensor:
         """Forward pass -> logits [N, C] (``apply`` in the JAX package)."""
-        h = x
+        h, h0 = x, None
         for i, w in enumerate(self.weights()):
             if i == 0:
                 z = _layer0_transform(h, w, dropout_rate, generator, training)
             else:
-                z = dense_matmul(dropout(h, dropout_rate, generator, training), w)
+                z = self._transform(i, dropout(h, dropout_rate, generator, training), w, h0,
+                                    graph)
             h = self._layer(i, z, graph, graphsums, generator, training)
+            if i == 0 and self.keeps_h0:
+                h0 = h
         return h
 
     def apply_pair(self, graph, x: torch.Tensor | SparseFeatures, *, dropout_rate: float,
@@ -111,16 +121,30 @@ class GraphModel(nn.Module):
         """One fused forward giving the dropout-active training logits and the
         evaluation (no-dropout) logits of the same weights; only the training
         half is differentiated."""
+        h0 = None
         for i, w in enumerate(self.weights()):
             if i == 0:
                 zt, ze = layer0_pair(x, w, dropout_rate, generator)
             else:
-                zt = dense_matmul(dropout(ht, dropout_rate, generator, True), w)
+                hd = dropout(ht, dropout_rate, generator, True)
                 del ht  # no hook reads it: the GAT's ELU output is not held through both halves
-                with torch.no_grad():
-                    ze = dense_matmul(he, w)
+                zt, ze = self._transform_pair(i, hd, he, w, h0, graph)
             ht, he = self._layer_pair(i, zt, ze, graph, graphsums, generator)
+            if i == 0 and self.keeps_h0:
+                h0 = (ht, he)
         return ht, he
+
+    def _transform(self, i: int, hd, w, h0, graph):
+        """Layer i's product of its dropped-out input ``hd``."""
+        return dense_matmul(hd, w)
+
+    def _transform_pair(self, i: int, hdt, he, w, h0, graph):
+        """The pair's products: the training half's of its dropped-out input
+        ``hdt``, then the evaluation half's, without a gradient."""
+        zt = self._transform(i, hdt, w, None if h0 is None else h0[0], graph)
+        with torch.no_grad():
+            ze = self._transform(i, he, w, None if h0 is None else h0[1], graph)
+        return zt, ze
 
     def _layer_pair(self, i: int, zt, ze, graph, graphsums, generator):
         ht = self._layer(i, zt, graph, graphsums, generator, True)
@@ -139,6 +163,8 @@ class GraphModel(nn.Module):
 
 
 class GCN(GraphModel):
+    shards = True  # the sharded trainer runs its loop with halo sums
+
     def __init__(self, layer_dims: tuple[int, ...], generator: torch.Generator,
                  dtype: torch.dtype = torch.float32):
         """Glorot-initialised weights of ``dtype`` for consecutive

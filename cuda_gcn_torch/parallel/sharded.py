@@ -474,7 +474,7 @@ def prepare_sharded(cfg: GCNConfig, dataset: GCNDataset, n_parts: int,
     'bsr' for a part's block.
     ``partition_kwargs`` go to ``partition_graph`` (cuts, tile size, budget,
     ``device``)."""
-    if cfg.model != "gcn":
+    if not train.model_class(cfg).shards:
         raise ValueError(f"the sharded trainer trains the GCN; model {cfg.model!r} is "
                          f"single-device")
     cfg = dataset.apply_config(cfg)

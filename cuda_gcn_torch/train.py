@@ -15,12 +15,13 @@ streams are realigned. That is 4 adjacency passes per epoch plus 2 for the
 trailing eval. The loop is plain Python with no host synchronisation: the
 metrics stay on the device until it ends.
 
-The model is ``cfg.model``'s: the GCN (models/gcn.py) or the GAT
-(models/gat.py), whose class ``model_class`` names, built by ``create_state``
-and run by the same loops; the loss's L2 term is the model's
-(``l2_penalty``). What a model needs of the graph its class declares:
-``prepare`` takes the backend from its ``graph_backend`` (the GAT runs on
-``ell`` or ``pallas``, and 'auto' picks ``ell``) and, where it
+The model is ``cfg.model``'s: the GCN (models/gcn.py), the GAT
+(models/gat.py) or GCNII (models/gcnii.py), whose class ``model_class``
+names, built by ``create_state`` and run by the same loops; the loss's L2
+term is the model's (``l2_penalty``). What a model needs of the graph its
+class declares: ``prepare`` takes the backend from its ``graph_backend`` (the
+GAT and GCNII run on ``ell`` or ``pallas``, and 'auto' picks ``ell``) and,
+where it
 ``needs_edge_map``, adds the graph's reverse-edge map (ops/ell.py
 ``edge_map``) inside the span ``gat.edge_map``; a GCN builds none.
 
@@ -88,6 +89,7 @@ from cuda_gcn_torch.data.reorder import locality_permutation, reorder_dataset
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.models.gat import GAT
 from cuda_gcn_torch.models.gcn import GCN
+from cuda_gcn_torch.models.gcnii import GCNII
 from cuda_gcn_torch.ops import adam
 from cuda_gcn_torch.ops import matmul as matmul_ops
 from cuda_gcn_torch.ops.ell import edge_map
@@ -98,7 +100,7 @@ from cuda_gcn_torch.utils.timer import TMR_TEST, TMR_TRAIN, timers
 
 @dataclasses.dataclass
 class TrainState:
-    model: GCN | GAT
+    model: GCN | GAT | GCNII
     opt: adam.AdamState
     generator: torch.Generator  # dropout stream, on the model's device
 
@@ -106,12 +108,12 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
-def model_class(cfg: GCNConfig) -> type[GCN | GAT]:
+def model_class(cfg: GCNConfig) -> type[GCN | GAT | GCNII]:
     """``cfg.model``'s network class: the one map of a model's name to it."""
-    return {"gcn": GCN, "gat": GAT}[cfg.model]
+    return {"gcn": GCN, "gat": GAT, "gcnii": GCNII}[cfg.model]
 
 
-def make_model(cfg: GCNConfig, generator: torch.Generator) -> GCN | GAT:
+def make_model(cfg: GCNConfig, generator: torch.Generator) -> GCN | GAT | GCNII:
     """``cfg.model``'s network, its weights drawn from ``generator``."""
     return model_class(cfg).from_config(cfg, generator)
 
@@ -161,7 +163,7 @@ def train_step(state: TrainState, graph: Graph, x, truth, *, dropout_rate: float
 
 
 @torch.no_grad()
-def eval_step(model: GCN | GAT, graph: Graph, x, truth, *, weight_decay: float):
+def eval_step(model: GCN | GAT | GCNII, graph: Graph, x, truth, *, weight_decay: float):
     """Evaluation forward (training=false): (loss incl. L2, acc) (gcn.cpp:120-128)."""
     with span("train.eval"):
         loss, _, acc = model.loss_fn(graph, x, truth, weight_decay=weight_decay)

@@ -30,7 +30,7 @@ from cuda_gcn_tpu.config import GCNConfig as JConfig
 from cuda_gcn_torch import cli as tcli
 from cuda_gcn_torch import convert, graphs, kernels
 from cuda_gcn_torch import train as ttrain
-from cuda_gcn_torch.config import GAT_FIELDS, GCNConfig
+from cuda_gcn_torch.config import MODEL_FIELDS, GCNConfig
 from cuda_gcn_torch.data import native
 from test_torch_train import to_torch_dataset
 
@@ -534,7 +534,7 @@ def test_cli_takes_every_jax_flag():
     assert options <= port and {"--platform", "--compilation-cache", "--prime-cache"} <= port
     port_cfg = dataclasses.asdict(tcli.config_from_args(tcli.build_argparser().parse_args(
         ["synth-cora", "--prime-cache", "--platform", "cpu", "--compilation-cache", ""])))
-    assert {k: v for k, v in port_cfg.items() if k not in GAT_FIELDS} \
+    assert {k: v for k, v in port_cfg.items() if k not in MODEL_FIELDS} \
         == dataclasses.asdict(jcli.config_from_args(jcli.build_argparser().parse_args(
             ["synth-cora", "--prime-cache", "--platform", "cpu", "--compilation-cache", ""])))
-    assert port_cfg["model"] == "gcn"  # the GAT's fields: the port's own
+    assert port_cfg["model"] == "gcn"  # the GAT's and GCNII's fields: the port's own

@@ -22,7 +22,7 @@ import torch
 from cuda_gcn_tpu import cli as jcli
 
 from cuda_gcn_torch import cli as tcli
-from cuda_gcn_torch.config import GAT_FIELDS
+from cuda_gcn_torch.config import MODEL_FIELDS
 
 # the port's flag of its GAT, which the JAX package has no model for
 GAT_OPTIONS = {"--model"}
@@ -62,7 +62,7 @@ def test_config_from_args_matches_jax(argv, capsys):
     want = dataclasses.asdict(jcli.config_from_args(jcli.build_argparser().parse_args(argv)))
     want_err = capsys.readouterr().err
     got = dataclasses.asdict(tcli.config_from_args(tcli.build_argparser().parse_args(argv)))
-    assert {k: v for k, v in got.items() if k not in GAT_FIELDS} == want
+    assert {k: v for k, v in got.items() if k not in MODEL_FIELDS} == want
     assert got["model"] == "gcn"
     assert capsys.readouterr().err == want_err
     if any(a in argv for a in ("1", "5", "--num-nodes")):

@@ -18,6 +18,7 @@ from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.data import graph as tgraph
 from cuda_gcn_torch.device import resolve_device
 from cuda_gcn_torch.ops import attention as tatt
+from cuda_gcn_torch.ops import blend as tblend
 from cuda_gcn_torch.ops import bsr as tbsr
 from cuda_gcn_torch.ops import ell as tell
 from cuda_gcn_torch.ops import graphsum as tgs
@@ -162,6 +163,7 @@ def _forbid_plain(monkeypatch):
     monkeypatch.setattr(tbsr, "bsr_tile_contract_plain", plain)
     monkeypatch.setattr(tres, "residual_spmm_plain", plain)
     monkeypatch.setattr(tell, "ell_spmm_plain", plain)
+    monkeypatch.setattr(tblend, "blend_plain", plain)
     monkeypatch.setattr(tprobe, "gather_probe_plain", plain)
     monkeypatch.setattr(tprobe, "scatter_probe_plain", plain)
     monkeypatch.setattr(tmm, "csr_matmul_plain", plain)
@@ -203,6 +205,7 @@ def _wrapper_calls():
     plan = tbsr.TilePlan(_meta(3, **i32), _meta(4, **i32), _meta(4, **i32))
     feats = _meta_features(60, 12, 90)
     ell = _meta_ell_plan(60)
+    ell_graph = tgraph.Graph(n_nodes=60, backend="ell", symmetric=True, total_nnz=180, ell=ell)
     emap = tell.EdgeMap(plan=ell, plan_t=ell, rev=_meta(8 * 60, **i32),
                         partial_rows=_meta(0, **i32), partial_rows_t=_meta(0, **i32))
     s, l = 64, 128
@@ -231,6 +234,7 @@ def _wrapper_calls():
                                         _meta(60, 2), _meta(60, 2, 2), 2, 0.2, 0.0, None)),
         ("gat_cols", lambda: tatt._cols(emap, _meta(60, 16), _meta(60, 16), _meta(60, 2),
                                         _meta(60, 2, 4), 2, 0.2, 0.0, None)),
+        ("ell_blend", lambda: tblend.blend(_meta(60, 16), _meta(60, 16), ell_graph, 0.9, 0.1)),
         ("taa_rows", lambda: tdyn.sublane_gather(_meta(s, 4, **i32), _meta(s, l))),
         ("csr_spmm", lambda: tmm.csr_matmul(feats.values, feats, _meta(12, 16))),
         ("ell_spmm", lambda: tmm.csr_matmul_dw(feats, feats.values, _meta(60, 16))),
@@ -243,10 +247,10 @@ def test_device_tensors_go_to_the_launchers(monkeypatch):
     _forbid_plain(monkeypatch)
     seen = []
     calls = _wrapper_calls()
-    # the dense layer-0 launcher's (xd, zt, ze), which its autograd Function unpacks, and
-    # the attention forward's (out, stats)
+    # the dense layer-0 launcher's (xd, zt, ze), which its autograd Function unpacks, the
+    # attention forward's (out, stats) and the blended pass's out
     made = {"layer0_pair": lambda: (_meta(60, 12), _meta(60, 16), _meta(60, 16)),
-            "gat_forward": lambda: (_meta(60, 16), None)}
+            "gat_forward": lambda: (_meta(60, 16), None), "ell_blend": lambda: _meta(60, 16)}
     for name, _ in calls:
         monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n) or
                             made.get(_n, lambda: None)())

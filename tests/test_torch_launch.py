@@ -378,6 +378,10 @@ def _valid():
             plan_t=_plan(w), partial_rows_t=fake(0, dtype=I32), rev=fake(9, dtype=I32),
             g=fake(60, 16), z=fake(60, 16), sr=fake(60, 2), node=fake(60, 2, 4), heads=2,
             slope=0.2, rate=0.6, seeds=fake(2, dtype=torch.int64))),
+        "ell_blend": (kernels.ell_blend, dict(
+            work_beg=w.beg, work_len=w.len, work_dst=w.dst, split_rows=w.split_rows,
+            split_ptr=w.split_ptr, cols=fake(9, dtype=I32), coef=fake(9), h=fake(60, 16),
+            h0=fake(60, 16), n=60, n_partials=0, a=0.9, b=0.1)),
     }
 
 
@@ -386,15 +390,15 @@ def _valid():
 _DEVICE = {"bsr_tile": "ptr", "csr_spmm": "coef", "ell_spmm": "coef", "gather_probe": "idx",
            "scatter_probe": "coef", "taa_rows": "idx", "taa_lanes": "idx",
            "cumsum_cols": "tab", "piece": "coef", "layer0_pair": "w", "gat_forward": "sl",
-           "gat_rows": "stats", "gat_cols": "node"}
+           "gat_rows": "stats", "gat_cols": "node", "ell_blend": "h0"}
 _DTYPE = {"bsr_tile": "h", "csr_spmm": "cols", "ell_spmm": "work_dst", "gather_probe": "h",
           "scatter_probe": "idx", "taa_rows": "tab", "taa_lanes": "idx", "cumsum_cols": "tab",
           "piece": "end", "layer0_pair": "seeds", "gat_forward": "sr", "gat_rows": "g",
-          "gat_cols": "rev"}
+          "gat_cols": "rev", "ell_blend": "coef"}
 _STRIDED = {"bsr_tile": "tiles", "csr_spmm": "out", "ell_spmm": "coef", "gather_probe": "h",
             "scatter_probe": "h", "taa_rows": "tab", "taa_lanes": "tab", "cumsum_cols": "tab",
             "piece": "tab", "layer0_pair": "x", "gat_forward": "z", "gat_rows": "g",
-            "gat_cols": "z"}
+            "gat_cols": "z", "ell_blend": "h0"}
 
 
 def _shape_fault(name):
@@ -411,7 +415,8 @@ def _shape_fault(name):
             "layer0_pair": dict(w=fake(13, 16)),                # not [F, H]
             "gat_forward": dict(sl=fake(61, 2)),                # not [n, K]
             "gat_rows": dict(stats=fake(60, 2)),                # not [n, K, 2]
-            "gat_cols": dict(rev=fake(8, dtype=I32))}[name]     # not a slot each
+            "gat_cols": dict(rev=fake(8, dtype=I32)),           # not a slot each
+            "ell_blend": dict(h0=fake(61, 16))}[name]           # not [n, d]
 
 
 @pytest.mark.parametrize("name", list(kernels.launches))
@@ -423,8 +428,11 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
     assert call[-1] == 7000  # the current stream of device 0, read at the call
     for o in out if isinstance(out, tuple) else (out,):  # layer0_pair: (xd, zt, ze)
         assert o.dtype == torch.float32 and o.data_ptr() in call
-    if name in ("csr_spmm", "ell_spmm"):  # d = 16 and torch's aligned bases: 16-byte loads
+    if name in ("csr_spmm", "ell_spmm", "ell_blend"):  # d = 16, aligned bases: 16-byte loads
         assert call[12:14] == (16, 4)
+    if name == "ell_blend":  # one half: h0 as both halves' base, out as the upper half's
+        h0 = args["h0"].data_ptr()
+        assert call[14:] == (h0, h0, out.data_ptr(), 16, 0.9, 0.1, 7000)
     if name == "taa_rows":
         assert call[-2] == kernels.TAA_FORMS.index("row") and call[1:4] == (4, 0, 1)
     if name == "taa_lanes":  # a compact bf16 index: 8 rows a group, tiles of 32 columns
@@ -674,3 +682,24 @@ def test_gat_launch_splits_a_padded_head(recorder, name, ld, split):
     assert kernels.gat_layouts == {(name, split[0], split[1], split[3]): 1}
     if name != "gat_rows":
         assert tuple(out[0].shape) == (n, ld)
+
+
+@pytest.mark.parametrize("dh,h0,vec", [(16, True, 4), (6, True, 2), (16, False, 4),
+                                       (5, True, 1)])
+def test_ell_blend_pair_stores_each_half_apart(recorder, dh, h0, vec):
+    """The fused pair's blended pass: h at the concatenated width 2·dh, each
+    half's h0 and out in a tensor of its own; the load width is kernel 3's at
+    2·dh narrowed to one that dh takes; without h0 both of its bases are null."""
+    fn, args = _valid()["ell_blend"]
+    args.update(h=fake(60, 2 * dh), halves=2,
+                h0=(fake(60, dh), fake(60, dh)) if h0 else None)
+    lo, hi = fn(**args)
+    assert [c[0] for c in recorder] == ["ell_blend"]
+    call = recorder[0][1]
+    assert tuple(lo.shape) == tuple(hi.shape) == (60, dh) and lo.data_ptr() != hi.data_ptr()
+    assert call[10] == lo.data_ptr() and call[16] == hi.data_ptr()
+    assert call[12:14] == (2 * dh, vec) and call[17] == dh
+    assert call[14:16] == ((args["h0"][0].data_ptr(), args["h0"][1].data_ptr()) if h0
+                           else (None, None))
+    with pytest.raises(ValueError):
+        fn(**{**args, "h": fake(60, 2 * dh + 1)})  # no two equal halves

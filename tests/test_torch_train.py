@@ -46,16 +46,16 @@ def jax_params(cfg):
 
 
 def test_config_fields_match_jax():
-    """The JAX package's fields and defaults, and beside them the GAT's, which
-    the JAX package has no model for."""
+    """The JAX package's fields and defaults, and beside them the GAT's and
+    GCNII's, which the JAX package has no model for."""
     import dataclasses
 
-    from cuda_gcn_torch.config import GAT_FIELDS
+    from cuda_gcn_torch.config import MODEL_FIELDS
 
     jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(GCNConfig)}
-    assert {k: v for k, v in tf.items() if k not in GAT_FIELDS} == jf
-    assert set(tf) - set(jf) == set(GAT_FIELDS) and tf["model"] == "gcn"
+    assert {k: v for k, v in tf.items() if k not in MODEL_FIELDS} == jf
+    assert set(tf) - set(jf) == set(MODEL_FIELDS) and tf["model"] == "gcn"
 
 
 @pytest.mark.parametrize("pair", [False, True])
