@@ -190,7 +190,18 @@ Phases, each of which raises (exit code not 0) when it fails:
     the device (the profiler) beside its bytes bound (columns, coefficients,
     h, h0 and out once); then GCNII at 64 layers of 64 through the trainer:
     3 epochs of the CUDA graph against the eager loop bit for bit, and a
-    20-epoch job with its launches an epoch, its epoch time and its peak memory.
+    20-epoch job with its launches an epoch (the epilogue's two kernels 64
+    each), its epoch time and its peak memory.
+(y) GCNII's convolution epilogue (csrc/gcnii_epilogue.cu, run after (x)) at
+    synth-reddit's 232,965 rows of 64: the forward (identity mapping, ReLU, the
+    next layer's dropout, both halves side by side or apart) and the backward
+    against their plain version (ops/epilogue.py) and ATen on the card: the
+    mask ``gcnii_keep``'s bit for bit and its keep share within 5 sigma, the
+    outputs within the f32 sums' bound of f64, the kept values ATen's x / (1
+    - p) bit for bit, gz ATen's chain bit for bit, repeatable; a captured
+    launch's replays drawing the eager epochs' fresh masks; each kernel timed
+    by events and on the device beside its bound, and the op beside the ATen
+    chain it replaced.
 
 ``python3 chip_smoke.py --nccl-graphs`` runs (a) and only (s), on every card
 of a machine with two or more: synth-reddit (bsr interiors, dropout 0.5, f32
@@ -209,8 +220,9 @@ It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 with all nine kernels (each with ``host_us_per_call``, the host's share of one
 call), the dense layer-0 kernel (``layer0_pair``, with its times at the
 ``LAYER0_SHAPES``), the bf16 variants of kernels 1-3 (``bsr_tile_bf16``,
-``csr_spmm_bf16``, ``ell_spmm_bf16``) and the GAT's three attention
-kernels (``gat_forward``, ``gat_rows``, ``gat_cols``; kernels 1-3 carry their (n) numbers
+``csr_spmm_bf16``, ``ell_spmm_bf16``), the GAT's three attention
+kernels (``gat_forward``, ``gat_rows``, ``gat_cols``), kernel 3's blended form
+(``ell_blend``) and GCNII's epilogue (``gcnii_epilogue``; kernels 1-3 carry their (n) numbers
 under ``synth_reddit4x``, kernels 1 and 2 their (p) numbers under ``sharded``), and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and prints no result.
 """
@@ -234,7 +246,7 @@ WIDTHS = (16, 32, 41, 82)  # pass widths of the main path: pair 32/82, backward 
 ATOL, RTOL = 1e-5, 1e-4    # f32; only the summation order differs from the plain version
 # the port's device kernels, by a part of their names
 PORT_KERNELS = ("split_planes", "bsr_mma", "bsr_tile", "csr_spmm", "ell_spmm", "reduce_partials",
-                "layer0_flat", "layer0_pair", "layer0_wide", "ell_blend")
+                "layer0_flat", "layer0_pair", "layer0_wide", "ell_blend", "gcnii_epilogue")
 
 
 def log(msg: str) -> None:
@@ -4588,7 +4600,8 @@ def phase_gcnii() -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: v for k, v in kernels.launches.items() if v}
     want = {"ell_blend": 2 * GCNII_LAYERS * GCNII_EPOCHS + 2 * GCNII_LAYERS,
-            "layer0_pair": GCNII_EPOCHS}
+            "layer0_pair": GCNII_EPOCHS, "gcnii_epilogue": GCNII_LAYERS * GCNII_EPOCHS,
+            "gcnii_epilogue_bwd": GCNII_LAYERS * GCNII_EPOCHS}
     log(f"  a {GCNII_EPOCHS}-epoch GCNII job: {job_ms:.3f} ms an epoch, first and last train "
         f"loss {float(m[0, 0]):.5f} {float(m[-1, 0]):.5f}, test loss {test_loss:.5f}; "
         f"launches {launches} (expected {want}); peak allocated {peak:.3f} GiB")
@@ -4599,6 +4612,231 @@ def phase_gcnii() -> dict:
     log(f"  {_clocks()}")
     return dict(rows=rows, spmm_ms=spmm_ms, agree=agree, epoch_ms=job_ms, launches=launches,
                 peak_gib=peak)
+
+
+# (y) GCNII's convolution epilogue (csrc/gcnii_epilogue.cu) at synth-reddit's
+# rows, GCNII's width, its first convolution's θ and its dropout
+EPILOGUE_ROWS, EPILOGUE_RATE = 232965, 0.6
+EPILOGUE_ITERS = 50
+
+
+def _epilogue_inputs(n, h, seed):
+    """st, se [n, h] (the blended passes' scale), g [n, h], W [h, h] as GCNII
+    draws it, and two int64 seeds drawn as the op draws them."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    st, se, g = (torch.randn(n, h, generator=gen, device="cuda") for _ in range(3))
+    w = (torch.rand(h, h, generator=gen, device="cuda") * 2 - 1) * h ** -0.5
+    seeds = torch.empty(2, dtype=torch.int64, device="cuda").random_(generator=gen)
+    return st, se, g, w, seeds
+
+
+def _epilogue_tol(s, w, theta):
+    """Per element, the bound of an f32 epilogue's z off the f64 one: the FMA
+    chain's h·2^-23 of θ·Σ|terms|, and 2^-21 of θ·|s·W| + |s| for the f32
+    constants θ and 1 - θ, the rounding of each term, of z and of the scaled z."""
+    return (theta * s.shape[1] * 2.0 ** -23 * (s.double().abs() @ w.double().abs())
+            + 2.0 ** -21 * (theta * (s.double() @ w.double()).abs() + s.double().abs()) + 1e-30)
+
+
+def _epilogue_check(st, se, g, w, seeds, theta, rate) -> dict:
+    """Both kernels against their plain version and against ATen on the card:
+    the mask bit for bit ``gcnii_keep``'s, its keep share within 5 sigma of
+    1 - p; ht, he within ``_epilogue_tol`` of the f64 epilogue (ReLU's sign
+    free only where z lies within it of 0); the training half at p equal bit
+    for bit to ATen's dropout of the same launch's half at p = 0; gz bit for bit
+    ATen's chain of the kernel's own mask and bits; gs within the bound of
+    the f64 product of that gz; every launch repeatable bit for bit, both
+    layouts of the output equal."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.ops.epilogue import gcnii_keep, unpack_bits
+
+    n, h = st.shape
+    ht, he, keep, relu = kernels.gcnii_epilogue(st, se, w, seeds, theta, rate, True)
+    apart = kernels.gcnii_epilogue(st, se, w, seeds, theta, rate, False)
+    again = kernels.gcnii_epilogue(st, se, w, seeds, theta, rate, True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((ht, he, keep, relu), apart)) or \
+            not all(torch.equal(a, b) for a, b in zip((ht, he, keep, relu), again)):
+        raise AssertionError("(y) the epilogue's launches differ (concat, apart, again)")
+    if not torch.equal(keep, gcnii_keep(seeds.tolist(), n, h, rate, "cuda")):
+        raise AssertionError("(y) the epilogue's mask is not gcnii_keep's")
+    q = 1.0 - rate
+    kept = int(keep.sum())
+    z_keep = (kept - q * keep.numel()) / (q * (1 - q) * keep.numel()) ** 0.5
+    if abs(z_keep) > 5:
+        raise AssertionError(f"(y) keep share {kept}/{keep.numel()} reads {z_keep:.2f} sigma")
+    pos = unpack_bits(relu, h)
+    worst, flips = 0.0, 0
+    for name, got, s, train in (("ht", ht, st, True), ("he", he, se, False)):
+        z = theta * (s.double() @ w.double()) + (1 - theta) * s.double()
+        tol = _epilogue_tol(s, w, theta)
+        near = z.abs() <= tol
+        if train:
+            flips = int(((z > 0) != pos)[~near].sum())
+            if flips:
+                raise AssertionError(f"(y) ReLU's bits differ from the f64 sign at {flips} "
+                                     f"elements away from 0")
+            scale = kernels.gcnii_dropout(rate)[0]
+            want, got_z = torch.where(keep, z.clamp_min(0) * scale, 0.0), got.double()
+            tol = tol * scale
+        else:
+            want, got_z = z.clamp_min(0), got.double()
+        ratio = ((got_z - want).abs() / tol)[~near]
+        worst = max(worst, float(ratio.max()))
+        del z, tol, near, want, got_z
+    if not worst <= 1.0:
+        raise AssertionError(f"(y) the epilogue's outputs lie {worst:.3f} of their bound off f64")
+    # the dropout as ATen takes it on the card, from the same launch at p = 0
+    h0t, _, keep0, relu0 = kernels.gcnii_epilogue(st, se, w, seeds, theta, 0.0, True)
+    if not bool(keep0.all()) or not torch.equal(relu0, relu):
+        raise AssertionError("(y) at p = 0 the epilogue drops an element or moves ReLU's bits")
+    aten = torch.where(keep, h0t / (1.0 - rate), torch.zeros((), device="cuda"))
+    reciprocal = torch.equal(st / (1.0 - rate), st * kernels.gcnii_dropout(rate)[0])
+    if not torch.equal(ht, aten):
+        raise AssertionError(f"(y) the kept values differ from ATen's x / (1 - p) at "
+                             f"{int((ht != aten).sum())} elements (ATen multiplies by the "
+                             f"f32 reciprocal: {reciprocal})")
+    del h0t, keep0, relu0, aten
+    gs, gz = kernels.gcnii_epilogue_bwd(g, keep, relu, w, theta, rate)
+    gs2, gz2 = kernels.gcnii_epilogue_bwd(g, keep, relu, w, theta, rate)
+    want_gz = torch.where(pos, torch.where(keep, g, 0.0) / (1.0 - rate), 0.0)
+    if not (torch.equal(gs, gs2) and torch.equal(gz, gz2)) or not torch.equal(gz, want_gz):
+        raise AssertionError("(y) the backward's gz is not ATen's chain bit for bit, or a "
+                             "second launch differs")
+    ref = theta * (gz.double() @ w.double().t()) + (1 - theta) * gz.double()
+    tol = _epilogue_tol(gz, w.t(), theta)
+    bwd_ratio = float(((gs.double() - ref).abs() / tol).max())
+    if not bwd_ratio <= 1.0:
+        raise AssertionError(f"(y) gs lies {bwd_ratio:.3f} of its bound off f64")
+    err = {"ht": float((ht.double() - torch.where(keep & pos, (theta * (st.double() @ w.double())
+                                                               + (1 - theta) * st.double())
+                                                  * kernels.gcnii_dropout(rate)[0], 0.0))
+                      .abs().max()),
+           "gs": float((gs.double() - ref).abs().max())}
+    log(f"  [{n}, {h}] p={rate} theta={theta:.6f}: mask gcnii_keep's bit for bit, keep "
+        f"{kept}/{keep.numel()} ({z_keep:+.2f} sigma); ht, he at {worst:.3f} of their f64 bound "
+        f"(max |ht - f64| {err['ht']:.3e}); kept values ATen's x / (1 - p) of the p = 0 launch "
+        f"bit for bit (ATen's scalar division is the f32 reciprocal's product: {reciprocal}); gz "
+        f"ATen's chain bit for bit, gs at {bwd_ratio:.3f} of its bound (max |gs - f64| "
+        f"{err['gs']:.3e}); repeatable, both layouts equal, ok")
+    return dict(keep_z=z_keep, err_of_bound=worst, bwd_err_of_bound=bwd_ratio,
+                max_abs_err=err, aten_reciprocal=reciprocal)
+
+
+def _epilogue_graph_masks(seed: int = 11) -> None:
+    """Through the op as training calls it: each of 3 epochs of an
+    ``EpochGraph`` (eager, then capture and replays) draws the mask that a
+    fresh generator of the same seed draws eagerly, epoch by epoch, and
+    consecutive epochs' masks differ."""
+    import torch
+
+    from cuda_gcn_torch import graphs
+    from cuda_gcn_torch.ops.epilogue import gcnii_epilogue
+
+    st, se, _, w, _ = _epilogue_inputs(19717, 64, 3)
+    seen = torch.zeros(st.shape, dtype=torch.bool, device="cuda")
+
+    def keep(t):
+        if t.dtype == torch.bool and t.shape == st.shape:
+            seen.copy_(t)
+        return t
+
+    def run(gen):
+        def step():
+            with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+                gcnii_epilogue(st.requires_grad_(True), se, w, 0.4, EPILOGUE_RATE, gen, True)
+        return step
+
+    masks = {}
+    for how in ("graph", "eager"):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        step = run(gen)
+        fn = graphs.EpochGraph(step, (gen,), ()).run if how == "graph" else step
+        masks[how] = []
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            masks[how].append(seen.clone())
+    same = [torch.equal(a, b) for a, b in zip(masks["graph"], masks["eager"])]
+    differ = [not torch.equal(a, b) for a, b in zip(masks["graph"], masks["graph"][1:])]
+    log(f"  a captured epilogue and its replays draw the eager epochs' masks {same}; "
+        f"consecutive epochs' masks differ {differ}")
+    if not all(same) or not all(differ):
+        raise AssertionError("(y) the graph's masks are not the eager epochs' fresh masks")
+
+
+def phase_gcnii_epilogue() -> dict:
+    """(y) GCNII's convolution epilogue (csrc/gcnii_epilogue.cu): both kernels
+    against their plain version and ATen at synth-reddit's rows, a captured
+    launch's replays against eager epochs, then each kernel timed by events
+    and on the device (the profiler) beside its bound (bytes, or the f32
+    FMAs) and beside the ATen chain it replaced (``library_ms``), forward
+    alone and forward with backward; the launch counters of a training epoch
+    are phase (x)'s."""
+    import torch
+
+    from cuda_gcn_torch import kernels
+    from cuda_gcn_torch.device import resolve_device
+    from cuda_gcn_torch.models.gcnii import theta as theta_of
+    from cuda_gcn_torch.ops.dropout import dropout
+    from cuda_gcn_torch.ops.epilogue import gcnii_epilogue
+
+    resolve_device("cuda")
+    log(f"(y) GCNII's convolution epilogue; {_clocks()}")
+    n, h, rate = EPILOGUE_ROWS, GCNII_WIDTH, EPILOGUE_RATE
+    st, se, g, w, seeds = _epilogue_inputs(n, h, 1)
+    checks = {}
+    for layer in (1, GCNII_LAYERS):
+        checks[layer] = _epilogue_check(st, se, g, w, seeds, theta_of(0.5, layer), rate)
+    checks["p=0.5"] = _epilogue_check(st, se, g, w, seeds, theta_of(0.5, 1), 0.5)
+    _epilogue_graph_masks()
+    theta = theta_of(0.5, 1)
+    _, _, keep, relu = kernels.gcnii_epilogue(st, se, w, seeds, theta, rate, True)
+    stg, wg = st.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def aten_forward():
+        zt = torch.addmm(stg, stg, wg, beta=1.0 - theta, alpha=theta)
+        hd = dropout(torch.relu(zt), rate, gen, True)
+        with torch.no_grad():
+            he = torch.relu(torch.addmm(se, se, w, beta=1.0 - theta, alpha=theta))
+        return torch.cat([hd, he], dim=1), hd
+
+    def aten_both():
+        _, hd = aten_forward()
+        torch.autograd.grad(hd, (stg, wg), g)
+
+    def fused_both():
+        ht, _ = gcnii_epilogue(stg, se, wg, theta, rate, gen, True)
+        torch.autograd.grad(ht, (stg, wg), g)
+
+    fns = {"forward": lambda: kernels.gcnii_epilogue(st, se, w, seeds, theta, rate, True),
+           "backward": lambda: kernels.gcnii_epilogue_bwd(g, keep, relu, w, theta, rate),
+           "op_both": fused_both, "aten_forward": aten_forward, "aten_both": aten_both}
+    ms = {k: cuda_ms(fn, EPILOGUE_ITERS) for k, fn in fns.items()}
+    device = {k: _device_us(fns[k]) for k in ("forward", "backward")}
+    item = 4
+    work = {"forward": (n * h * (4 * item + 1) + n * h // 8, 2 * 2 * n * h * h),
+            "backward": (n * h * (3 * item + 1) + n * h // 8, 2 * n * h * h)}
+    rows = {}
+    for k, (nbytes, flops) in work.items():
+        bound, by = _bound(nbytes, flops)
+        rows[k] = dict(ms=ms[k], device_us=device[k], bound_ms=bound, bound_by=by, bytes=nbytes,
+                       flops=flops)
+        log(f"  {k}: {ms[k]:.4f} ms (device {device[k] / 1e3:.4f} ms), bound {bound:.4f} ms "
+            f"({by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP): {100 * bound / ms[k]:.1f}% "
+            f"of it")
+    log(f"  ATen's chain it replaced: forward {ms['aten_forward']:.4f} ms (addmm, ReLU, dropout "
+        f"of each half's training half, the concatenation), forward with backward "
+        f"{ms['aten_both']:.4f} ms; the op (kernels, seeds, dW by cuBLAS) forward with backward "
+        f"{ms['op_both']:.4f} ms")
+    log(f"  {_clocks()}")
+    return dict(rows=rows, library_ms=ms["aten_forward"], library_both_ms=ms["aten_both"],
+                op_both_ms=ms["op_both"], checks=checks)
 
 
 def main() -> int:
@@ -4662,6 +4900,7 @@ def main() -> int:
     layer0_pair = phase_layer0_pair()
     gat = phase_gat()
     gcnii = phase_gcnii()
+    epilogue = phase_gcnii_epilogue()
     text_launches = phase_text_entry()
     cli_timers = phase_cli_extras()
     shard = phase_sharded()
@@ -4741,6 +4980,13 @@ def main() -> int:
         "launches": gcnii["launches"]["ell_blend"], "ms": gcnii["rows"],
         "kernel3_ms": gcnii["spmm_ms"], "graph_agree": gcnii["agree"],
         "epoch_ms": gcnii["epoch_ms"], "peak_gib": gcnii["peak_gib"]})
+    kernels_line.append({  # (y): GCNII's convolution epilogue, both kernels
+        "name": "gcnii_epilogue", "route": "cuda", "source": "cuda_gcn_torch/csrc/gcnii_epilogue.cu",
+        "replaces": "none in the JAX package (it has no GCNII)",
+        "launches": {k: gcnii["launches"][k] for k in ("gcnii_epilogue", "gcnii_epilogue_bwd")},
+        "ms": epilogue["rows"], "library_ms": epilogue["library_ms"],
+        "library_both_ms": epilogue["library_both_ms"], "op_both_ms": epilogue["op_both_ms"],
+        "checks": epilogue["checks"]})
     for line in kernels_line:  # (t): the benchmark entry's measured run
         if line["name"] in bench_run["launches"]:
             line["launches_bench"] = bench_run["launches"][line["name"]]

@@ -20,9 +20,10 @@ loaded, devices are compared by index, and a refusal is worded only when
 there is one.
 
 The GAT's attention kernels (``gat_forward``, ``gat_rows``, ``gat_cols``,
-csrc/gat_attention.cu) and kernel 3's blended form (``ell_blend``, GCNII's
-initial residual) take f32 alone. Kernels 1-3 and the dense layer-0
-kernel (``layer0_pair``) take f32 or bf16
+csrc/gat_attention.cu), kernel 3's blended form (``ell_blend``, GCNII's
+initial residual) and GCNII's convolution epilogue (``gcnii_epilogue``,
+``gcnii_epilogue_bwd``, csrc/gcnii_epilogue.cu) take f32 alone. Kernels 1-3
+and the dense layer-0 kernel (``layer0_pair``) take f32 or bf16
 activations (``ACT_DTYPES``): each C entry gets a dtype code (``dtype_code``,
 ``spmm_code``) and runs the variant built for it, with f32 sums and the
 output in h's type. A type that has no variant is refused here, and by the C
@@ -88,6 +89,12 @@ _ENTRY = {
     "ell_blend": ("ell_spmm", "ell_blend",
                   [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                    ctypes.c_float, ctypes.c_float, _P]),
+    "gcnii_epilogue": ("gcnii_epilogue", "gcnii_epilogue",
+                       [_P, _P, _P, _P, _P, _P, _L, _P, _P, _L, _I, ctypes.c_float,
+                        ctypes.c_float, ctypes.c_float, _L, _P]),
+    "gcnii_epilogue_bwd": ("gcnii_epilogue", "gcnii_epilogue_bwd",
+                           [_P, _P, _P, _P, _P, _P, _L, _I, ctypes.c_float, ctypes.c_float,
+                            ctypes.c_float, _P]),
 }
 SOURCES = sorted({src for src, _, _ in _ENTRY.values()})
 
@@ -1030,3 +1037,87 @@ def gat_cols(plan_t, partial_rows_t, rev, g, z, sr, node, heads: int, slope: flo
               partial.data_ptr(), plan_t.n_partials, k, d // k, *layout, slope, inv_q, thresh,
               _stream(dev))
     return dz, dsr
+
+
+# GCNII's convolution epilogue (csrc/gcnii_epilogue.cu): built for rows of
+# these widths.
+GCNII_EPILOGUE_WIDTHS = (64,)
+
+
+def gcnii_dropout(rate: float) -> tuple[float, int]:
+    """The epilogue's dropout at ``rate`` (0 <= rate <= 1): the factor of a
+    kept value, 1/q in f32 for q = 1 - rate in f32, divided in f32 as ATen
+    does for x / (1 - rate) with a host scalar on the card (0 where q is 0:
+    nothing is kept); and the threshold below which a 32-bit word keeps its
+    element, q·2^32 (2^32 at rate 0: every word)."""
+    if not 0.0 <= rate <= 1.0:
+        raise ValueError(f"gcnii_epilogue: dropout rate must lie in [0, 1], got {rate}")
+    q = np.float32(1.0 - rate)
+    return (float(np.float32(1.0) / q) if q > 0 else 0.0), round(float(q) * 2.0**32)
+
+
+def _gcnii_check(name: str, rows: dict, w) -> int:
+    """The device index of the epilogue's launch: each of ``rows`` ({name:
+    tensor}) f32 [n, H] on one card, contiguous, for one H of
+    ``GCNII_EPILOGUE_WIDTHS``; W f32 [H, H]."""
+    first = next(iter(rows.values()))
+    dev = _on_cuda(first, name)
+    for what, t in rows.items():
+        _check(t, what, torch.float32, dev)
+    _check(w, "w", torch.float32, dev)
+    n, h = first.shape if first.dim() == 2 else (-1, -1)
+    if h not in GCNII_EPILOGUE_WIDTHS or tuple(w.shape) != (h, h) \
+            or any(tuple(t.shape) != (n, h) for t in rows.values()):
+        raise ValueError(f"{name}: rows [n, H] with H in {GCNII_EPILOGUE_WIDTHS} and W [H, H], "
+                         f"got {[tuple(t.shape) for t in rows.values()]}, {tuple(w.shape)}")
+    return dev
+
+
+def gcnii_epilogue(st, se, w, seeds, theta: float, rate: float, concat: bool):
+    """Launch GCNII's convolution epilogue on the blended passes st, se (f32
+    [n, H]) and the convolution's W (f32 [H, H]): returns (ht, he, keep,
+    relu). ht = keep ? ReLU(z_t) / (1 - rate) : 0 and he = ReLU(z_e), z =
+    theta·(s·W) + (1 - theta)·s of each half, are [n, H] views of one [n, 2H]
+    buffer side by side where ``concat`` (the next blended pass's input), else
+    tensors of their own; keep is the mask drawn in the kernel by Philox
+    under ``seeds`` (two int64 on the device: key and counter offset), bool
+    [n, H]; relu holds z_t > 0 as bits, int32 [n, H/32] (bit c % 32 of word c
+    / 32 is column c)."""
+    dev = _gcnii_check("gcnii_epilogue", {"st": st, "se": se}, w)
+    _check(seeds, "seeds", torch.int64, dev)
+    if seeds.numel() != 2:
+        raise ValueError(f"gcnii_epilogue: 2 seeds, got {seeds.numel()}")
+    scale, thresh = gcnii_dropout(rate)
+    n, h = st.shape
+    if concat:
+        both = torch.empty(n, 2 * h, dtype=torch.float32, device=st.device)
+        ht, he = both[:, :h], both[:, h:]
+    else:
+        ht, he = torch.empty_like(st), torch.empty_like(st)
+    keep = torch.empty(n, h, dtype=torch.bool, device=st.device)
+    relu = torch.empty(n, -(-h // 32), dtype=torch.int32, device=st.device)
+    if n:
+        _call("gcnii_epilogue", st.data_ptr(), se.data_ptr(), w.data_ptr(), seeds.data_ptr(),
+              ht.data_ptr(), he.data_ptr(), ht.stride(0), keep.data_ptr(), relu.data_ptr(), n,
+              h, theta, 1.0 - theta, scale, thresh, _stream(dev))
+    return ht, he, keep, relu
+
+
+def gcnii_epilogue_bwd(g, keep, relu, w, theta: float, rate: float):
+    """Launch the epilogue's backward for the training half: g (f32 [n, H]),
+    the gradient of ht, with the forward's keep and relu and W: returns (gs,
+    gz), gz = [z_t > 0]·(keep ? g / (1 - rate) : 0) and gs = theta·(gz·Wᵀ) +
+    (1 - theta)·gz, f32 [n, H]."""
+    dev = _gcnii_check("gcnii_epilogue_bwd", {"g": g}, w)
+    n, h = g.shape
+    _check(keep, "keep", torch.bool, dev)
+    _check(relu, "relu", torch.int32, dev)
+    if tuple(keep.shape) != (n, h) or tuple(relu.shape) != (n, -(-h // 32)):
+        raise ValueError(f"gcnii_epilogue_bwd: keep [n, H] and relu [n, H/32], got "
+                         f"{tuple(keep.shape)}, {tuple(relu.shape)}")
+    scale, _ = gcnii_dropout(rate)
+    gs, gz = torch.empty_like(g), torch.empty_like(g)
+    if n:
+        _call("gcnii_epilogue_bwd", g.data_ptr(), keep.data_ptr(), relu.data_ptr(), w.data_ptr(),
+              gz.data_ptr(), gs.data_ptr(), n, h, theta, 1.0 - theta, scale, _stream(dev))
+    return gs, gz

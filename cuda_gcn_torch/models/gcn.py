@@ -68,7 +68,9 @@ class GraphModel(nn.Module):
     Layer 0 is ``_layer0_transform`` / ``layer0_pair``, every other layer
     the hook ``_transform`` of dropout(h) (by default ``dense_matmul(dropout(h),
     W)``; ``_transform_pair`` the pair's, by default the halves apart, the
-    evaluation half's without a gradient); a model's hooks ``_layer`` and
+    evaluation half's without a gradient, of the pair that ``_dropped_pair``
+    makes of the previous layer's output, by default dropout(h_t) and h_e as
+    it is); a model's hooks ``_layer`` and
     ``_layer_pair`` (by default the halves apart, the evaluation half without
     dropout or gradient) turn the product into the layer's output, with the
     caller's Â-sums ``graphsums`` (single, pair). Where a model ``keeps_h0``,
@@ -126,13 +128,18 @@ class GraphModel(nn.Module):
             if i == 0:
                 zt, ze = layer0_pair(x, w, dropout_rate, generator)
             else:
-                hd = dropout(ht, dropout_rate, generator, True)
+                hd, he = self._dropped_pair(i, ht, he, dropout_rate, generator)
                 del ht  # no hook reads it: the GAT's ELU output is not held through both halves
                 zt, ze = self._transform_pair(i, hd, he, w, h0, graph)
             ht, he = self._layer_pair(i, zt, ze, graph, graphsums, generator)
             if i == 0 and self.keeps_h0:
                 h0 = (ht, he)
         return ht, he
+
+    def _dropped_pair(self, i: int, ht, he, rate: float, generator):
+        """Layer i's input pair from layer i − 1's output pair: the training
+        half dropped out, the evaluation half as it is."""
+        return dropout(ht, rate, generator, True), he
 
     def _transform(self, i: int, hd, w, h0, graph):
         """Layer i's product of its dropped-out input ``hd``."""

@@ -30,7 +30,12 @@ convolution aggregates before it multiplies (``_transform``): the initial
 residual is one pass of kernel 3's blended form (ops/blend.py), the identity
 mapping one ``addmm(s, s, W_l, beta=1−θ_l, alpha=θ_l)``; the fused pair takes
 both halves in one blended pass at the concatenated width, then each half's
-addmm. The output layer is ``addmm(b_out, dropout(h_L), W_out)``. GCNII runs
+addmm. On the card the pair's convolution ends instead in one launch of the
+epilogue's kernel (ops/epilogue.py): the identity mapping, the ReLU and the
+next layer's dropout of both halves, written side by side into the next
+blended pass's input; the loop's hooks hand the blended pass on to the next
+layer's ``_dropped_pair``, which launches it. The output layer is
+``addmm(b_out, dropout(h_L), W_out)``. GCNII runs
 on the ``ell`` and ``pallas`` backends (``backends``; 'auto' picks ``ell``),
 in float32, on one device.
 """
@@ -44,6 +49,7 @@ from torch import nn
 
 from cuda_gcn_torch.models.gcn import GraphModel
 from cuda_gcn_torch.ops.blend import blend, blend_pair
+from cuda_gcn_torch.ops.epilogue import fuses, gcnii_epilogue
 
 
 def theta(lamda: float, layer: int) -> float:
@@ -99,13 +105,27 @@ class GCNII(GraphModel):
     def _transform_pair(self, i: int, hdt, he, w, h0, graph):
         """Convolution i of both halves: one blended pass at the concatenated
         width, then each half's identity mapping (the evaluation half's
-        without a gradient)."""
+        without a gradient); where the epilogue's kernels take the pass, the
+        pass alone (its identity mapping is the epilogue's, ``_dropped_pair``)."""
         if i > len(self.thetas):
             return super()._transform_pair(i, hdt, he, w, h0, graph)
         st, se = blend_pair(hdt, he, *h0, graph, 1.0 - self.alpha, self.alpha)
+        if fuses(st):
+            return st, se
         zt = self._identity_map(i, st, w)
         with torch.no_grad():
             return zt, self._identity_map(i, se, w)
+
+    def _dropped_pair(self, i: int, ht, he, rate: float, generator):
+        """Layer i's input pair. After a convolution whose blended pass the
+        epilogue's kernels take (``ht``, ``he``: that pass), one launch of the
+        epilogue: the convolution's identity mapping, its ReLU and this
+        layer's dropout, both halves side by side in the next blended pass's
+        input (apart for the output layer). Else dropout(h_t), h_e."""
+        if i < 2 or not fuses(ht):
+            return super()._dropped_pair(i, ht, he, rate, generator)
+        return gcnii_epilogue(ht, he, getattr(self, f"w{i - 1}"), self.thetas[i - 2], rate,
+                              generator, concat=i <= len(self.thetas))
 
     def _identity_map(self, i: int, s, w):
         t = self.thetas[i - 1]
@@ -116,6 +136,13 @@ class GCNII(GraphModel):
         if i == 0:
             return torch.relu(z + self.b_in)
         return torch.relu(z) if i <= len(self.thetas) else z
+
+    def _layer_pair(self, i: int, zt, ze, graph, graphsums, generator):
+        """As ``_layer`` a half; a convolution whose blended pass the
+        epilogue's kernels take hands the pass on whole (``_dropped_pair``)."""
+        if 1 <= i <= len(self.thetas) and fuses(zt):
+            return zt, ze
+        return super()._layer_pair(i, zt, ze, graph, graphsums, generator)
 
     def l2_penalty(self, weight_decay: float) -> torch.Tensor:
         """conv_weight_decay/2 · Σ_l ||W_l||² + weight_decay/2 · (||W_in||² +

@@ -44,9 +44,7 @@ import torch
 
 from cuda_gcn_torch import kernels
 from cuda_gcn_torch.ops.ell import EdgeMap
-from cuda_gcn_torch.ops.matmul import philox4x32
-
-_U32 = 0xFFFFFFFF
+from cuda_gcn_torch.ops.matmul import philox_keep
 
 
 def attention_keep(seeds, slots: torch.Tensor, heads: int, rate: float) -> torch.Tensor:
@@ -55,15 +53,7 @@ def attention_keep(seeds, slots: torch.Tensor, heads: int, rate: float) -> torch
     of the Philox4x32-10 call under the key seeds[0], at the counter (s·⌈K/4⌉
     + k/4 as two words, then the offset seeds[1] as two), lies below
     ``kernels.gat_keep(rate)``'s threshold."""
-    seed, offset = (int(v) % 2**64 for v in seeds)
-    thresh = kernels.gat_keep(rate)[2]
-    calls = -(-heads // 4)
-    c = (slots.long()[:, None] * calls
-         + torch.arange(calls, dtype=torch.int64, device=slots.device)).reshape(-1)
-    ctr = torch.stack([c & _U32, c >> 32, torch.full_like(c, offset & _U32),
-                       torch.full_like(c, offset >> 32)], dim=-1)
-    u = philox4x32((seed & _U32, seed >> 32), ctr).reshape(len(slots), calls * 4)
-    return u[:, :heads] < thresh
+    return philox_keep(seeds, slots, heads, kernels.gat_keep(rate)[2])
 
 
 def head_stride(fh: int) -> int:

@@ -72,24 +72,41 @@ def blend(h: torch.Tensor, h0: torch.Tensor, graph: Graph, a: float, b: float) -
     return _Blend.apply(h, h0, graph, a, b)
 
 
+def side_by_side(ht: torch.Tensor, he: torch.Tensor) -> torch.Tensor | None:
+    """The [N, 2d] tensor whose column halves are ht and he [N, d], where they
+    lie so in one buffer (GCNII's epilogue writes them so: ops/epilogue.py);
+    else None."""
+    n, d = ht.shape
+    if (he.shape == ht.shape and he.dtype == ht.dtype and ht.stride() == he.stride() == (2 * d, 1)
+            and he.data_ptr() == ht.data_ptr() + d * ht.element_size()
+            and he.untyped_storage().data_ptr() == ht.untyped_storage().data_ptr()):
+        return ht.as_strided((n, 2 * d), (2 * d, 1))
+    return None
+
+
 class _BlendPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ht, he, h0t, h0e, graph, a, b):
         ctx.graph, ctx.a, ctx.b = graph, a, b
-        st, se = _pass(graph.ell, torch.cat([ht, he], dim=1), (h0t.contiguous(),
-                                                                h0e.contiguous()), a, b, 2)
+        both = side_by_side(ht, he)
+        st, se = _pass(graph.ell, torch.cat([ht, he], dim=1) if both is None else both,
+                       (h0t.contiguous(), h0e.contiguous()), a, b, 2)
         ctx.mark_non_differentiable(se)
+        ctx.set_materialize_grads(False)  # se has none: no [N, d] of zeros for it
         return st, se
 
     @staticmethod
     def backward(ctx, g_t, g_e):
+        if g_t is None:
+            return (None,) * 7
         return _transposed(g_t, ctx.graph, ctx.a), None, ctx.b * g_t, None, None, None, None
 
 
 def blend_pair(ht: torch.Tensor, he: torch.Tensor, h0t: torch.Tensor, h0e: torch.Tensor,
                graph: Graph, a: float, b: float):
-    """(a·Â·ht + b·h0t, a·Â·he + b·h0e) in one pass at the concatenated width;
-    only the training half (ht, h0t) is differentiated, the evaluation half
-    is detached."""
+    """(a·Â·ht + b·h0t, a·Â·he + b·h0e) in one pass at the concatenated width
+    (ht and he read in place where they lie ``side_by_side``); only the
+    training half (ht, h0t) is differentiated, the evaluation half is
+    detached."""
     st, se = _BlendPair.apply(ht, he.detach(), h0t, h0e.detach(), graph, a, b)
     return st, se.detach()

@@ -99,6 +99,23 @@ def philox4x32(key, ctr: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
+def philox_keep(seeds, rows: torch.Tensor, cols: int, thresh: int) -> torch.Tensor:
+    """[len(rows), cols] bool on ``rows``' device: element (i, c) is kept where
+    word c % 4 of the Philox call under the key seeds[0], at the counter
+    (rows[i]·⌈cols/4⌉ + c/4 as two words, then the offset seeds[1] as two), lies
+    below ``thresh``: the layout of the attention kernels' masks and of GCNII's
+    epilogue's (ops/attention.py ``attention_keep``, ops/epilogue.py
+    ``gcnii_keep``)."""
+    seed, offset = (int(v) % 2**64 for v in seeds)
+    calls = -(-cols // 4)
+    c = (rows.long()[:, None] * calls
+         + torch.arange(calls, dtype=torch.int64, device=rows.device)).reshape(-1)
+    ctr = torch.stack([c & _U32, c >> 32, torch.full_like(c, offset & _U32),
+                       torch.full_like(c, offset >> 32)], dim=-1)
+    u = philox4x32((seed & _U32, seed >> 32), ctr).reshape(len(rows), calls * 4)
+    return u[:, :cols] < thresh
+
+
 def layer0_keep(seeds, n: int, f: int, rate: float, device=None) -> torch.Tensor:
     """The dense layer-0 kernel's mask, [n, f] bool on ``device``. Each
     element takes ``bits`` of a uniform (``kernels.dropout_keep(rate)``) and is

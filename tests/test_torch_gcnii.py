@@ -24,11 +24,14 @@ import pytest
 import torch
 from test_torch_gat import assert_close, gat_config, skewed_dataset
 
-from cuda_gcn_torch import cli, train
+from cuda_gcn_torch import cli, kernels, train
 from cuda_gcn_torch.config import GCNConfig
 from cuda_gcn_torch.models import gcn as tgcn
+from cuda_gcn_torch.models import gcnii as gcnii_module
 from cuda_gcn_torch.models.gcnii import GCNII, theta
 from cuda_gcn_torch.ops import blend as tblend
+from cuda_gcn_torch.ops import epilogue as tepi
+from cuda_gcn_torch.ops import matmul as tmm
 from cuda_gcn_torch.ops.dropout import dropout
 from cuda_gcn_torch.ops.matmul import dense_matmul
 from cuda_gcn_torch.parallel import sharded
@@ -438,3 +441,265 @@ def test_gcnii_config_round_trips():
     cfg = gcnii_config(0.6)
     assert dataclasses.replace(cfg, seed=3).layers == LAYERS
     assert train.model_class(cfg) is GCNII and GCNII.graph_backend("auto", N) == "ell"
+
+
+# ---- the convolution epilogue (ops/epilogue.py) -------------------------------
+
+def _epilogue_inputs(n=N, h=H, dtype=torch.float32, seed=4):
+    gen = torch.Generator().manual_seed(seed)
+    st, se, g = (torch.randn(n, h, generator=gen, dtype=dtype) for _ in range(3))
+    w = ((torch.rand(h, h, generator=gen, dtype=dtype) * 2 - 1) * h ** -0.5)
+    seeds = torch.empty(2, dtype=torch.int64).random_(generator=gen)
+    return st, se, g, w, seeds
+
+
+@pytest.mark.parametrize("concat", [True, False])
+@pytest.mark.parametrize("rate", [0.6, 0.5, 0.0])
+def test_epilogue_plain_is_the_aten_chain(concat, rate):
+    """The plain epilogue of a convolution (layer 3's θ) is what ATen's chain
+    gave, with the epilogue's mask: each half's addmm(s, s, W, 1 − θ, θ) and
+    ReLU, the training half dropped out, forward within the f32 rounding
+    of its product and backward (gs, dW) within that of theirs; the halves
+    side by side in one [N, 2H] tensor where ``concat``, else apart."""
+    st, se, g, w, seeds = _epilogue_inputs()
+    t = theta(0.5, 3)
+    stl, wl = st.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ht, he = tepi._Epilogue.apply(stl, wl, se, seeds, t, rate, concat)
+    keep = tepi.gcnii_keep(seeds.tolist(), N, H, rate)
+    sa, wa = st.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want_t = torch.where(keep, torch.relu(torch.addmm(sa, sa, wa, beta=1.0 - t, alpha=t))
+                         / (1.0 - rate), torch.zeros(()))
+    want_e = torch.relu(torch.addmm(se, se, w, beta=1.0 - t, alpha=t))
+    torch.testing.assert_close(ht, want_t.detach(), rtol=2e-6, atol=1e-6)
+    torch.testing.assert_close(he, want_e, rtol=2e-6, atol=1e-6)
+    assert ht.requires_grad and not he.requires_grad
+    if concat:
+        assert tblend.side_by_side(ht, he) is not None
+        assert ht.data_ptr() + 4 * H == he.data_ptr() and ht.stride() == (2 * H, 1)
+    else:
+        assert ht.is_contiguous() and he.is_contiguous() and tblend.side_by_side(ht, he) is None
+    gs, dw = torch.autograd.grad(ht, (stl, wl), g)
+    want_gs, want_dw = torch.autograd.grad(want_t, (sa, wa), g)
+    torch.testing.assert_close(gs, want_gs, rtol=2e-6, atol=1e-6)
+    torch.testing.assert_close(dw, want_dw, rtol=2e-5, atol=1e-5)
+
+
+def test_epilogue_gradients_pass_gradcheck_in_f64():
+    """The epilogue's backward (its plain version, as the kernel computes it)
+    against numerical derivatives in f64, in s_t and W, with a mask drawn."""
+    st, se, _, w, seeds = _epilogue_inputs(n=12, h=8, dtype=torch.float64)
+    st.requires_grad_(True)
+    w.requires_grad_(True)
+
+    def fn(s, m):
+        return tepi._Epilogue.apply(s, m, se, seeds, theta(0.5, 2), 0.6, True)[0]
+
+    assert torch.autograd.gradcheck(fn, (st, w), eps=1e-6, atol=1e-8, rtol=1e-6)
+    assert int(tepi.gcnii_keep(seeds.tolist(), 12, 8, 0.6).sum()) not in (0, 96)
+
+
+def test_epilogue_gradients_through_a_convolution_in_f64(prepared):
+    """A convolution of the pair on the small graph, (1 − α)·Â·h + α·h0 with
+    Â dense in f64 (the blended pass's plain form sums in f32), then the
+    epilogue: gradcheck in f64 of the training half in h, h0 and W (a width
+    of 4, a few rows)."""
+    _, graph, _, _ = prepared
+    adj = dense_adj(graph)
+    gen = torch.Generator().manual_seed(8)
+    h, h0, se = (torch.randn(N, 4, generator=gen, dtype=torch.float64) for _ in range(3))
+    w = torch.randn(4, 4, generator=gen, dtype=torch.float64) * 0.5
+    seeds = torch.tensor([5, 6])
+    picks = torch.tensor([0, 7, 123, 399])
+
+    def fn(a, b, m):
+        st = 0.9 * (adj @ a) + 0.1 * b
+        return tepi._Epilogue.apply(st, m, se, seeds, theta(0.5, 1), 0.5, True)[0][picks]
+
+    leaves = [t.clone().requires_grad_(True) for t in (h, h0, w)]
+    assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-8, rtol=1e-6,
+                                    fast_mode=True)
+
+
+def test_gcnii_keep_restates_the_kernel_layout():
+    """Element (r, c) of the mask is word c % 4 of Philox at counter r·H/4 +
+    c/4 (two words) and the offset (two words) under the seed as its key,
+    kept below q·2^32; each launch's seeds give a mask of their own; the keep
+    share is near 1 − p; p = 0 keeps every element and p = 1 none."""
+    n, h, rate = 300, 64, 0.6
+    seeds = [0x123456789ABCDEF0 - 2**64, 0x0FEDCBA987654321]
+    keep = tepi.gcnii_keep(seeds, n, h, rate)
+    seed, offset = (v % 2**64 for v in seeds)
+    thresh = kernels.gcnii_dropout(rate)[1]
+    for r, c in [(0, 0), (0, 5), (7, 63), (299, 32), (150, 17)]:
+        call = r * (h // 4) + c // 4
+        u = tmm.philox4x32((seed & 0xFFFFFFFF, seed >> 32), torch.tensor(
+            [[call & 0xFFFFFFFF, call >> 32, offset & 0xFFFFFFFF, offset >> 32]]))
+        assert bool(keep[r, c]) == (int(u[0, c % 4]) < thresh)
+    q = 1.0 - rate
+    z = (int(keep.sum()) - q * keep.numel()) / (q * (1 - q) * keep.numel()) ** 0.5
+    assert abs(z) < 5, z
+    others = [tepi.gcnii_keep([seeds[0], seeds[1] + k], n, h, rate) for k in (1, 2)]
+    others.append(tepi.gcnii_keep([seeds[0] + 1, seeds[1]], n, h, rate))
+    assert all(not torch.equal(keep, o) for o in others)
+    agree = float((keep == others[0]).float().mean())
+    assert abs(agree - (q * q + (1 - q) ** 2)) < 0.02, agree
+    assert bool(tepi.gcnii_keep(seeds, n, h, 0.0).all())
+    assert not bool(tepi.gcnii_keep(seeds, n, h, 1.0).any())
+
+
+@pytest.mark.parametrize("rate,scale,thresh", [(0.6, 2.5, 1717986944), (0.5, 2.0, 2**31),
+                                               (0.0, 1.0, 2**32), (1.0, 0.0, 0)])
+def test_gcnii_dropout_constants(rate, scale, thresh):
+    """The kept values' factor is 1/q in f32 (q = 1 − p in f32, divided in
+    f32) and the threshold q·2^32, at the edges too; a rate outside [0, 1] is
+    refused."""
+    assert kernels.gcnii_dropout(rate) == (scale, thresh)
+    with pytest.raises(ValueError, match="dropout rate"):
+        kernels.gcnii_dropout(1.5)
+
+
+@pytest.mark.parametrize("h", [64, 16, 40])
+def test_relu_bits_round_trip(h):
+    """ReLU's sign packs into ⌈h/32⌉ int32 words a row, bit c % 32 of word
+    c / 32 for column c (bit 31 too), and unpacks to itself."""
+    pos = torch.rand(9, h, generator=torch.Generator().manual_seed(h)) < 0.5
+    pos[0] = True
+    words = tepi.pack_bits(pos)
+    assert words.dtype == torch.int32 and tuple(words.shape) == (9, -(-h // 32))
+    assert torch.equal(tepi.unpack_bits(words, h), pos)
+    assert int(words[0, 0]) == (-1 if h >= 32 else 2**h - 1)
+    assert int(words[1, 0]) & 1 == int(pos[1, 0]) and (int(words[1, 0]) >> 5) & 1 == int(pos[1, 5])
+
+
+def test_the_epilogue_is_for_the_card():
+    """``fuses`` takes f32 card tensors at a built width only: a CPU tensor
+    keeps ATen's chain (the CPU trainers run as before)."""
+    assert kernels.GCNII_EPILOGUE_WIDTHS == (64,)
+    assert not tepi.fuses(torch.zeros(4, 64))
+    assert not tepi.fuses(torch.zeros(4, 64, device="meta"))
+
+
+@pytest.fixture
+def fused_on_cpu(monkeypatch):
+    """GCNII's pair takes the epilogue on the CPU too (its plain version)."""
+    monkeypatch.setattr(gcnii_module, "fuses", lambda s: True)
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_the_epilogue_path_trains_the_reference_steps(prepared, fused_on_cpu, masks):
+    """The fused trainer's pair through the epilogue (its plain version):
+    three Adam steps against the reference, with the masks read back from the
+    tensors the steps save (one bool [N, H] a layer, in layer order: any other
+    order feeds the reference other masks)."""
+    test_three_adam_steps_of_the_fused_trainer(prepared, masks)
+
+
+def test_the_epilogue_path_saves_one_mask_a_layer(prepared, fused_on_cpu):
+    """Through the epilogue a fused step saves exactly layers + 1 bool [N, H]
+    tensors (layer 1's dropout, then one an epilogue), each at the keep share,
+    all distinct; no [N, H] float of a layer's output and no [N, 2H] tensor;
+    the first convolution's input from ATen's dropout, every later one from
+    the epilogue, which launches once a convolution."""
+    ds, graph, x, truths = prepared
+    cfg = ds.apply_config(gcnii_config(0.6))
+    state = train.create_state(cfg, "cpu")
+    saved, calls = [], []
+    real = tepi._Epilogue.forward
+
+    def counted(ctx, *args):
+        calls.append(args[-1])
+        return real(ctx, *args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tepi._Epilogue, "forward", staticmethod(counted))
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t,
+                                                      lambda t: t):
+            train.run_epochs_chunked(state, graph, x, truths[1], truths[2], epochs=1,
+                                     dropout_rate=0.6, weight_decay=5e-4, lr=0.01)
+    assert calls == [True] * (LAYERS - 1) + [False]
+    masks = [t for t in saved if t.dtype == torch.bool and tuple(t.shape) == (N, H)]
+    assert len(masks) == LAYERS + 1
+    assert all(abs(float(m.float().mean()) - 0.4) < 0.05 for m in masks)
+    assert len({m.numpy().tobytes() for m in masks}) == LAYERS + 1
+    assert not [t for t in saved if tuple(t.shape) == (N, 2 * H)]
+    floats = [t for t in saved if t.is_floating_point() and tuple(t.shape) == (N, H)]
+    assert len(floats) == LAYERS + 2  # h0's ReLU, each convolution's s_t, the output's input
+
+
+def test_the_epilogue_path_leaves_the_eval_half_and_the_single_loop(prepared, fused_on_cpu):
+    """Through the epilogue the pair's evaluation half is still the
+    evaluation forward, and the training half's logits differ from it."""
+    test_pair_eval_half_is_the_eval_forward("dense")
+
+
+# ---- the GCN's and the GAT's trainers, as before the epilogue's hook --------
+
+def _pair_before_hook(self, graph, x, *, dropout_rate, generator, graphsums=tgcn.GRAPHSUMS):
+    """``GraphModel.apply_pair`` before ``_dropped_pair``."""
+    h0 = None
+    for i, w in enumerate(self.weights()):
+        if i == 0:
+            zt, ze = tgcn.layer0_pair(x, w, dropout_rate, generator)
+        else:
+            hd = dropout(ht, dropout_rate, generator, True)
+            del ht
+            zt, ze = self._transform_pair(i, hd, he, w, h0, graph)
+        ht, he = self._layer_pair(i, zt, ze, graph, graphsums, generator)
+        if i == 0 and self.keeps_h0:
+            h0 = (ht, he)
+    return ht, he
+
+
+@pytest.mark.parametrize("trainer", ["fused", "early_stopping"])
+@pytest.mark.parametrize("setup", ["gcn-dense", "gcn-sparse", "gcn-3-layers", "gat"])
+def test_gcn_and_gat_trainers_run_as_before_the_hook(setup, trainer, monkeypatch):
+    """Three epochs of the fused and of the early-stopping trainer equal, to
+    the bit (metrics, every parameter, Adam's moments), those of the loop as
+    it stood before ``_dropped_pair``. One thread, as above."""
+    if setup == "gat":
+        cfg = gat_config(rate=0.6)
+    else:
+        cfg = GCNConfig(graphsum_backend="ell", dropout=0.5, reorder="none",
+                        hidden_dims=(16, 8) if setup == "gcn-3-layers" else None,
+                        feature_matmul="sparse" if setup == "gcn-sparse" else "dense")
+    cfg, graph, x, truths = train.prepare(cfg, skewed_dataset(), "cpu")
+    kw = dict(dropout_rate=cfg.dropout, weight_decay=5e-4, lr=0.01)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    runs = []
+    try:
+        for before in (False, True):
+            if before:
+                monkeypatch.setattr(tgcn.GraphModel, "apply_pair", _pair_before_hook)
+            state = train.create_state(cfg, "cpu")
+            if trainer == "fused":
+                rows = train.run_epochs_chunked(state, graph, x, truths[1], truths[2], epochs=3,
+                                                **kw)
+            else:
+                rows, _ = train.run_epochs_es_chunked(state, graph, x, truths[1], truths[2],
+                                                      epochs=3, es_window=10, **kw)
+            runs.append([rows] + [p.detach().clone() for p in state.model.parameters()]
+                        + [t.clone() for t in (*state.opt.m.values(), *state.opt.v.values())])
+    finally:
+        torch.set_num_threads(threads)
+    now, before = runs
+    assert len(now) == len(before)
+    for a, b in zip(now, before):
+        assert torch.equal(a, b)
+
+
+def test_the_evaluation_halves_get_no_gradient_of_zeros(prepared, monkeypatch):
+    """The blended pair's and the epilogue's backwards take the evaluation
+    half's gradient as None: no [N, H] of zeros is made for it a layer."""
+    _, graph, _, _ = prepared
+    st, se, g, w, seeds = _epilogue_inputs()
+    seen = []
+    for cls in (tblend._BlendPair, tepi._Epilogue):
+        real = cls.backward
+        monkeypatch.setattr(cls, "backward", staticmethod(
+            lambda ctx, *grads, _real=real: seen.append(grads[-1]) or _real(ctx, *grads)))
+    h = st.clone().requires_grad_(True)
+    s_t, s_e = tblend.blend_pair(h, se, st, se, graph, 0.9, 0.1)
+    ht, _ = tepi._Epilogue.apply(s_t, w, s_e, seeds, theta(0.5, 1), 0.6, True)
+    torch.autograd.grad(ht, h, g)
+    assert seen == [None, None]

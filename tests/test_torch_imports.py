@@ -21,6 +21,7 @@ from cuda_gcn_torch.ops import attention as tatt
 from cuda_gcn_torch.ops import blend as tblend
 from cuda_gcn_torch.ops import bsr as tbsr
 from cuda_gcn_torch.ops import ell as tell
+from cuda_gcn_torch.ops import epilogue as tepi
 from cuda_gcn_torch.ops import graphsum as tgs
 from cuda_gcn_torch.ops import matmul as tmm
 from cuda_gcn_torch.ops import residual as tres
@@ -164,6 +165,8 @@ def _forbid_plain(monkeypatch):
     monkeypatch.setattr(tres, "residual_spmm_plain", plain)
     monkeypatch.setattr(tell, "ell_spmm_plain", plain)
     monkeypatch.setattr(tblend, "blend_plain", plain)
+    monkeypatch.setattr(tepi, "epilogue_plain", plain)
+    monkeypatch.setattr(tepi, "epilogue_bwd_plain", plain)
     monkeypatch.setattr(tprobe, "gather_probe_plain", plain)
     monkeypatch.setattr(tprobe, "scatter_probe_plain", plain)
     monkeypatch.setattr(tmm, "csr_matmul_plain", plain)
@@ -235,6 +238,12 @@ def _wrapper_calls():
         ("gat_cols", lambda: tatt._cols(emap, _meta(60, 16), _meta(60, 16), _meta(60, 2),
                                         _meta(60, 2, 4), 2, 0.2, 0.0, None)),
         ("ell_blend", lambda: tblend.blend(_meta(60, 16), _meta(60, 16), ell_graph, 0.9, 0.1)),
+        ("gcnii_epilogue", lambda: tepi.gcnii_epilogue(_meta(60, 64), _meta(60, 64),
+                                                       _meta(64, 64), 0.25, 0.6, None, True)),
+        ("gcnii_epilogue_bwd", lambda: tepi._backward(_meta(60, 64),
+                                                      _meta(60, 64, dtype=torch.bool),
+                                                      _meta(60, 2, **i32), _meta(64, 64),
+                                                      0.25, 0.6)),
         ("taa_rows", lambda: tdyn.sublane_gather(_meta(s, 4, **i32), _meta(s, l))),
         ("csr_spmm", lambda: tmm.csr_matmul(feats.values, feats, _meta(12, 16))),
         ("ell_spmm", lambda: tmm.csr_matmul_dw(feats, feats.values, _meta(60, 16))),
@@ -250,7 +259,10 @@ def test_device_tensors_go_to_the_launchers(monkeypatch):
     # the dense layer-0 launcher's (xd, zt, ze), which its autograd Function unpacks, the
     # attention forward's (out, stats) and the blended pass's out
     made = {"layer0_pair": lambda: (_meta(60, 12), _meta(60, 16), _meta(60, 16)),
-            "gat_forward": lambda: (_meta(60, 16), None), "ell_blend": lambda: _meta(60, 16)}
+            "gat_forward": lambda: (_meta(60, 16), None), "ell_blend": lambda: _meta(60, 16),
+            "gcnii_epilogue": lambda: (_meta(60, 64), _meta(60, 64),
+                                       _meta(60, 64, dtype=torch.bool),
+                                       _meta(60, 2, dtype=torch.int32))}
     for name, _ in calls:
         monkeypatch.setattr(kernels, name, lambda *a, _n=name, **k: seen.append(_n) or
                             made.get(_n, lambda: None)())

@@ -382,6 +382,12 @@ def _valid():
             work_beg=w.beg, work_len=w.len, work_dst=w.dst, split_rows=w.split_rows,
             split_ptr=w.split_ptr, cols=fake(9, dtype=I32), coef=fake(9), h=fake(60, 16),
             h0=fake(60, 16), n=60, n_partials=0, a=0.9, b=0.1)),
+        "gcnii_epilogue": (kernels.gcnii_epilogue, dict(
+            st=fake(60, 64), se=fake(60, 64), w=fake(64, 64), seeds=fake(2, dtype=torch.int64),
+            theta=0.25, rate=0.6, concat=True)),
+        "gcnii_epilogue_bwd": (kernels.gcnii_epilogue_bwd, dict(
+            g=fake(60, 64), keep=fake(60, 64, dtype=torch.bool), relu=fake(60, 2, dtype=I32),
+            w=fake(64, 64), theta=0.25, rate=0.6)),
     }
 
 
@@ -390,15 +396,18 @@ def _valid():
 _DEVICE = {"bsr_tile": "ptr", "csr_spmm": "coef", "ell_spmm": "coef", "gather_probe": "idx",
            "scatter_probe": "coef", "taa_rows": "idx", "taa_lanes": "idx",
            "cumsum_cols": "tab", "piece": "coef", "layer0_pair": "w", "gat_forward": "sl",
-           "gat_rows": "stats", "gat_cols": "node", "ell_blend": "h0"}
+           "gat_rows": "stats", "gat_cols": "node", "ell_blend": "h0", "gcnii_epilogue": "se",
+           "gcnii_epilogue_bwd": "keep"}
 _DTYPE = {"bsr_tile": "h", "csr_spmm": "cols", "ell_spmm": "work_dst", "gather_probe": "h",
           "scatter_probe": "idx", "taa_rows": "tab", "taa_lanes": "idx", "cumsum_cols": "tab",
           "piece": "end", "layer0_pair": "seeds", "gat_forward": "sr", "gat_rows": "g",
-          "gat_cols": "rev", "ell_blend": "coef"}
+          "gat_cols": "rev", "ell_blend": "coef", "gcnii_epilogue": "seeds",
+          "gcnii_epilogue_bwd": "relu"}
 _STRIDED = {"bsr_tile": "tiles", "csr_spmm": "out", "ell_spmm": "coef", "gather_probe": "h",
             "scatter_probe": "h", "taa_rows": "tab", "taa_lanes": "tab", "cumsum_cols": "tab",
             "piece": "tab", "layer0_pair": "x", "gat_forward": "z", "gat_rows": "g",
-            "gat_cols": "z", "ell_blend": "h0"}
+            "gat_cols": "z", "ell_blend": "h0", "gcnii_epilogue": "st",
+            "gcnii_epilogue_bwd": "g"}
 
 
 def _shape_fault(name):
@@ -416,7 +425,9 @@ def _shape_fault(name):
             "gat_forward": dict(sl=fake(61, 2)),                # not [n, K]
             "gat_rows": dict(stats=fake(60, 2)),                # not [n, K, 2]
             "gat_cols": dict(rev=fake(8, dtype=I32)),           # not a slot each
-            "ell_blend": dict(h0=fake(61, 16))}[name]           # not [n, d]
+            "ell_blend": dict(h0=fake(61, 16)),                 # not [n, d]
+            "gcnii_epilogue": dict(w=fake(64, 32)),             # not [H, H]
+            "gcnii_epilogue_bwd": dict(relu=fake(60, 3, dtype=I32))}[name]  # not [n, H/32]
 
 
 @pytest.mark.parametrize("name", list(kernels.launches))
@@ -427,12 +438,30 @@ def test_a_valid_call_reaches_the_c_function_once(recorder, name):
     call = recorder[0][1]
     assert call[-1] == 7000  # the current stream of device 0, read at the call
     for o in out if isinstance(out, tuple) else (out,):  # layer0_pair: (xd, zt, ze)
-        assert o.dtype == torch.float32 and o.data_ptr() in call
+        assert o.data_ptr() in call
+        # gcnii_epilogue: (ht, he) f32, then its mask (bool) and ReLU's bits (int32)
+        assert o.dtype == torch.float32 or name == "gcnii_epilogue"
     if name in ("csr_spmm", "ell_spmm", "ell_blend"):  # d = 16, aligned bases: 16-byte loads
         assert call[12:14] == (16, 4)
     if name == "ell_blend":  # one half: h0 as both halves' base, out as the upper half's
         h0 = args["h0"].data_ptr()
         assert call[14:] == (h0, h0, out.data_ptr(), 16, 0.9, 0.1, 7000)
+    if name == "gcnii_epilogue":  # the halves side by side in one [60, 128] buffer; dropout
+        # 0.6: a kept value times 2.5, kept below q·2^32; θ and 1 − θ
+        ht, he, keep, relu = out
+        assert ht.dtype == he.dtype == torch.float32
+        assert keep.dtype == torch.bool and relu.dtype == torch.int32
+        assert tuple(keep.shape) == (60, 64) and tuple(relu.shape) == (60, 2)
+        assert he.data_ptr() == ht.data_ptr() + 4 * 64
+        assert call == (args["st"].data_ptr(), args["se"].data_ptr(), args["w"].data_ptr(),
+                        args["seeds"].data_ptr(), ht.data_ptr(), he.data_ptr(), 128,
+                        keep.data_ptr(), relu.data_ptr(), 60, 64, 0.25, 0.75, 2.5, 1717986944,
+                        7000)
+    if name == "gcnii_epilogue_bwd":  # (gs, gz) after g, keep, relu and W
+        gs, gz = out
+        assert call == (args["g"].data_ptr(), args["keep"].data_ptr(), args["relu"].data_ptr(),
+                        args["w"].data_ptr(), gz.data_ptr(), gs.data_ptr(), 60, 64, 0.25, 0.75,
+                        2.5, 7000)
     if name == "taa_rows":
         assert call[-2] == kernels.TAA_FORMS.index("row") and call[1:4] == (4, 0, 1)
     if name == "taa_lanes":  # a compact bf16 index: 8 rows a group, tiles of 32 columns
